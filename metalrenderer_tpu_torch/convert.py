@@ -1,0 +1,95 @@
+"""Carry the JAX package's objects across to the port.
+
+Scenes, meshes, model matrices, materials, cameras and lighting of
+``metalrenderer_tpu`` (or anything with the same attributes) become the
+port's objects on a given device, leaf by leaf through numpy, so both
+packages can render exactly the same inputs. Intermediate products
+(``TriangleSetup``, pass geometry) convert the same way, so a test can feed
+one kernel's inputs to both packages. Nothing here imports jax: the objects
+are read by attribute and their arrays with ``numpy.asarray``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .passes.pipeline import PassGeometry
+from .raster.geometry import TriangleSetup
+from .scene.camera import OrbitCamera
+from .scene.lights import Lighting, PointLight
+from .scene.materials import Material
+from .scene.mesh import Mesh
+from .scene.scene import Instance, Scene
+
+
+def tensor(x, device="cpu"):
+    """An array-like as a torch tensor of the same dtype on ``device``."""
+    return torch.from_numpy(np.array(np.asarray(x))).to(device)
+
+
+def _f32(x, device="cpu"):
+    return tensor(np.asarray(x, np.float32), device)
+
+
+def _floats(x):
+    a = np.asarray(x, np.float32)
+    return float(a) if a.ndim == 0 else tuple(float(v) for v in a)
+
+
+def mesh_from_jax(m, device="cpu") -> Mesh:
+    return Mesh(positions=_f32(m.positions, device), uvs=_f32(m.uvs, device),
+                normals=_f32(m.normals, device))
+
+
+def material_from_jax(mat, device="cpu") -> Material:
+    return Material(color=_f32(mat.color, device), kind=int(mat.kind),
+                    texture_id=int(mat.texture_id),
+                    normal_map_id=int(mat.normal_map_id))
+
+
+def scene_from_jax(scene, device="cpu") -> Scene:
+    if len(scene.textures):
+        raise NotImplementedError("textures are the split path (ROADMAP A6)")
+    return Scene(instances=tuple(
+        Instance(mesh=mesh_from_jax(i.mesh, device),
+                 model_matrix=_f32(i.model_matrix, device),
+                 material=material_from_jax(i.material, device),
+                 cast_shadow=bool(i.cast_shadow),
+                 use_displacement=bool(i.use_displacement))
+        for i in scene.instances))
+
+
+def camera_from_jax(cam) -> OrbitCamera:
+    """An orbit camera's parameters (f32 values, kept exactly)."""
+    return OrbitCamera(
+        radius=_floats(cam.radius), theta=_floats(cam.theta),
+        phi=_floats(cam.phi), target=_floats(cam.target),
+        fov_degrees=_floats(cam.fov_degrees), near=_floats(cam.near),
+        far=_floats(cam.far), aspect=_floats(cam.aspect))
+
+
+def lighting_from_jax(lighting) -> Lighting:
+    light = lighting.light
+    if not hasattr(light, "position"):
+        raise NotImplementedError(
+            "directional lights take the split path (ROADMAP A6)")
+    return Lighting(
+        light=PointLight(position=_floats(light.position),
+                         color=_floats(light.color),
+                         intensity=_floats(light.intensity)),
+        ambient_intensity=_floats(lighting.ambient_intensity),
+        shininess=_floats(lighting.shininess))
+
+
+def setup_from_jax(setup, device="cpu") -> TriangleSetup:
+    return TriangleSetup(**{
+        f: tensor(getattr(setup, f), device)
+        for f in ("valid", "screen", "z", "inv_w", "edge", "top_left",
+                  "inv_area", "aabb")})
+
+
+def pass_geometry_from_jax(pg, device="cpu") -> PassGeometry:
+    return PassGeometry(**{
+        f: tensor(getattr(pg, f), device)
+        for f in ("vattrs", "mat_kind", "mat_color", "tex_id",
+                  "normal_map_id")})

@@ -1,0 +1,377 @@
+// Tile-list rasterizer kernels for Hopper (sm_90a), bound with a plain C
+// interface and loaded with ctypes (metalrenderer_tpu_torch/raster/_build.py).
+//
+// K1 raster_depth_kernel replaces the depth-only specialization of the
+//    Pallas band kernel (metalrenderer_tpu/raster/raster_pallas.py,
+//    _make_kernel(with_attrs=False), launched by rasterize_tiles): the
+//    shadow pass.
+// K2 render_fused_kernel replaces its fused-shade specialization (launched
+//    by raster_pallas.render_fused): 4x MSAA visibility, the first covered
+//    sample's attribute planes, Blinn-Phong/emissive shading, the exact
+//    REPEAT-bilinear shadow test and the coverage resolve: the main pass.
+//
+// What bounds them on the H100: neither moves many bytes (K2 writes 20 B
+// per pixel, ~41 MB at 1080p, and reads per-triangle tables that stay in
+// L1/L2; the 4 MB shadow map sits in the 50 MB L2). Each thread walks its
+// tile's candidate list serially, so the cost is candidates x samples x
+// (4 plane evaluations + compares) of FP32 issue, plus the latency of the
+// dependent table loads. The design therefore keeps the walk uniform: a
+// 32x8 block lies inside one binning tile (tiles are 8x128 or 64x128), so
+// every thread of a warp loads the same triangle's fields (one broadcast
+// transaction), the per-sample depth/winner stay in registers, and nothing
+// is written until the pixel is final. No shared memory, no atomics.
+//
+// Visibility is order-free (see raster_cuda.py): the winner of a sample is
+// the lexicographic minimum of (z, -tid) over its candidates, so the tile
+// list and the big list are walked in one loop with
+//   take = ok && (z < zb || (z == zb && tid > wb)).
+// Planes are evaluated on the binning tile's anchor grid with the Pallas
+// kernel's association, c' = (c + a*ox) + b*oy, then (a*xr + b*yr) + c'.
+// Built with -fmad=false and without fast math: every multiply and add
+// rounds on its own, divisions and sqrtf are IEEE, as in the torch twins.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxSamples = 4;
+constexpr int kVis = 17;        // vis table row: 3 edges, z plane, tl x3, valid, tid
+constexpr int kAttr = 48;       // attr table row: A[16] | B[16] | C[16]
+constexpr int kAttrB = 16;
+constexpr int kAttrC = 32;
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+
+// Attribute groups (metalrenderer_tpu_torch/raster/binning.py ROW_*).
+constexpr int kRowWorld = 0;
+constexpr int kRowNormal = 5;
+constexpr int kRowInvW = 8;
+constexpr int kRowMatKind = 9;
+constexpr int kRowColor = 11;
+
+// Fused uniforms (raster_cuda.py FU_*).
+constexpr int kFuM = 0;
+constexpr int kFuCam = 16;
+constexpr int kFuLPos = 19;
+constexpr int kFuLCol = 22;
+constexpr int kFuAmb = 25;
+constexpr int kFuShin = 26;
+constexpr int kFuClear = 27;
+constexpr int kFuBias = 31;
+constexpr int kFuFactor = 32;
+
+constexpr float kEmissive = 2.0f;            // materials.EMISSIVE
+constexpr float kBlinnPhongShadow = 1.0f;    // materials.BLINN_PHONG_SHADOW
+
+struct Samples {
+  int n;
+  float ox[kMaxSamples];
+  float oy[kMaxSamples];
+};
+
+struct Bins {
+  const float* vis;        // [T, 17]
+  const int* tile_off;     // [NT + 1] CSR row pointers
+  const int* tile_tris;    // tids, grouped by tile
+  const int* big_ids;      // [cap] live big-list tids first
+  const int* big_aabb;     // [cap, 4] xmin, ymin, xmax, ymax (floor/ceil)
+  const int* big_n;        // [1] live big-list length
+  int tile_w, tile_h, ntx;
+};
+
+struct Shading {
+  const float* attr;       // [T, 48]
+  const float* uni;        // [33]
+  const float* smap;       // [tex_h, tex_w] or nullptr
+  int tex_h, tex_w;
+};
+
+__device__ __forceinline__ float plane_at(float a, float b, float c, float ox,
+                                          float oy, float xr, float yr) {
+  const float cof = __fadd_rn(__fadd_rn(c, __fmul_rn(a, ox)), __fmul_rn(b, oy));
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, xr), __fmul_rn(b, yr)), cof);
+}
+
+__device__ __forceinline__ bool inside(float e, float tl) {
+  return e > 0.0f || (e == 0.0f && tl > 0.0f);
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int pmod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// NaN-propagating max(x, 0), like jnp.maximum / torch.clamp_min.
+__device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
+
+struct PixelState {
+  int tx, ty;
+  float ox, oy;
+  float xr[kMaxSamples], yr[kMaxSamples];
+  float zb[kMaxSamples];
+  int wb[kMaxSamples];
+};
+
+__device__ __forceinline__ void test_triangle(const float* __restrict__ f,
+                                              int tid, int ns, PixelState& p) {
+  if (!(f[15] > 0.0f)) return;  // valid flag
+  const float a0 = f[0], b0 = f[1], c0 = f[2];
+  const float a1 = f[3], b1 = f[4], c1 = f[5];
+  const float a2 = f[6], b2 = f[7], c2 = f[8];
+  const float az = f[9], bz = f[10], cz = f[11];
+  const float tl0 = f[12], tl1 = f[13], tl2 = f[14];
+#pragma unroll
+  for (int s = 0; s < kMaxSamples; ++s) {
+    if (s < ns) {
+      const float e0 = plane_at(a0, b0, c0, p.ox, p.oy, p.xr[s], p.yr[s]);
+      const float e1 = plane_at(a1, b1, c1, p.ox, p.oy, p.xr[s], p.yr[s]);
+      const float e2 = plane_at(a2, b2, c2, p.ox, p.oy, p.xr[s], p.yr[s]);
+      const float z = plane_at(az, bz, cz, p.ox, p.oy, p.xr[s], p.yr[s]);
+      const bool ok = inside(e0, tl0) && inside(e1, tl1) && inside(e2, tl2) &&
+                      z >= 0.0f && z <= 1.0f;
+      if (ok && (z < p.zb[s] || (z == p.zb[s] && tid > p.wb[s]))) {
+        p.zb[s] = z;
+        p.wb[s] = tid;
+      }
+    }
+  }
+}
+
+// Per-sample depth and winner of pixel (px, py): its tile's list, then the
+// live big list behind the big list's AABB gate (raster_pallas.py:513-518).
+__device__ void visibility(const Bins& B, const Samples& S, float clear_depth,
+                           int px, int py, PixelState& p) {
+  p.tx = px / B.tile_w;
+  p.ty = py / B.tile_h;
+  const int x0 = p.tx * B.tile_w;
+  const int y0 = p.ty * B.tile_h;
+  p.ox = (float)x0;
+  p.oy = (float)y0;
+#pragma unroll
+  for (int s = 0; s < kMaxSamples; ++s) {
+    p.xr[s] = __fadd_rn((float)(px - x0), S.ox[s]);
+    p.yr[s] = __fadd_rn((float)(py - y0), S.oy[s]);
+    p.zb[s] = clear_depth;
+    p.wb[s] = -1;
+  }
+  const int t = p.ty * B.ntx + p.tx;
+  const int beg = B.tile_off[t];
+  const int end = B.tile_off[t + 1];
+  for (int i = beg; i < end; ++i) {
+    const int tid = B.tile_tris[i];
+    test_triangle(B.vis + (size_t)tid * kVis, tid, S.n, p);
+  }
+  const int nb = B.big_n[0];
+  for (int k = 0; k < nb; ++k) {
+    const int* bb = B.big_aabb + 4 * k;
+    if (!(bb[1] < y0 + B.tile_h && bb[3] > y0)) continue;
+    const int sx0 = min(max(floor_div(bb[0], B.tile_w), 0), B.ntx - 1);
+    const int sx1 = min(max(floor_div(bb[2] - 1, B.tile_w), 0), B.ntx - 1);
+    if (p.tx < sx0 || p.tx > sx1) continue;
+    const int tid = B.big_ids[k];
+    test_triangle(B.vis + (size_t)tid * kVis, tid, S.n, p);
+  }
+}
+
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+raster_depth_kernel(Bins B, Samples S, float clear_depth, int width, int height,
+                    float* __restrict__ depth, int* __restrict__ winner) {
+  const int px = blockIdx.x * kBlockX + threadIdx.x;
+  const int py = blockIdx.y * kBlockY + threadIdx.y;
+  if (px >= width || py >= height) return;
+  PixelState p;
+  visibility(B, S, clear_depth, px, py, p);
+  const size_t plane = (size_t)width * height;
+  const size_t o = (size_t)py * width + px;
+#pragma unroll
+  for (int s = 0; s < kMaxSamples; ++s) {
+    if (s < S.n) {
+      depth[s * plane + o] = p.zb[s];
+      winner[s * plane + o] = p.wb[s];
+    }
+  }
+}
+
+// sampling.sample_bilinear with REPEAT addressing on a single channel.
+__device__ float bilinear_repeat(const float* __restrict__ tex, int h, int w,
+                                 float u, float v) {
+  const float x = u * (float)w - 0.5f;
+  const float y = v * (float)h - 0.5f;
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  const int xi = (int)x0;
+  const int yi = (int)y0;
+  const int xa = pmod(xi, w), xb = pmod(xi + 1, w);
+  const int ya = pmod(yi, h), yb = pmod(yi + 1, h);
+  const float t00 = tex[(size_t)ya * w + xa];
+  const float t10 = tex[(size_t)ya * w + xb];
+  const float t01 = tex[(size_t)yb * w + xa];
+  const float t11 = tex[(size_t)yb * w + xb];
+  const float top = t00 * (1.0f - fx) + t10 * fx;
+  const float bot = t01 * (1.0f - fx) + t11 * fx;
+  return top * (1.0f - fy) + bot * fy;
+}
+
+__device__ __forceinline__ float attr_at(const float* __restrict__ a, int g,
+                                         float sx, float sy) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a[g], sx), __fmul_rn(a[kAttrB + g], sy)),
+                   a[kAttrC + g]);
+}
+
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+render_fused_kernel(Bins B, Samples S, float clear_depth, Shading SH,
+                    int width, int height, float4* __restrict__ rgba,
+                    float* __restrict__ covf) {
+  const int px = blockIdx.x * kBlockX + threadIdx.x;
+  const int py = blockIdx.y * kBlockY + threadIdx.y;
+  if (px >= width || py >= height) return;
+  PixelState p;
+  visibility(B, S, clear_depth, px, py, p);
+
+  // First covered sample (in sample order) and the covered count.
+  int cnt = 0, tid = -1;
+  float offx = 0.0f, offy = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kMaxSamples; ++s) {
+    if (s < S.n && p.wb[s] >= 0) {
+      if (cnt == 0) {
+        tid = p.wb[s];
+        offx = S.ox[s];
+        offy = S.oy[s];
+      }
+      ++cnt;
+    }
+  }
+  const float* __restrict__ U = SH.uni;
+  const size_t o = (size_t)py * width + px;
+  if (cnt == 0) {
+    rgba[o] = make_float4(U[kFuClear], U[kFuClear + 1], U[kFuClear + 2],
+                          U[kFuClear + 3]);
+    covf[o] = 0.0f;
+    return;
+  }
+
+  // The winner's attribute/w planes at the absolute sample position.
+  const float sx = __fadd_rn((float)px, offx);
+  const float sy = __fadd_rn((float)py, offy);
+  const float* __restrict__ A = SH.attr + (size_t)tid * kAttr;
+  const float invw = attr_at(A, kRowInvW, sx, sy);
+  const float inv = 1.0f / (invw > 0.0f ? invw : 1.0f);
+  const float wx = attr_at(A, kRowWorld, sx, sy) * inv;
+  const float wy = attr_at(A, kRowWorld + 1, sx, sy) * inv;
+  const float wz = attr_at(A, kRowWorld + 2, sx, sy) * inv;
+  const float nx = attr_at(A, kRowNormal, sx, sy) * inv;
+  const float ny = attr_at(A, kRowNormal + 1, sx, sy) * inv;
+  const float nz = attr_at(A, kRowNormal + 2, sx, sy) * inv;
+  const float cr = attr_at(A, kRowColor, sx, sy) * inv;
+  const float cg = attr_at(A, kRowColor + 1, sx, sy) * inv;
+  const float cb = attr_at(A, kRowColor + 2, sx, sy) * inv;
+  const float kf = floorf(attr_at(A, kRowMatKind, sx, sy) * inv + 0.5f);
+  const bool emissive = kf == kEmissive;
+  const bool receives = kf == kBlinnPhongShadow;
+
+  // Blinn-Phong (shade._blinn_phong_soa expression order).
+  float vx = U[kFuCam] - wx, vy = U[kFuCam + 1] - wy, vz = U[kFuCam + 2] - wz;
+  const float nv = 1.0f / sqrtf(vx * vx + vy * vy + vz * vz);
+  vx = vx * nv; vy = vy * nv; vz = vz * nv;
+  float lx = U[kFuLPos] - wx, ly = U[kFuLPos + 1] - wy, lz = U[kFuLPos + 2] - wz;
+  const float nl = 1.0f / sqrtf(lx * lx + ly * ly + lz * lz);
+  lx = lx * nl; ly = ly * nl; lz = lz * nl;
+  float hx = lx + vx, hy = ly + vy, hz = lz + vz;
+  const float nh = 1.0f / sqrtf(hx * hx + hy * hy + hz * hz);
+  hx = hx * nh; hy = hy * nh; hz = hz * nh;
+  const float diff = max0(nx * lx + ny * ly + nz * lz);
+  const float spec = powf(max0(nx * hx + ny * hy + nz * hz), U[kFuShin]);
+  const float s = U[kFuAmb] + diff + spec;
+  float r = s * U[kFuLCol] * cr;
+  float g = s * U[kFuLCol + 1] * cg;
+  float b = s * U[kFuLCol + 2] * cb;
+  if (emissive) { r = cr; g = cg; b = cb; }
+  float a = 1.0f;
+
+  // Shadow test (shade._shadow_factor_soa), receivers only.
+  float msk = 1.0f;
+  if (SH.smap != nullptr && receives) {
+    const float* M = U + kFuM;
+    const float lxp = M[0] * wx + M[1] * wy + M[2] * wz + M[3];
+    const float lyp = M[4] * wx + M[5] * wy + M[6] * wz + M[7];
+    const float lzp = M[8] * wx + M[9] * wy + M[10] * wz + M[11];
+    const float lwp = M[12] * wx + M[13] * wy + M[14] * wz + M[15];
+    const float ilw = 1.0f / lwp;
+    const float uu = lxp * ilw * 0.5f + 0.5f;
+    const float vv = (1.0f - lyp * ilw) * 0.5f;
+    const float sd = lzp * ilw * 0.5f + 0.5f;
+    if (uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && vv <= 1.0f) {
+      const float d = bilinear_repeat(SH.smap, SH.tex_h, SH.tex_w, uu, vv);
+      if ((sd - U[kFuBias]) > d) msk = U[kFuFactor];
+    }
+  }
+  r = r * msk; g = g * msk; b = b * msk; a = a * msk;
+
+  const float cf = (float)cnt * (1.0f / (float)S.n);
+  const float keep = 1.0f - cf;
+  rgba[o] = make_float4(r * cf + U[kFuClear] * keep, g * cf + U[kFuClear + 1] * keep,
+                        b * cf + U[kFuClear + 2] * keep,
+                        a * cf + U[kFuClear + 3] * keep);
+  covf[o] = cf;
+}
+
+Samples make_samples(int n, float ox0, float oy0, float ox1, float oy1,
+                     float ox2, float oy2, float ox3, float oy3) {
+  Samples S;
+  S.n = n;
+  S.ox[0] = ox0; S.oy[0] = oy0;
+  S.ox[1] = ox1; S.oy[1] = oy1;
+  S.ox[2] = ox2; S.oy[2] = oy2;
+  S.ox[3] = ox3; S.oy[3] = oy3;
+  return S;
+}
+
+dim3 grid_for(int width, int height) {
+  return dim3((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+}
+
+}  // namespace
+
+extern "C" int mr_raster_depth(
+    const float* vis, const int* tile_off, const int* tile_tris,
+    const int* big_ids, const int* big_aabb, const int* big_n,
+    int tile_w, int tile_h, int ntx,
+    int n_samples, float ox0, float oy0, float ox1, float oy1,
+    float ox2, float oy2, float ox3, float oy3, float clear_depth,
+    int width, int height, float* depth, int* winner, void* stream) {
+  const Bins B{vis, tile_off, tile_tris, big_ids, big_aabb, big_n,
+               tile_w, tile_h, ntx};
+  const Samples S = make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3);
+  raster_depth_kernel<<<grid_for(width, height), dim3(kBlockX, kBlockY), 0,
+                        (cudaStream_t)stream>>>(B, S, clear_depth, width, height,
+                                                depth, winner);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mr_render_fused(
+    const float* vis, const int* tile_off, const int* tile_tris,
+    const int* big_ids, const int* big_aabb, const int* big_n,
+    int tile_w, int tile_h, int ntx,
+    int n_samples, float ox0, float oy0, float ox1, float oy1,
+    float ox2, float oy2, float ox3, float oy3, float clear_depth,
+    const float* attr, const float* uniforms, const float* shadow_map,
+    int tex_h, int tex_w, int width, int height, float* rgba, float* covf,
+    void* stream) {
+  const Bins B{vis, tile_off, tile_tris, big_ids, big_aabb, big_n,
+               tile_w, tile_h, ntx};
+  const Samples S = make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3);
+  const Shading SH{attr, uniforms, shadow_map, tex_h, tex_w};
+  render_fused_kernel<<<grid_for(width, height), dim3(kBlockX, kBlockY), 0,
+                        (cudaStream_t)stream>>>(B, S, clear_depth, SH, width,
+                                                height,
+                                                reinterpret_cast<float4*>(rgba),
+                                                covf);
+  return (int)cudaGetLastError();
+}

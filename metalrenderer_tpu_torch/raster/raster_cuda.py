@@ -1,0 +1,403 @@
+"""Hand-written CUDA raster kernels for Hopper, with their plain twins.
+
+Two kernels (``csrc/raster.cu``), each behind a wrapper that launches it on
+a CUDA tensor and hands a CPU tensor to its plain PyTorch twin:
+
+``raster_depth`` — replaces the depth-only specialization of the Pallas band
+kernel (``metalrenderer_tpu/raster/raster_pallas.py``: ``_make_kernel`` with
+``with_attrs=False``, launched by ``rasterize_tiles``). The shadow pass.
+
+``render_fused`` — replaces the fused-shade specialization of the same
+factory (launched by ``raster_pallas.render_fused``): MSAA visibility, the
+first covered sample's attribute planes, Blinn-Phong/emissive shading, the
+shadow-map test and the coverage resolve. The main pass.
+
+What the kernels compute (and the twins, in the same operation order):
+
+* Visibility is order-free. The Pallas kernel's binned walk (``zmin <=
+  zbuf`` across chunks, max tid within a chunk) and its big-list walk
+  (``z < zb or (z == zb and tid > wb)``) together keep, per sample, the
+  lexicographic minimum of ``(z, -tid)`` over the candidates: triangles of
+  the sample's tile list or of the live big list (behind the big list's
+  AABB gate) that are valid, cover the sample (top-left rule) and have
+  ``0 <= z <= 1``. Buffers start at ``(clear_depth, -1)``. So a thread may
+  test its candidates in any order with ``take = ok and (z < zb or (z == zb
+  and tid > wb))``, with no chunks and no separate big-list pass.
+* Plane evaluation is anchored on the binning tile: ``c' = (c + a*ox) +
+  b*oy`` with ``(ox, oy)`` the tile corner, then ``(a*xr + b*yr) + c'`` with
+  ``(xr, yr)`` the tile-relative sample position — the Pallas kernel's
+  rounding (``raster_pallas.py:225,240,526-527``). The anchor is the
+  binning tile (64x128 in the shadow pass, 8x128 in the main pass),
+  independent of the CUDA block shape. No FMA contraction anywhere
+  (``-fmad=false``; eager torch ops round every step).
+* The fragment stage takes, per pixel, the first sample (in sample order)
+  whose winner is >= 0, evaluates that winner's 15 attribute/w planes at the
+  absolute sample position as ``(a*sx + b*sy) + c``, shades with the fused
+  kernel's ``1/sqrt`` Blinn-Phong form, tests the shadow map with an exact
+  REPEAT bilinear lookup over the whole map (``sampling.sample_bilinear``
+  semantics; the Pallas kernel's DMA windows and its "lit" fallback outside
+  them are not reproduced — ROADMAP C1) and blends with the clear color by
+  the covered fraction.
+
+On the H100 neither kernel is bound by memory traffic: a thread walks its
+tile's candidate list serially (FP32 issue plus dependent table loads), so
+the design keeps that walk warp-uniform — a 32x8 block lies inside one
+binning tile, every lane loads the same triangle's fields — and keeps the
+per-sample depth and winner in registers (``csrc/raster.cu`` header).
+
+The twins work on pieces of tile rows at a time, so they run at 1080p MSAA4
+on the card as well as on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..scene.materials import BLINN_PHONG_SHADOW, EMISSIVE
+from . import _build, shade
+from .binning import (ATTR_GROUPS_PADDED, ROW_COLOR, ROW_INVW, ROW_MATKIND,
+                      ROW_NORMAL, ROW_WORLD, TileBins)
+
+# Fused-shade uniform vector layout (f32[FU_LEN]), as in raster_pallas.py.
+FU_M = 0        # 16: light_proj @ light_view, row-major (zeros w/o shadow)
+FU_CAM = 16     # 3: camera position
+FU_LPOS = 19    # 3: light position
+FU_LCOL = 22    # 3: light color
+FU_AMB = 25     # ambient intensity
+FU_SHIN = 26    # shininess
+FU_CLEAR = 27   # 4: clear color RGBA
+FU_BIAS = 31    # shadow bias
+FU_FACTOR = 32  # shadow factor
+FU_LEN = 33
+
+MAX_SAMPLES = 4
+# Samples evaluated per step of a twin (bounds its temporaries).
+_PLAIN_PIECE_SAMPLES = 1 << 21
+
+# Launch counts of the two kernels; each wrapper adds one per launch.
+LAUNCHES = {"raster_depth": 0, "render_fused": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------
+# Plain twins
+# --------------------------------------------------------------------------
+
+def _tile_pixel_grid(bins: TileBins, sample_offsets, device):
+    """Tile-relative sample coordinates xr, yr: f32[S, P] (P = tile pixels)."""
+    p = torch.arange(bins.tile_h * bins.tile_w, device=device)
+    offs = torch.tensor(sample_offsets, dtype=torch.float32, device=device)
+    xr = (p % bins.tile_w).to(torch.float32)[None, :] + offs[:, 0:1]
+    yr = (p // bins.tile_w).to(torch.float32)[None, :] + offs[:, 1:2]
+    return xr, yr
+
+
+def _candidates(bins: TileBins, tiles):
+    """Candidate tids per tile: its list plus the AABB-gated live big list,
+    valid tids first, -1 padding. i64[n, L]."""
+    dev = tiles.device
+    off = bins.tile_offsets.to(torch.int64)
+    beg = off[tiles]
+    cnt = off[tiles + 1] - beg
+    lidx = torch.arange(int(cnt.max()), device=dev)[None, :]
+    in_list = lidx < cnt[:, None]
+    pos = torch.where(in_list, beg[:, None] + lidx, torch.zeros_like(lidx))
+    cand_list = torch.where(in_list, bins.tile_tris.to(torch.int64)[pos], -1)
+
+    nb = int(bins.big_n[0])
+    bb = bins.big_aabb[:nb].to(torch.int64)                 # [nb, 4]
+    tx = tiles % bins.ntx
+    y0 = (tiles // bins.ntx) * bins.tile_h
+    ov = (bb[None, :, 1] < (y0 + bins.tile_h)[:, None]) & \
+        (bb[None, :, 3] > y0[:, None])
+    sx0 = torch.clamp(torch.div(bb[:, 0], bins.tile_w, rounding_mode="floor"),
+                      0, bins.ntx - 1)
+    sx1 = torch.clamp(torch.div(bb[:, 2] - 1, bins.tile_w,
+                                rounding_mode="floor"), 0, bins.ntx - 1)
+    gate = ov & (tx[:, None] >= sx0[None, :]) & (tx[:, None] <= sx1[None, :])
+    cand_big = torch.where(gate, bins.big_ids[:nb].to(torch.int64)[None, :], -1)
+    cand = torch.cat([cand_list, cand_big], dim=1)
+    cand = torch.sort(cand, dim=1, descending=True).values
+    return cand[:, :int((cand >= 0).sum(dim=1).max())]
+
+
+def _visibility_plain(bins: TileBins, tiles, xr, yr, clear_depth):
+    """Per-sample (depth, winner) for every pixel of ``tiles``: [n, S, P]."""
+    n = tiles.numel()
+    S, P = xr.shape
+    dev = xr.device
+    ox = ((tiles % bins.ntx) * bins.tile_w).to(torch.float32)
+    oy = ((tiles // bins.ntx) * bins.tile_h).to(torch.float32)
+    zb = torch.full((n, S, P), clear_depth, dtype=torch.float32, device=dev)
+    wb = torch.full((n, S, P), -1, dtype=torch.int64, device=dev)
+    cand = _candidates(bins, tiles)
+    for l in range(cand.shape[1]):
+        tid = cand[:, l]
+        present = tid >= 0
+        f = bins.vis[torch.clamp_min(tid, 0)]                   # [n, 17]
+
+        def plane(k):
+            a, b, c = f[:, k], f[:, k + 1], f[:, k + 2]
+            cof = (c + a * ox) + b * oy
+            return (a[:, None, None] * xr + b[:, None, None] * yr) + \
+                cof[:, None, None]
+
+        ok = (present & (f[:, 15] > 0.0))[:, None, None]
+        for e in range(3):
+            ev = plane(3 * e)
+            tl = (f[:, 12 + e] > 0.0)[:, None, None]
+            ok = ok & ((ev > 0.0) | ((ev == 0.0) & tl))
+        z = plane(9)
+        ok = ok & (z >= 0.0) & (z <= 1.0)
+        tid3 = tid[:, None, None]
+        take = ok & ((z < zb) | ((z == zb) & (tid3 > wb)))
+        zb = torch.where(take, z, zb)
+        wb = torch.where(take, tid3, wb)
+    return zb, wb
+
+
+def _tile_pieces(bins: TileBins, n_samples, device):
+    """Tile ids in pieces of whole tile rows, ~_PLAIN_PIECE_SAMPLES each."""
+    row = n_samples * bins.tile_h * bins.tile_w * bins.ntx
+    per = max(1, _PLAIN_PIECE_SAMPLES // row) * bins.ntx
+    return torch.split(torch.arange(bins.ntx * bins.nty, device=device), per)
+
+
+def _place(x, bins: TileBins, tiles, out):
+    """Write per-tile pixel rows x[n, ..., P] of whole tile rows into
+    out[..., Hp, Wp]."""
+    lead = x.shape[1:-1]
+    rows = tiles.numel() // bins.ntx
+    v = x.reshape(rows, bins.ntx, *lead, bins.tile_h, bins.tile_w)
+    k = len(lead)
+    perm = tuple(range(2, 2 + k)) + (0, 2 + k, 1, 3 + k)
+    v = v.permute(*perm).reshape(*lead, rows * bins.tile_h,
+                                 bins.ntx * bins.tile_w)
+    y0 = int(tiles[0] // bins.ntx) * bins.tile_h
+    out[..., y0:y0 + rows * bins.tile_h, :] = v
+
+
+def raster_depth_plain(bins: TileBins, width, height, sample_offsets,
+                       clear_depth=1.0):
+    """Plain PyTorch twin of the ``raster_depth`` kernel (same inputs, same
+    arithmetic). Returns (depth f32[S,H,W], winner i32[S,H,W])."""
+    dev = bins.vis.device
+    S = len(sample_offsets)
+    xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
+    hp, wp = bins.nty * bins.tile_h, bins.ntx * bins.tile_w
+    depth = torch.empty((S, hp, wp), dtype=torch.float32, device=dev)
+    winner = torch.empty((S, hp, wp), dtype=torch.int32, device=dev)
+    for tiles in _tile_pieces(bins, S, dev):
+        zb, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth)
+        _place(zb, bins, tiles, depth)
+        _place(wb.to(torch.int32), bins, tiles, winner)
+    return (depth[:, :height, :width].contiguous(),
+            winner[:, :height, :width].contiguous())
+
+
+def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
+                  shadow_map):
+    """Fragment stage of the fused kernel for the pixels of ``tiles``.
+    wb: i64[n, S, P] winners. Returns (rgba f32[n, 4, P], covf f32[n, P])."""
+    dev = wb.device
+    n, S, P = wb.shape
+    u = uniforms
+    covered_s = wb >= 0
+    cnt = covered_s.sum(dim=1)                               # [n, P]
+    first = torch.argmax(covered_s.to(torch.int32), dim=1)   # first covered
+    tid = torch.gather(wb, 1, first[:, None]).squeeze(1)    # [n, P]
+    offs = torch.tensor(sample_offsets, dtype=torch.float32, device=dev)
+    p = torch.arange(P, device=dev)
+    px = (tiles % bins.ntx)[:, None] * bins.tile_w + (p % bins.tile_w)[None]
+    py = (tiles // bins.ntx)[:, None] * bins.tile_h + (p // bins.tile_w)[None]
+    sx = px.to(torch.float32) + offs[first, 0]
+    sy = py.to(torch.float32) + offs[first, 1]
+    A = bins.attr[torch.clamp_min(tid, 0)]                   # [n, P, 48]
+
+    def g(k):
+        return (A[..., k] * sx + A[..., ATTR_GROUPS_PADDED + k] * sy) + \
+            A[..., 2 * ATTR_GROUPS_PADDED + k]
+
+    invw = g(ROW_INVW)
+    inv = 1.0 / torch.where(invw > 0.0, invw, torch.ones_like(invw))
+    w = tuple(g(ROW_WORLD + i) * inv for i in range(3))
+    nrm = tuple(g(ROW_NORMAL + i) * inv for i in range(3))
+    base = tuple(g(ROW_COLOR + i) * inv for i in range(3))
+    covered = cnt > 0
+    kf = torch.floor(g(ROW_MATKIND) * inv + 0.5)
+    emissive = covered & (kf == float(EMISSIVE))
+    receives = covered & (kf == float(BLINN_PHONG_SHADOW))
+
+    lit = shade._blinn_phong_soa(
+        w, nrm, base, u[FU_CAM:FU_CAM + 3], u[FU_LPOS:FU_LPOS + 3],
+        u[FU_LCOL:FU_LCOL + 3], u[FU_AMB], u[FU_SHIN])
+    planes = [torch.where(emissive, base[c], lit[c]) for c in range(3)]
+    planes.append(torch.ones_like(planes[0]))
+    if shadow_map is not None:
+        m = u[FU_M:FU_M + 16].reshape(4, 4)
+        sf = shade._shadow_factor_soa(w, m, shadow_map, u[FU_BIAS],
+                                      u[FU_FACTOR], receives)
+        msk = torch.where(receives, sf, torch.ones_like(sf))
+        planes = [c * msk for c in planes]
+    covf = cnt.to(torch.float32) * (1.0 / S)
+    clear = u[FU_CLEAR:FU_CLEAR + 4]
+    rgba = torch.stack(
+        [torch.where(covered, planes[c] * covf + clear[c] * (1.0 - covf),
+                     clear[c].expand_as(covf)) for c in range(4)], dim=1)
+    return rgba, covf
+
+
+def render_fused_plain(bins: TileBins, uniforms, shadow_map, width, height,
+                       sample_offsets, clear_depth=1.0):
+    """Plain PyTorch twin of the ``render_fused`` kernel (same inputs, same
+    arithmetic). Returns (rgba f32[H,W,4], covered_frac f32[H,W])."""
+    dev = bins.vis.device
+    S = len(sample_offsets)
+    xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
+    hp, wp = bins.nty * bins.tile_h, bins.ntx * bins.tile_w
+    rgba = torch.empty((4, hp, wp), dtype=torch.float32, device=dev)
+    covf = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    for tiles in _tile_pieces(bins, S, dev):
+        _, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth)
+        c, f = _shade_pixels(bins, tiles, wb, sample_offsets, uniforms,
+                             shadow_map)
+        _place(c, bins, tiles, rgba)
+        _place(f[:, None], bins, tiles, covf[None])
+    return (rgba[:, :height, :width].permute(1, 2, 0).contiguous(),
+            covf[:height, :width].contiguous())
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_BINS_ARGS = [_P] * 6 + [_I] * 3          # tables, tile_w, tile_h, ntx
+_SAMPLE_ARGS = [_I] + [_F] * (2 * MAX_SAMPLES) + [_F]   # n, offsets, clear
+
+
+@functools.cache
+def _lib():
+    lib = _build.load_library()
+    lib.mr_raster_depth.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
+                                    + [_I, _I, _P, _P, _P])
+    lib.mr_raster_depth.restype = _I
+    lib.mr_render_fused.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
+                                    + [_P, _P, _P, _I, _I]
+                                    + [_I, _I, _P, _P, _P])
+    lib.mr_render_fused.restype = _I
+    return lib
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(name, t, dtype, device, shape=None):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _check_grid(bins: TileBins, width, height):
+    if (bins.ntx, bins.nty) != (-(-width // bins.tile_w),
+                                -(-height // bins.tile_h)):
+        raise ValueError(f"bins cover {bins.ntx}x{bins.nty} tiles of "
+                         f"{bins.tile_w}x{bins.tile_h}, not {width}x{height}")
+
+
+def _bins_args(bins: TileBins, device):
+    T = bins.vis.shape[0]
+    _check("vis", bins.vis, torch.float32, device, (T, 17))
+    _check("tile_offsets", bins.tile_offsets, torch.int32, device,
+           (bins.ntx * bins.nty + 1,))
+    _check("tile_tris", bins.tile_tris, torch.int32, device)
+    _check("big_ids", bins.big_ids, torch.int32, device)
+    _check("big_aabb", bins.big_aabb, torch.int32, device,
+           (bins.big_ids.shape[0], 4))
+    _check("big_n", bins.big_n, torch.int32, device, (1,))
+    return [_ptr(bins.vis), _ptr(bins.tile_offsets), _ptr(bins.tile_tris),
+            _ptr(bins.big_ids), _ptr(bins.big_aabb), _ptr(bins.big_n),
+            bins.tile_w, bins.tile_h, bins.ntx]
+
+
+def _sample_args(sample_offsets, clear_depth):
+    if not 1 <= len(sample_offsets) <= MAX_SAMPLES:
+        raise ValueError(f"1..{MAX_SAMPLES} samples supported")
+    flat = [0.0] * (2 * MAX_SAMPLES)
+    for s, (x, y) in enumerate(sample_offsets):
+        flat[2 * s], flat[2 * s + 1] = float(x), float(y)
+    return [len(sample_offsets)] + flat + [float(clear_depth)]
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def raster_depth(bins: TileBins, width, height, sample_offsets,
+                 clear_depth=1.0):
+    """Depth-only raster (kernel K1). Returns (depth f32[S,H,W], winner
+    i32[S,H,W]; -1 = no triangle). CPU tensors go to the plain twin; CUDA
+    tensors launch the kernel, and a failed launch raises."""
+    _check_grid(bins, width, height)
+    device = bins.vis.device
+    if device.type == "cpu":
+        return raster_depth_plain(bins, width, height, sample_offsets,
+                                  clear_depth)
+    args = _bins_args(bins, device) + _sample_args(sample_offsets, clear_depth)
+    S = len(sample_offsets)
+    depth = torch.empty((S, height, width), dtype=torch.float32, device=device)
+    winner = torch.empty((S, height, width), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _lib().mr_raster_depth(*args, width, height, _ptr(depth),
+                                 _ptr(winner), ctypes.c_void_p(stream))
+    _raise_on(err, "raster_depth")
+    LAUNCHES["raster_depth"] += 1
+    return depth, winner
+
+
+def render_fused(bins: TileBins, uniforms, shadow_map, width, height,
+                 sample_offsets, clear_depth=1.0):
+    """Raster + fragment stage + resolve (kernel K2). ``uniforms``:
+    f32[FU_LEN]; ``shadow_map``: f32[SH, SW] or None. Returns (rgba
+    f32[H,W,4], covered_frac f32[H,W]). CPU tensors go to the plain twin;
+    CUDA tensors launch the kernel, and a failed launch raises."""
+    _check_grid(bins, width, height)
+    device = bins.vis.device
+    if device.type == "cpu":
+        return render_fused_plain(bins, uniforms, shadow_map, width, height,
+                                  sample_offsets, clear_depth)
+    args = _bins_args(bins, device) + _sample_args(sample_offsets, clear_depth)
+    _check("attr", bins.attr, torch.float32, device, (bins.vis.shape[0], 48))
+    _check("uniforms", uniforms, torch.float32, device, (FU_LEN,))
+    if shadow_map is None:
+        smap, tex_h, tex_w = ctypes.c_void_p(0), 0, 0
+    else:
+        if shadow_map.dim() != 2:
+            raise ValueError("shadow_map: need a 2-D [H, W] depth map")
+        _check("shadow_map", shadow_map, torch.float32, device)
+        smap = _ptr(shadow_map)
+        tex_h, tex_w = shadow_map.shape
+    rgba = torch.empty((height, width, 4), dtype=torch.float32, device=device)
+    covf = torch.empty((height, width), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _lib().mr_render_fused(*args, _ptr(bins.attr), _ptr(uniforms), smap,
+                                 tex_h, tex_w, width, height, _ptr(rgba),
+                                 _ptr(covf), ctypes.c_void_p(stream))
+    _raise_on(err, "render_fused")
+    LAUNCHES["render_fused"] += 1
+    return rgba, covf
+

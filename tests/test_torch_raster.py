@@ -1,0 +1,228 @@
+"""Port parity, the two raster kernels: the plain twins of ``raster_depth``
+(K1) and ``render_fused`` (K2) against the JAX Pallas kernels in interpret
+mode, fed the SAME converted JAX triangle setup and field tables, so only
+the kernels are compared; and, on a CUDA device, each CUDA kernel against
+its twin.
+
+Tolerances, with their reasons:
+  * winners and covered fractions: equal (integer / exact counts);
+  * K1 depth: bit-equal to a numpy evaluation of the anchored planes with
+    every multiply and add rounded on its own — the rounding of the Pallas
+    kernel on the TPU, and of the CUDA kernel (``-fmad=false``). Against
+    the interpret-mode Pallas kernel depth agrees to 1e-6 only: XLA:CPU
+    contracts ``a*xr + b*yr`` into an FMA (its LLVM backend always allows
+    FP-op fusion), which the TPU and the port do not;
+  * K2 rgba: 1e-5 absolute — shading divides, takes square roots and a
+    ``pow`` that XLA:CPU and torch evaluate with different approximations
+    and FMA contraction; pixels that differ because the Pallas kernel falls
+    back to "lit" outside its shadow-map window (ROADMAP C1) are counted.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from metalrenderer_tpu.config import RenderConfig as JConfig
+from metalrenderer_tpu.engine import audio_app as j_app
+from metalrenderer_tpu.passes import pipeline as j_pipe
+from metalrenderer_tpu.raster import binning as jb
+from metalrenderer_tpu.raster import raster_pallas, sampling as j_sampling
+from metalrenderer_tpu.raster.geometry import clip_near, setup_triangles
+from metalrenderer_tpu.scene import lights as j_lights
+from metalrenderer_tpu.scene.camera import OrbitCamera as JCamera
+from metalrenderer_tpu.scene.scene import bake, project
+
+from metalrenderer_tpu_torch import convert
+from metalrenderer_tpu_torch.raster import binning, raster_cuda, sampling
+
+torch.set_num_threads(2)
+CENTER = ((0.5, 0.5),)
+MSAA4 = tuple(JConfig(msaa=4).sample_positions)
+
+
+def _soup(n, seed):
+    rng = np.random.default_rng(seed)
+    tris = []
+    for _ in range(n):
+        c = rng.uniform(-0.9, 0.9, 2)
+        sc = rng.uniform(0.05, 0.9)
+        pts = c + sc * np.array([[0, 0], [1, 0.1], [0.3, 1]]) * \
+            rng.uniform(0.5, 1.5, (3, 2))
+        d1, d2 = pts[1] - pts[0], pts[2] - pts[0]
+        if d1[0] * d2[1] - d1[1] * d2[0] < 0:
+            pts = pts[::-1]
+        z, w = rng.uniform(0.05, 0.95), rng.uniform(0.5, 3)
+        tris.append([[p[0] * w, p[1] * w, z * w, w] for p in pts])
+    return jnp.asarray(np.asarray(tris, np.float32))
+
+
+def _soup_case():
+    return setup_triangles(_soup(40, seed=1), 256, 128), 256, 128, 8, 128
+
+
+@functools.partial(jax.jit, static_argnums=(0,))
+def _flagship_shadow_setup(size, displacement=0.02):
+    scene = j_app.build_scene()
+    geom = bake(scene, displacement)
+    anchor = jnp.array([0.0, 2.0, 0.0])
+    lv = j_lights.light_view_matrix(anchor, jnp.array([0.0, 0.0, -1.0]))
+    lp = j_lights.light_projection_matrix()
+    clip2, _, parent = clip_near(project(geom.world, lv, lp).reshape(-1, 3, 4))
+    s = setup_triangles(clip2, size, size, cull_backfaces=False)
+    return s.replace(valid=s.valid & geom.cast_shadow[parent]), lv, lp, geom
+
+
+def _shadow_case():
+    return _flagship_shadow_setup(128)[0], 128, 128, 64, 128
+
+
+def _numpy_anchored_depth(fields, width, height, tile_h, tile_w):
+    """Brute-force K1 over every triangle in numpy f32, anchored planes,
+    each multiply and add rounded separately (no FMA)."""
+    f32 = np.float32
+    py, px = np.mgrid[0:height, 0:width]
+    xr = (px % tile_w).astype(f32) + f32(0.5)
+    yr = (py % tile_h).astype(f32) + f32(0.5)
+    ox = ((px // tile_w) * tile_w).astype(f32)
+    oy = ((py // tile_h) * tile_h).astype(f32)
+    zb = np.ones((height, width), f32)
+    wb = np.full((height, width), -1, np.int32)
+    for t, f in enumerate(np.asarray(fields)):
+        def plane(k):
+            cof = (f[k + 2] + f[k] * ox) + f[k + 1] * oy
+            return (f[k] * xr + f[k + 1] * yr) + cof
+        ok = np.full((height, width), f[15] > 0)
+        for e in range(3):
+            ev = plane(3 * e)
+            ok &= (ev > 0) | ((ev == 0) & (f[12 + e] > 0))
+        z = plane(9)
+        ok &= (z >= 0) & (z <= 1)
+        take = ok & ((z < zb) | ((z == zb) & (t > wb)))
+        zb = np.where(take, z, zb)
+        wb = np.where(take, t, wb)
+    return zb, wb
+
+
+def _bins(setup_j, width, height, tile_w, tile_h, pg=None):
+    """The port's bins for a JAX setup, carrying the JAX field tables."""
+    attr = (None if pg is None
+            else convert.tensor(jb.build_attr_fields(setup_j, pg)))
+    return binning.bin_triangles(
+        convert.setup_from_jax(setup_j),
+        convert.tensor(jb.build_tri_fields(setup_j)), width, height,
+        tile_w, tile_h, attr_fields=attr)
+
+
+@pytest.mark.parametrize("case", [_soup_case, _shadow_case],
+                         ids=["soup_256x128", "flagship_shadow_128"])
+def test_raster_depth_plain_matches_pallas(case):
+    setup_j, width, height, tile_h, tile_w = case()
+    d_j, w_j, _, _ = raster_pallas.rasterize_tiles(
+        setup_j, width, height, tile_h, tile_w, CENTER)
+    bins = _bins(setup_j, width, height, tile_w, tile_h)
+    d_p, w_p = raster_cuda.raster_depth_plain(bins, width, height, CENTER)
+    w_j = np.asarray(w_j)
+    assert (w_j >= 0).any()
+    np.testing.assert_array_equal(w_p.numpy(), w_j)
+    z_np, w_np = _numpy_anchored_depth(bins.vis, width, height, tile_h, tile_w)
+    np.testing.assert_array_equal(w_np, w_j[0])
+    np.testing.assert_array_equal(d_p.numpy()[0].view(np.int32),
+                                  z_np.view(np.int32))
+    np.testing.assert_allclose(d_p.numpy(), np.asarray(d_j), rtol=0, atol=1e-6)
+    # The CPU route of the wrapper is the twin, and launches nothing.
+    before = dict(raster_cuda.LAUNCHES)
+    d_w, w_w = raster_cuda.raster_depth(bins, width, height, CENTER)
+    assert torch.equal(d_w, d_p) and torch.equal(w_w, w_p)
+    assert raster_cuda.LAUNCHES == before
+
+
+def _fused_inputs(width=96, height=72, shadow_size=128):
+    cfg = JConfig(width=width, height=height, msaa=4,
+                  shadow_map_size=shadow_size)
+    cam = JCamera(radius=5.0, theta=2.5, phi=1.2, aspect=width / height)
+    setup_l, lv, lp, geom = _flagship_shadow_setup(shadow_size)
+    smap = raster_pallas.rasterize_tiles(setup_l, shadow_size, shadow_size,
+                                         64, 128, CENTER)[0][0]
+    prep = jax.jit(j_pipe.prepare_main_pass, static_argnums=(3,))
+    setup, pg = prep(geom, cam.view_matrix(), cam.projection_matrix(), cfg)
+    lighting = j_lights.Lighting.default()
+    funi = j_pipe._fused_uniforms(jnp.dot(lp, lv, precision="highest"), cam,
+                                  jnp.array([0.0, 2.0, 0.0]), lighting.light,
+                                  lighting, cfg)
+    return setup, pg, funi, smap
+
+
+@pytest.mark.parametrize("with_shadow", [True, False])
+def test_render_fused_plain_matches_pallas(with_shadow):
+    width, height = 96, 72
+    setup, pg, funi, smap = _fused_inputs(width, height)
+    if not with_shadow:      # a scene without casters: no map, m = 0
+        smap, funi = None, funi.at[:16].set(0.0)
+    rgba_j, covf_j, _ = raster_pallas.render_fused(
+        setup, pg, funi, width, height, MSAA4, shadow_map=smap)
+    bins = _bins(setup, width, height, 128, 8, pg)
+    rgba_p, covf_p = raster_cuda.render_fused_plain(
+        bins, convert.tensor(funi),
+        None if smap is None else convert.tensor(smap), width, height, MSAA4)
+    covf_j = np.asarray(covf_j)
+    assert 0.5 < covf_j.mean() < 1.0
+    np.testing.assert_array_equal(covf_p.numpy(), covf_j)
+    diff = np.abs(rgba_p.numpy() - np.asarray(rgba_j)).max(axis=-1)
+    c1_pixels = int((diff > 1e-5).sum())
+    assert c1_pixels == 0, f"{c1_pixels} pixels differ (ROADMAP C1)"
+
+
+@pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
+def test_sample_bilinear_matches(mode):
+    """The twin's shadow lookup: same texels and weights as the JAX
+    sampler, including coordinates outside [0, 1] (wrapped or clamped)."""
+    rng = np.random.default_rng(11)
+    tex = rng.uniform(0, 1, (37, 53, 1)).astype(np.float32)
+    u, v = rng.uniform(-1.5, 2.5, (2, 64, 48)).astype(np.float32)
+    out = sampling.sample_bilinear(torch.from_numpy(tex), torch.from_numpy(u),
+                                   torch.from_numpy(v), mode)
+    ref = j_sampling.sample_bilinear(jnp.asarray(tex), jnp.asarray(u),
+                                     jnp.asarray(v), mode)
+    # 1e-6: XLA:CPU may fuse the weight multiply-adds into FMAs.
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _to(bins, device):
+    return binning.TileBins(**{
+        k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+        for k, v in vars(bins).items()})
+
+
+@pytest.mark.cuda
+def test_kernels_match_twins_on_card(cuda_device):
+    for case in (_soup_case, _shadow_case):
+        setup_j, width, height, tile_h, tile_w = case()
+        bins = _to(_bins(setup_j, width, height, tile_w, tile_h), cuda_device)
+        d_k, w_k = raster_cuda.raster_depth(bins, width, height, CENTER)
+        d_p, w_p = raster_cuda.raster_depth_plain(bins, width, height, CENTER)
+        torch.cuda.synchronize()
+        assert torch.equal(w_k, w_p)
+        assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    setup, pg, funi, smap = _fused_inputs()
+    bins = _to(_bins(setup, 96, 72, 128, 8, pg), cuda_device)
+    u = convert.tensor(funi, cuda_device)
+    sm = convert.tensor(smap, cuda_device)
+    for shadow_map in (sm, None):
+        rgba_k, covf_k = raster_cuda.render_fused(bins, u, shadow_map, 96, 72,
+                                                  MSAA4)
+        rgba_p, covf_p = raster_cuda.render_fused_plain(bins, u, shadow_map,
+                                                        96, 72, MSAA4)
+        torch.cuda.synchronize()
+        assert torch.equal(covf_k, covf_p)
+        assert float((rgba_k - rgba_p).abs().max()) <= 1e-5
