@@ -16,7 +16,7 @@ import torch
 from .passes.pipeline import PassGeometry
 from .raster.geometry import TriangleSetup
 from .scene.camera import OrbitCamera
-from .scene.lights import Lighting, PointLight
+from .scene.lights import DirectionalLight, Lighting, PointLight
 from .scene.materials import Material
 from .scene.mesh import Mesh
 from .scene.scene import Instance, Scene
@@ -48,15 +48,17 @@ def material_from_jax(mat, device="cpu") -> Material:
 
 
 def scene_from_jax(scene, device="cpu") -> Scene:
-    if len(scene.textures):
-        raise NotImplementedError("textures are the split path (ROADMAP A6)")
-    return Scene(instances=tuple(
-        Instance(mesh=mesh_from_jax(i.mesh, device),
-                 model_matrix=_f32(i.model_matrix, device),
-                 material=material_from_jax(i.material, device),
-                 cast_shadow=bool(i.cast_shadow),
-                 use_displacement=bool(i.use_displacement))
-        for i in scene.instances))
+    """Instances, and textures as a tuple of mip tuples."""
+    return Scene(
+        instances=tuple(
+            Instance(mesh=mesh_from_jax(i.mesh, device),
+                     model_matrix=_f32(i.model_matrix, device),
+                     material=material_from_jax(i.material, device),
+                     cast_shadow=bool(i.cast_shadow),
+                     use_displacement=bool(i.use_displacement))
+            for i in scene.instances),
+        textures=tuple(tuple(_f32(level, device) for level in mips)
+                       for mips in scene.textures))
 
 
 def camera_from_jax(cam) -> OrbitCamera:
@@ -69,14 +71,18 @@ def camera_from_jax(cam) -> OrbitCamera:
 
 
 def lighting_from_jax(lighting) -> Lighting:
+    """A point light (it has a ``position``) or a directional light."""
     light = lighting.light
-    if not hasattr(light, "position"):
-        raise NotImplementedError(
-            "directional lights take the split path (ROADMAP A6)")
+    if hasattr(light, "position"):
+        light = PointLight(position=_floats(light.position),
+                           color=_floats(light.color),
+                           intensity=_floats(light.intensity))
+    else:
+        light = DirectionalLight(direction=_floats(light.direction),
+                                 color=_floats(light.color),
+                                 intensity=_floats(light.intensity))
     return Lighting(
-        light=PointLight(position=_floats(light.position),
-                         color=_floats(light.color),
-                         intensity=_floats(light.intensity)),
+        light=light,
         ambient_intensity=_floats(lighting.ambient_intensity),
         shininess=_floats(lighting.shininess))
 

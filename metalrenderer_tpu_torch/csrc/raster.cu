@@ -9,10 +9,17 @@
 //    by raster_pallas.render_fused): 4x MSAA visibility, the first covered
 //    sample's attribute planes, Blinn-Phong/emissive shading, the exact
 //    REPEAT-bilinear shadow test and the coverage resolve: the main pass.
+// K3 raster_gbuffer_kernel replaces its per-pixel G-buffer specialization
+//    (_make_kernel(with_attrs=True, attr_px=True), launched by
+//    rasterize_tiles): K2's visibility and fragment selection, writing the
+//    first covered sample's raw attribute planes and the covered count
+//    instead of shading them: the split path's main pass.
 //
-// What bounds them on the H100: neither moves many bytes (K2 writes 20 B
-// per pixel, ~41 MB at 1080p, and reads per-triangle tables that stay in
-// L1/L2; the 4 MB shadow map sits in the 50 MB L2). Each thread walks its
+// What bounds them on the H100: K1 and K2 do not move many bytes (K2
+// writes 20 B per pixel, ~41 MB at 1080p, and reads per-triangle tables
+// that stay in L1/L2; the 4 MB shadow map sits in the 50 MB L2); K3 writes
+// 64 B per pixel (16 planes, ~133 MB at 1080p), coalesced plane by plane,
+// which puts its byte bound near its candidate walk. Each thread walks its
 // tile's candidate list serially, so the cost is candidates x samples x
 // (4 plane evaluations + compares) of FP32 issue, plus the latency of the
 // dependent table loads. The design therefore keeps the walk uniform: a
@@ -38,6 +45,7 @@ constexpr int kVis = 17;        // vis table row: 3 edges, z plane, tl x3, valid
 constexpr int kAttr = 48;       // attr table row: A[16] | B[16] | C[16]
 constexpr int kAttrB = 16;
 constexpr int kAttrC = 32;
+constexpr int kGoutRows = 16;   // 15 attribute groups + covered count
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -224,6 +232,73 @@ __device__ __forceinline__ float attr_at(const float* __restrict__ a, int g,
                    a[kAttrC + g]);
 }
 
+// The pixel's fragment: the first covered sample (in sample order), its
+// winner and absolute position, and the covered-sample count.
+struct Fragment {
+  int cnt, tid;
+  float sx, sy;
+};
+
+__device__ __forceinline__ Fragment first_covered(const PixelState& p,
+                                                  const Samples& S, int px,
+                                                  int py) {
+  Fragment f{0, -1, 0.0f, 0.0f};
+  float offx = 0.0f, offy = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kMaxSamples; ++s) {
+    if (s < S.n && p.wb[s] >= 0) {
+      if (f.cnt == 0) {
+        f.tid = p.wb[s];
+        offx = S.ox[s];
+        offy = S.oy[s];
+      }
+      ++f.cnt;
+    }
+  }
+  f.sx = __fadd_rn((float)px, offx);
+  f.sy = __fadd_rn((float)py, offy);
+  return f;
+}
+
+// K3: the per-pixel G-buffer (raster_pallas.rasterize_tiles with
+// attr_px=True). gout rows 0-14 are the first covered sample's winner's
+// raw value/w planes (binning.py ROW_*), row 15 the covered-sample count;
+// an uncovered pixel is all zeros. Per-sample depth/winner only on request.
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+raster_gbuffer_kernel(Bins B, Samples S, float clear_depth,
+                      const float* __restrict__ attr, int width, int height,
+                      float* __restrict__ gout, float* __restrict__ depth,
+                      int* __restrict__ winner) {
+  const int px = blockIdx.x * kBlockX + threadIdx.x;
+  const int py = blockIdx.y * kBlockY + threadIdx.y;
+  if (px >= width || py >= height) return;
+  PixelState p;
+  visibility(B, S, clear_depth, px, py, p);
+  const size_t plane = (size_t)width * height;
+  const size_t o = (size_t)py * width + px;
+  if (depth != nullptr) {
+#pragma unroll
+    for (int s = 0; s < kMaxSamples; ++s) {
+      if (s < S.n) {
+        depth[s * plane + o] = p.zb[s];
+        winner[s * plane + o] = p.wb[s];
+      }
+    }
+  }
+  const Fragment f = first_covered(p, S, px, py);
+  if (f.cnt == 0) {
+#pragma unroll
+    for (int g = 0; g < kGoutRows; ++g) gout[g * plane + o] = 0.0f;
+    return;
+  }
+  const float* __restrict__ A = attr + (size_t)f.tid * kAttr;
+#pragma unroll
+  for (int g = 0; g < kGoutRows - 1; ++g) {
+    gout[g * plane + o] = attr_at(A, g, f.sx, f.sy);
+  }
+  gout[(kGoutRows - 1) * plane + o] = (float)f.cnt;
+}
+
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 render_fused_kernel(Bins B, Samples S, float clear_depth, Shading SH,
                     int width, int height, float4* __restrict__ rgba,
@@ -234,20 +309,8 @@ render_fused_kernel(Bins B, Samples S, float clear_depth, Shading SH,
   PixelState p;
   visibility(B, S, clear_depth, px, py, p);
 
-  // First covered sample (in sample order) and the covered count.
-  int cnt = 0, tid = -1;
-  float offx = 0.0f, offy = 0.0f;
-#pragma unroll
-  for (int s = 0; s < kMaxSamples; ++s) {
-    if (s < S.n && p.wb[s] >= 0) {
-      if (cnt == 0) {
-        tid = p.wb[s];
-        offx = S.ox[s];
-        offy = S.oy[s];
-      }
-      ++cnt;
-    }
-  }
+  const Fragment f = first_covered(p, S, px, py);
+  const int cnt = f.cnt;
   const float* __restrict__ U = SH.uni;
   const size_t o = (size_t)py * width + px;
   if (cnt == 0) {
@@ -258,9 +321,9 @@ render_fused_kernel(Bins B, Samples S, float clear_depth, Shading SH,
   }
 
   // The winner's attribute/w planes at the absolute sample position.
-  const float sx = __fadd_rn((float)px, offx);
-  const float sy = __fadd_rn((float)py, offy);
-  const float* __restrict__ A = SH.attr + (size_t)tid * kAttr;
+  const float sx = f.sx;
+  const float sy = f.sy;
+  const float* __restrict__ A = SH.attr + (size_t)f.tid * kAttr;
   const float invw = attr_at(A, kRowInvW, sx, sy);
   const float inv = 1.0f / (invw > 0.0f ? invw : 1.0f);
   const float wx = attr_at(A, kRowWorld, sx, sy) * inv;
@@ -352,6 +415,24 @@ extern "C" int mr_raster_depth(
   raster_depth_kernel<<<grid_for(width, height), dim3(kBlockX, kBlockY), 0,
                         (cudaStream_t)stream>>>(B, S, clear_depth, width, height,
                                                 depth, winner);
+  return (int)cudaGetLastError();
+}
+
+// depth/winner: nullptr unless the per-sample planes are wanted.
+extern "C" int mr_raster_gbuffer(
+    const float* vis, const int* tile_off, const int* tile_tris,
+    const int* big_ids, const int* big_aabb, const int* big_n,
+    int tile_w, int tile_h, int ntx,
+    int n_samples, float ox0, float oy0, float ox1, float oy1,
+    float ox2, float oy2, float ox3, float oy3, float clear_depth,
+    const float* attr, int width, int height, float* gout, float* depth,
+    int* winner, void* stream) {
+  const Bins B{vis, tile_off, tile_tris, big_ids, big_aabb, big_n,
+               tile_w, tile_h, ntx};
+  const Samples S = make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3);
+  raster_gbuffer_kernel<<<grid_for(width, height), dim3(kBlockX, kBlockY), 0,
+                          (cudaStream_t)stream>>>(B, S, clear_depth, attr, width,
+                                                  height, gout, depth, winner);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,25 @@
-"""Two-pass render pipeline: shadow pass + fused main pass.
+"""Two-pass render pipeline: shadow pass + main pass.
 
-Torch counterpart of ``metalrenderer_tpu.passes.pipeline.render_frame``,
-fused branch only. Frame anatomy (MtlEngine::draw, mtl_engine.mm:767-770):
+Torch counterpart of ``metalrenderer_tpu.passes.pipeline.render_frame``
+with ``backend="pallas"`` and per-pixel shading on 8x128 main-pass tiles.
+Frame anatomy (MtlEngine::draw, mtl_engine.mm:767-770):
   1. shadow pass: depth-only render of the shadow casters from the light
      (renderShadowPass, :772-792) -> kernel K1 ``raster_depth``;
-  2. main pass: raster + Blinn-Phong/emissive shading + shadow test +
-     MSAA coverage resolve in one launch -> kernel K2 ``render_fused``.
+  2. main pass, one of two branches:
+     * fused (untextured scene, point light, ``fused_shade``): raster +
+       Blinn-Phong/emissive shading + shadow test + MSAA coverage resolve
+       in one launch -> kernel K2 ``render_fused``;
+     * split (textures, normal maps, a directional light, or
+       ``fused_shade=False``): per-pixel G-buffer raster -> kernel K3
+       ``raster_gbuffer``, then ``channels_from_gout_px`` and
+       ``shade.shade_channels``, whose shadow test runs kernel K7 and whose
+       texture and normal-map lookups run kernel K9.
 Everything between the kernels (vertex stage, clipping, triangle setup,
-binning) is ordinary tensor code on the render device.
+binning, the split path's elementwise shading) is ordinary tensor code on
+the render device.
 
-On a CUDA device the two kernels run; on the CPU their plain twins run.
+Entry points render on the GPU (``device="cuda"``) unless the caller asks
+for the CPU; on a CUDA device the kernels run, on the CPU their plain twins.
 """
 from __future__ import annotations
 
@@ -19,7 +29,7 @@ import torch
 
 from ..config import RenderConfig, ShadowConfig
 from ..math import transforms
-from ..raster import raster_cuda
+from ..raster import raster_cuda, shade
 from ..raster.binning import bin_triangles, build_attr_fields, build_tri_fields
 from ..raster.geometry import clip_near, guard_clip_xy, setup_triangles
 from ..scene import lights as lights_mod
@@ -89,8 +99,8 @@ def _wants_shadow(scene: Scene):
 
 
 def _fused_uniforms(m, camera, light_anchor, light, lighting, config):
-    """Pack the fused kernel's uniforms (raster_cuda.FU_* layout), f32[33]
-    on the CPU."""
+    """Pack the shading uniforms (raster_cuda.FU_* layout: the fused
+    kernel's, read by the split path's shading too), f32[33] on the CPU."""
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32).reshape(-1)
     return torch.cat([
@@ -101,36 +111,41 @@ def _fused_uniforms(m, camera, light_anchor, light, lighting, config):
     ])
 
 
-def _check_supported(scene, lighting, config, backend):
+def _check_supported(lighting, config, backend):
     if backend != "kernels":
         raise NotImplementedError(
             f"backend={backend!r}: the port has only the tile-list kernels; "
             "a brute-force oracle is ROADMAP A11")
-    if not isinstance(lighting.light, lights_mod.PointLight):
+    if not isinstance(lighting.light, (lights_mod.PointLight,
+                                       lights_mod.DirectionalLight)):
+        raise TypeError(f"unknown light type {type(lighting.light)!r}")
+    if not config.shading_per_pixel:
         raise NotImplementedError(
-            "directional lights take the split path (ROADMAP A6)")
-    if len(scene.textures) or any(
-            i.material.texture_id >= 0 or i.material.normal_map_id >= 0
-            for i in scene.instances):
-        raise NotImplementedError(
-            "textured / normal-mapped scenes take the split path (ROADMAP A6)")
-    if not (config.fused_shade and config.shading_per_pixel):
-        raise NotImplementedError(
-            "fused_shade=False / supersampled shading is the split path "
-            "(ROADMAP A6)")
+            "shading_per_pixel=False (supersampled shading) needs K3's "
+            "per-sample G-buffer layout (ROADMAP A6b)")
     if (config.tile_h, config.tile_w) != (8, 128):
         raise NotImplementedError(
-            "the fused main pass bins on 8x128 tiles; other main-pass tile "
-            "shapes are the split path (ROADMAP A6)")
+            "per-pixel G-buffers are binned on 8x128 main-pass tiles; other "
+            "tile shapes need K3's per-sample layout (ROADMAP A6b)")
+
+
+def _fused_ok(scene, lighting, config):
+    """The JAX pipeline's ``fused_ok``: untextured scene, point light."""
+    return (config.fused_shade and len(scene.textures) == 0
+            and isinstance(lighting.light, lights_mod.PointLight))
 
 
 @dataclasses.dataclass(frozen=True)
 class FramePrep:
-    """Everything a frame's two kernel launches read, built on the device."""
+    """Everything a frame's kernel launches and shading read, built on the
+    device."""
 
     shadow_bins: object      # TileBins of the shadow pass, or None
     main_bins: object        # TileBins (with attribute planes) of the main pass
-    uniforms: torch.Tensor   # f32[FU_LEN] fused-shade uniforms
+    uniforms: torch.Tensor   # f32[FU_LEN] shading uniforms (FU_* layout)
+    light_dir: torch.Tensor  # f32[3] a directional light's direction, or None
+    textures: tuple          # the scene's mip chains on the device
+    fused: bool              # the main pass takes the fused kernel (K2)
     stats: dict              # prep-side stats (0-d tensors)
 
 
@@ -138,12 +153,13 @@ def prepare_frame(scene: Scene, camera, lighting,
                   config: RenderConfig = RenderConfig(),
                   shadow_config: ShadowConfig = ShadowConfig(),
                   displacement=0.0, shadow_target=(0.0, 0.0, 0.0),
-                  backend="kernels", device="cpu") -> FramePrep:
+                  backend="kernels", device="cuda") -> FramePrep:
     """The host-side part of a frame: vertex stage, clipping, triangle
     setup and binning of both passes, and the uniforms. No kernel runs."""
     device = resolve_device(device)
-    _check_supported(scene, lighting, config, backend)
-    geom = bake(scene.to(device), displacement)
+    _check_supported(lighting, config, backend)
+    scene = scene.to(device)
+    geom = bake(scene, displacement)
     light = lighting.light
     light_anchor = lights_mod.light_anchor_position(
         light, shadow_target, shadow_config)
@@ -188,14 +204,20 @@ def prepare_frame(scene: Scene, camera, lighting,
     stats["big_dropped"] = main_bins.num_big_dropped
     uniforms = _fused_uniforms(m, camera, light_anchor, light, lighting,
                                config).to(device)
-    return FramePrep(shadow_bins, main_bins, uniforms, stats)
+    light_dir = None
+    if isinstance(light, lights_mod.DirectionalLight):
+        light_dir = torch.as_tensor(light.direction,
+                                    dtype=torch.float32).to(device)
+    return FramePrep(shadow_bins, main_bins, uniforms, light_dir,
+                     scene.textures, _fused_ok(scene, lighting, config),
+                     stats)
 
 
 def render_frame(scene: Scene, camera, lighting,
                  config: RenderConfig = RenderConfig(),
                  shadow_config: ShadowConfig = ShadowConfig(),
                  displacement=0.0, shadow_target=(0.0, 0.0, 0.0),
-                 backend="kernels", device="cpu"):
+                 backend="kernels", device="cuda"):
     """Render one frame on ``device``. Returns (framebuffer f32[H,W,4] and a
     stats dict of 0-d tensors, both on ``device``)."""
     prep = prepare_frame(scene, camera, lighting, config, shadow_config,
@@ -208,9 +230,35 @@ def render_frame(scene: Scene, camera, lighting,
                                             ((0.5, 0.5),), clear_depth=1.0)
         shadow_map = depth[0]
         stats["shadow_min_depth"] = torch.amin(shadow_map)
-    rgba, covf = raster_cuda.render_fused(
-        prep.main_bins, prep.uniforms, shadow_map, config.width,
-        config.height, tuple(config.sample_positions),
+    samples = tuple(config.sample_positions)
+    if prep.fused:
+        rgba, covf = raster_cuda.render_fused(
+            prep.main_bins, prep.uniforms, shadow_map, config.width,
+            config.height, samples, clear_depth=config.clear_depth)
+        stats["covered_fraction"] = torch.mean(covf)
+        return rgba, stats
+
+    gout, _, _ = raster_cuda.raster_gbuffer(
+        prep.main_bins, config.width, config.height, samples,
         clear_depth=config.clear_depth)
-    stats["covered_fraction"] = torch.mean(covf)
-    return rgba, stats
+    ch = raster_cuda.channels_from_gout_px(gout, len(samples))
+    u = prep.uniforms
+    shadow_ctx = None
+    if shadow_map is not None:
+        shadow_ctx = shade.ShadowContext(
+            depth_map=shadow_map,
+            light_m=u[raster_cuda.FU_M:raster_cuda.FU_M + 16].reshape(4, 4))
+    r, g, b, a = shade.shade_channels(
+        ch,
+        camera_pos=u[raster_cuda.FU_CAM:raster_cuda.FU_CAM + 3],
+        light_pos=u[raster_cuda.FU_LPOS:raster_cuda.FU_LPOS + 3],
+        light_color=u[raster_cuda.FU_LCOL:raster_cuda.FU_LCOL + 3],
+        ambient_intensity=u[raster_cuda.FU_AMB],
+        shininess=u[raster_cuda.FU_SHIN],
+        clear_color=u[raster_cuda.FU_CLEAR:raster_cuda.FU_CLEAR + 4],
+        shadow=shadow_ctx, textures=prep.textures,
+        shadow_bias=u[raster_cuda.FU_BIAS],
+        shadow_factor_value=u[raster_cuda.FU_FACTOR],
+        light_dir=prep.light_dir)
+    stats["covered_fraction"] = torch.mean(ch["cov_frac"])
+    return torch.stack([r, g, b, a], dim=-1), stats

@@ -36,11 +36,18 @@ VIS_FIELDS = 17
 ATTR_GROUPS = 15
 ATTR_GROUPS_PADDED = 16
 ATTR_FIELDS = ATTR_GROUPS_PADDED * 3    # 48
+# Attribute groups double as the K3 G-buffer rows; its row 15 carries the
+# pixel's covered-sample count.
 ROW_WORLD = 0
+ROW_UV = 3
 ROW_NORMAL = 5
 ROW_INVW = 8
 ROW_MATKIND = 9
+ROW_TEXID = 10
 ROW_COLOR = 11
+ROW_NMID = 14
+ROW_DEPTH = 15
+GOUT_ROWS = 16
 
 
 def build_tri_fields(setup: TriangleSetup) -> torch.Tensor:

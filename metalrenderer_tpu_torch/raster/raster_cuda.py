@@ -1,16 +1,23 @@
 """Hand-written CUDA raster kernels for Hopper, with their plain twins.
 
-Two kernels (``csrc/raster.cu``), each behind a wrapper that launches it on
-a CUDA tensor and hands a CPU tensor to its plain PyTorch twin:
+Three kernels (``csrc/raster.cu``), each behind a wrapper that launches it
+on a CUDA tensor and hands a CPU tensor to its plain PyTorch twin, all
+specializations of one Pallas band-kernel factory
+(``metalrenderer_tpu/raster/raster_pallas.py``: ``_make_kernel``):
 
-``raster_depth`` — replaces the depth-only specialization of the Pallas band
-kernel (``metalrenderer_tpu/raster/raster_pallas.py``: ``_make_kernel`` with
-``with_attrs=False``, launched by ``rasterize_tiles``). The shadow pass.
+``raster_depth`` (K1) — the depth-only specialization (``with_attrs=False``,
+launched by ``rasterize_tiles``). The shadow pass.
 
-``render_fused`` — replaces the fused-shade specialization of the same
-factory (launched by ``raster_pallas.render_fused``): MSAA visibility, the
-first covered sample's attribute planes, Blinn-Phong/emissive shading, the
-shadow-map test and the coverage resolve. The main pass.
+``render_fused`` (K2) — the fused-shade specialization (launched by
+``raster_pallas.render_fused``): MSAA visibility, the first covered sample's
+attribute planes, Blinn-Phong/emissive shading, the shadow-map test and the
+coverage resolve. The fused main pass.
+
+``raster_gbuffer`` (K3) — the per-pixel G-buffer specialization
+(``with_attrs=True, attr_px=True``, launched by ``rasterize_tiles``): K2's
+visibility and fragment selection, writing the raw attribute rows that
+``channels_from_gout_px`` and ``shade.shade_channels`` consume. The split
+path's main pass.
 
 What the kernels compute (and the twins, in the same operation order):
 
@@ -31,19 +38,21 @@ What the kernels compute (and the twins, in the same operation order):
   independent of the CUDA block shape. No FMA contraction anywhere
   (``-fmad=false``; eager torch ops round every step).
 * The fragment stage takes, per pixel, the first sample (in sample order)
-  whose winner is >= 0, evaluates that winner's 15 attribute/w planes at the
-  absolute sample position as ``(a*sx + b*sy) + c``, shades with the fused
-  kernel's ``1/sqrt`` Blinn-Phong form, tests the shadow map with an exact
-  REPEAT bilinear lookup over the whole map (``sampling.sample_bilinear``
-  semantics; the Pallas kernel's DMA windows and its "lit" fallback outside
-  them are not reproduced — ROADMAP C1) and blends with the clear color by
-  the covered fraction.
+  whose winner is >= 0 and evaluates that winner's 15 attribute/w planes at
+  the absolute sample position as ``(a*sx + b*sy) + c``. K3 stores them
+  (zeros for an uncovered pixel) with the covered-sample count in row
+  ``ROW_DEPTH``. K2 shades them with the ``1/sqrt`` Blinn-Phong form, tests
+  the shadow map with an exact REPEAT bilinear lookup over the whole map
+  (``sampling.sample_bilinear`` semantics; the Pallas kernel's DMA windows
+  and its "lit" fallback outside them are not reproduced — ROADMAP C1) and
+  blends with the clear color by the covered fraction.
 
-On the H100 neither kernel is bound by memory traffic: a thread walks its
+On the H100 K1 and K2 are not bound by memory traffic: a thread walks its
 tile's candidate list serially (FP32 issue plus dependent table loads), so
 the design keeps that walk warp-uniform — a 32x8 block lies inside one
 binning tile, every lane loads the same triangle's fields — and keeps the
-per-sample depth and winner in registers (``csrc/raster.cu`` header).
+per-sample depth and winner in registers (``csrc/raster.cu`` header). K3
+adds 64 bytes of output per pixel, written plane by plane, coalesced.
 
 The twins work on pieces of tile rows at a time, so they run at 1080p MSAA4
 on the card as well as on the CPU.
@@ -56,9 +65,10 @@ import functools
 import torch
 
 from ..scene.materials import BLINN_PHONG_SHADOW, EMISSIVE
-from . import _build, shade
-from .binning import (ATTR_GROUPS_PADDED, ROW_COLOR, ROW_INVW, ROW_MATKIND,
-                      ROW_NORMAL, ROW_WORLD, TileBins)
+from . import _build, sample_cuda, shade
+from .binning import (ATTR_GROUPS_PADDED, GOUT_ROWS, ROW_COLOR, ROW_DEPTH,
+                      ROW_INVW, ROW_MATKIND, ROW_NMID, ROW_NORMAL, ROW_TEXID,
+                      ROW_UV, ROW_WORLD, TileBins)
 
 # Fused-shade uniform vector layout (f32[FU_LEN]), as in raster_pallas.py.
 FU_M = 0        # 16: light_proj @ light_view, row-major (zeros w/o shadow)
@@ -76,8 +86,8 @@ MAX_SAMPLES = 4
 # Samples evaluated per step of a twin (bounds its temporaries).
 _PLAIN_PIECE_SAMPLES = 1 << 21
 
-# Launch counts of the two kernels; each wrapper adds one per launch.
-LAUNCHES = {"raster_depth": 0, "render_fused": 0}
+# Launch counts of the three kernels; each wrapper adds one per launch.
+LAUNCHES = {"raster_depth": 0, "render_fused": 0, "raster_gbuffer": 0}
 
 
 def reset_launch_counts():
@@ -201,13 +211,13 @@ def raster_depth_plain(bins: TileBins, width, height, sample_offsets,
             winner[:, :height, :width].contiguous())
 
 
-def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
-                  shadow_map):
-    """Fragment stage of the fused kernel for the pixels of ``tiles``.
-    wb: i64[n, S, P] winners. Returns (rgba f32[n, 4, P], covf f32[n, P])."""
+def _first_covered(bins: TileBins, tiles, wb, sample_offsets):
+    """Per pixel of ``tiles`` (wb: i64[n, S, P] winners): the covered-sample
+    count, the first covered sample's absolute position (sx, sy), each
+    [n, P], and its winner's attribute-plane row A [n, P, 48] (triangle 0's
+    where no sample is covered)."""
     dev = wb.device
     n, S, P = wb.shape
-    u = uniforms
     covered_s = wb >= 0
     cnt = covered_s.sum(dim=1)                               # [n, P]
     first = torch.argmax(covered_s.to(torch.int32), dim=1)   # first covered
@@ -219,10 +229,25 @@ def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
     sx = px.to(torch.float32) + offs[first, 0]
     sy = py.to(torch.float32) + offs[first, 1]
     A = bins.attr[torch.clamp_min(tid, 0)]                   # [n, P, 48]
+    return cnt, sx, sy, A
+
+
+def _attr_plane(A, k, sx, sy):
+    """Attribute group ``k`` of rows ``A`` at (sx, sy): (a*sx + b*sy) + c."""
+    return (A[..., k] * sx + A[..., ATTR_GROUPS_PADDED + k] * sy) + \
+        A[..., 2 * ATTR_GROUPS_PADDED + k]
+
+
+def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
+                  shadow_map):
+    """Fragment stage of the fused kernel for the pixels of ``tiles``.
+    wb: i64[n, S, P] winners. Returns (rgba f32[n, 4, P], covf f32[n, P])."""
+    S = wb.shape[1]
+    u = uniforms
+    cnt, sx, sy, A = _first_covered(bins, tiles, wb, sample_offsets)
 
     def g(k):
-        return (A[..., k] * sx + A[..., ATTR_GROUPS_PADDED + k] * sy) + \
-            A[..., 2 * ATTR_GROUPS_PADDED + k]
+        return _attr_plane(A, k, sx, sy)
 
     invw = g(ROW_INVW)
     inv = 1.0 / torch.where(invw > 0.0, invw, torch.ones_like(invw))
@@ -242,7 +267,8 @@ def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
     if shadow_map is not None:
         m = u[FU_M:FU_M + 16].reshape(4, 4)
         sf = shade._shadow_factor_soa(w, m, shadow_map, u[FU_BIAS],
-                                      u[FU_FACTOR], receives)
+                                      u[FU_FACTOR], receives,
+                                      sample_cuda.sample_bilinear_plain)
         msk = torch.where(receives, sf, torch.ones_like(sf))
         planes = [c * msk for c in planes]
     covf = cnt.to(torch.float32) * (1.0 / S)
@@ -273,6 +299,70 @@ def render_fused_plain(bins: TileBins, uniforms, shadow_map, width, height,
             covf[:height, :width].contiguous())
 
 
+def raster_gbuffer_plain(bins: TileBins, width, height, sample_offsets,
+                         clear_depth=1.0, with_samples=False):
+    """Plain PyTorch twin of the ``raster_gbuffer`` kernel (same inputs, same
+    arithmetic). Returns (gout f32[16,H,W], depth f32[S,H,W] or None,
+    winner i32[S,H,W] or None)."""
+    dev = bins.vis.device
+    S = len(sample_offsets)
+    xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
+    hp, wp = bins.nty * bins.tile_h, bins.ntx * bins.tile_w
+    gout = torch.empty((GOUT_ROWS, hp, wp), dtype=torch.float32, device=dev)
+    if with_samples:
+        depth = torch.empty((S, hp, wp), dtype=torch.float32, device=dev)
+        winner = torch.empty((S, hp, wp), dtype=torch.int32, device=dev)
+    for tiles in _tile_pieces(bins, S, dev):
+        zb, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth)
+        if with_samples:
+            _place(zb, bins, tiles, depth)
+            _place(wb.to(torch.int32), bins, tiles, winner)
+        cnt, sx, sy, A = _first_covered(bins, tiles, wb, sample_offsets)
+        covered = cnt > 0
+        zero = torch.zeros_like(sx)
+        rows = [torch.where(covered, _attr_plane(A, k, sx, sy), zero)
+                for k in range(GOUT_ROWS - 1)]
+        rows.append(cnt.to(torch.float32))
+        _place(torch.stack(rows, dim=1), bins, tiles, gout)
+    gout = gout[:, :height, :width].contiguous()
+    if not with_samples:
+        return gout, None, None
+    return (gout, depth[:, :height, :width].contiguous(),
+            winner[:, :height, :width].contiguous())
+
+
+def channels_from_gout_px(gout, n_samples):
+    """Per-pixel shading channels from a ``raster_gbuffer`` gout
+    (``raster_pallas.channels_from_gout_px``): the value/w rows divided by
+    the interpolated 1/w, ids rounded half-to-even (``jnp.rint``), -1 where
+    no sample is covered, and the covered fraction from ROW_DEPTH's count."""
+    invw = gout[ROW_INVW]
+    cnt = gout[ROW_DEPTH]
+    covered = cnt > 0.0
+    inv = 1.0 / torch.where(invw > 0.0, invw, torch.ones_like(invw))
+
+    def row(i):
+        return gout[i] * inv
+
+    def ids(i):
+        return torch.where(covered, torch.round(row(i)).to(torch.int32),
+                           torch.full_like(cnt, -1, dtype=torch.int32))
+
+    return {
+        "wx": row(ROW_WORLD), "wy": row(ROW_WORLD + 1),
+        "wz": row(ROW_WORLD + 2),
+        "nx": row(ROW_NORMAL), "ny": row(ROW_NORMAL + 1),
+        "nz": row(ROW_NORMAL + 2),
+        "u": row(ROW_UV), "v": row(ROW_UV + 1),
+        "kind": ids(ROW_MATKIND), "texid": ids(ROW_TEXID),
+        "nmid": ids(ROW_NMID),
+        "cr": row(ROW_COLOR), "cg": row(ROW_COLOR + 1),
+        "cb": row(ROW_COLOR + 2),
+        "covered": covered,
+        "cov_frac": cnt * (1.0 / n_samples),
+    }
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -294,20 +384,10 @@ def _lib():
                                     + [_P, _P, _P, _I, _I]
                                     + [_I, _I, _P, _P, _P])
     lib.mr_render_fused.restype = _I
+    lib.mr_raster_gbuffer.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
+                                      + [_P, _I, _I, _P, _P, _P, _P])
+    lib.mr_raster_gbuffer.restype = _I
     return lib
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _check(name, t, dtype, device, shape=None):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                         f"{device}, got {t.dtype} on {t.device}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: need shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
 
 
 def _check_grid(bins: TileBins, width, height):
@@ -319,16 +399,18 @@ def _check_grid(bins: TileBins, width, height):
 
 def _bins_args(bins: TileBins, device):
     T = bins.vis.shape[0]
-    _check("vis", bins.vis, torch.float32, device, (T, 17))
-    _check("tile_offsets", bins.tile_offsets, torch.int32, device,
-           (bins.ntx * bins.nty + 1,))
-    _check("tile_tris", bins.tile_tris, torch.int32, device)
-    _check("big_ids", bins.big_ids, torch.int32, device)
-    _check("big_aabb", bins.big_aabb, torch.int32, device,
-           (bins.big_ids.shape[0], 4))
-    _check("big_n", bins.big_n, torch.int32, device, (1,))
-    return [_ptr(bins.vis), _ptr(bins.tile_offsets), _ptr(bins.tile_tris),
-            _ptr(bins.big_ids), _ptr(bins.big_aabb), _ptr(bins.big_n),
+    check = _build.check
+    check("vis", bins.vis, torch.float32, device, (T, 17))
+    check("tile_offsets", bins.tile_offsets, torch.int32, device,
+          (bins.ntx * bins.nty + 1,))
+    check("tile_tris", bins.tile_tris, torch.int32, device)
+    check("big_ids", bins.big_ids, torch.int32, device)
+    check("big_aabb", bins.big_aabb, torch.int32, device,
+          (bins.big_ids.shape[0], 4))
+    check("big_n", bins.big_n, torch.int32, device, (1,))
+    ptr = _build.ptr
+    return [ptr(bins.vis), ptr(bins.tile_offsets), ptr(bins.tile_tris),
+            ptr(bins.big_ids), ptr(bins.big_aabb), ptr(bins.big_n),
             bins.tile_w, bins.tile_h, bins.ntx]
 
 
@@ -339,12 +421,6 @@ def _sample_args(sample_offsets, clear_depth):
     for s, (x, y) in enumerate(sample_offsets):
         flat[2 * s], flat[2 * s + 1] = float(x), float(y)
     return [len(sample_offsets)] + flat + [float(clear_depth)]
-
-
-def _raise_on(err, name):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} "
-                           f"({torch.cuda.get_device_name()})")
 
 
 def raster_depth(bins: TileBins, width, height, sample_offsets,
@@ -361,12 +437,43 @@ def raster_depth(bins: TileBins, width, height, sample_offsets,
     S = len(sample_offsets)
     depth = torch.empty((S, height, width), dtype=torch.float32, device=device)
     winner = torch.empty((S, height, width), dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib().mr_raster_depth(*args, width, height, _ptr(depth),
-                                 _ptr(winner), ctypes.c_void_p(stream))
-    _raise_on(err, "raster_depth")
+    err = _lib().mr_raster_depth(*args, width, height, _build.ptr(depth),
+                                 _build.ptr(winner), _build.stream(device))
+    _build.raise_on(err, "raster_depth")
     LAUNCHES["raster_depth"] += 1
     return depth, winner
+
+
+def raster_gbuffer(bins: TileBins, width, height, sample_offsets,
+                   clear_depth=1.0, with_samples=False):
+    """Per-pixel G-buffer raster (kernel K3). Returns (gout f32[16,H,W]: the
+    first covered sample's winner's raw value/w rows and, in ROW_DEPTH, the
+    covered-sample count; and, if ``with_samples``, depth f32[S,H,W] and
+    winner i32[S,H,W], else None twice). CPU tensors go to the plain twin;
+    CUDA tensors launch the kernel, and a failed launch raises."""
+    _check_grid(bins, width, height)
+    device = bins.vis.device
+    if device.type == "cpu":
+        return raster_gbuffer_plain(bins, width, height, sample_offsets,
+                                    clear_depth, with_samples)
+    args = _bins_args(bins, device) + _sample_args(sample_offsets, clear_depth)
+    _build.check("attr", bins.attr, torch.float32, device,
+                 (bins.vis.shape[0], 48))
+    S = len(sample_offsets)
+    gout = torch.empty((GOUT_ROWS, height, width), dtype=torch.float32,
+                       device=device)
+    depth = winner = None
+    if with_samples:
+        depth = torch.empty((S, height, width), dtype=torch.float32,
+                            device=device)
+        winner = torch.empty((S, height, width), dtype=torch.int32,
+                             device=device)
+    err = _lib().mr_raster_gbuffer(
+        *args, _build.ptr(bins.attr), width, height, _build.ptr(gout),
+        _build.ptr(depth), _build.ptr(winner), _build.stream(device))
+    _build.raise_on(err, "raster_gbuffer")
+    LAUNCHES["raster_gbuffer"] += 1
+    return gout, depth, winner
 
 
 def render_fused(bins: TileBins, uniforms, shadow_map, width, height,
@@ -381,23 +488,21 @@ def render_fused(bins: TileBins, uniforms, shadow_map, width, height,
         return render_fused_plain(bins, uniforms, shadow_map, width, height,
                                   sample_offsets, clear_depth)
     args = _bins_args(bins, device) + _sample_args(sample_offsets, clear_depth)
-    _check("attr", bins.attr, torch.float32, device, (bins.vis.shape[0], 48))
-    _check("uniforms", uniforms, torch.float32, device, (FU_LEN,))
-    if shadow_map is None:
-        smap, tex_h, tex_w = ctypes.c_void_p(0), 0, 0
-    else:
+    _build.check("attr", bins.attr, torch.float32, device,
+                 (bins.vis.shape[0], 48))
+    _build.check("uniforms", uniforms, torch.float32, device, (FU_LEN,))
+    tex_h = tex_w = 0
+    if shadow_map is not None:
         if shadow_map.dim() != 2:
             raise ValueError("shadow_map: need a 2-D [H, W] depth map")
-        _check("shadow_map", shadow_map, torch.float32, device)
-        smap = _ptr(shadow_map)
+        _build.check("shadow_map", shadow_map, torch.float32, device)
         tex_h, tex_w = shadow_map.shape
     rgba = torch.empty((height, width, 4), dtype=torch.float32, device=device)
     covf = torch.empty((height, width), dtype=torch.float32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib().mr_render_fused(*args, _ptr(bins.attr), _ptr(uniforms), smap,
-                                 tex_h, tex_w, width, height, _ptr(rgba),
-                                 _ptr(covf), ctypes.c_void_p(stream))
-    _raise_on(err, "render_fused")
+    err = _lib().mr_render_fused(*args, _build.ptr(bins.attr),
+                                 _build.ptr(uniforms), _build.ptr(shadow_map),
+                                 tex_h, tex_w, width, height, _build.ptr(rgba),
+                                 _build.ptr(covf), _build.stream(device))
+    _build.raise_on(err, "render_fused")
     LAUNCHES["render_fused"] += 1
     return rgba, covf
-

@@ -1,7 +1,9 @@
 """Texture sampling (torch counterpart of ``metalrenderer_tpu.raster.sampling``).
 
 Metal sampler state (mtl_engine.mm:603-612 creates a linear min/mag,
-repeat-address sampler for the shadow map) as a plain gather.
+repeat-address sampler for the shadow map) as a plain gather. These are the
+reference semantics; the kernels of ``sample_cuda`` (bilinear) and
+``mip_cuda`` (trilinear) compute the same functions on the GPU.
 """
 from __future__ import annotations
 
@@ -44,3 +46,37 @@ def sample_bilinear(tex, u, v, address_mode=REPEAT):
     top = t00 * (1.0 - fx) + t10 * fx
     bot = t01 * (1.0 - fx) + t11 * fx
     return top * (1.0 - fy) + bot * fy
+
+
+def sample_trilinear(mips, u, v, lod, address_mode=REPEAT):
+    """Trilinear: bilinear in two adjacent mip levels, blended by frac(lod).
+
+    ``mips``: tuple of f32[H_i, W_i, C], mips[0] the base level; ``lod``:
+    f32[...] level of detail (0 = base), clipped to the chain.
+    """
+    n = len(mips)
+    if n == 1:
+        return sample_bilinear(mips[0], u, v, address_mode)
+    lod = torch.clamp(lod, 0.0, n - 1.0)
+    lo = torch.floor(lod)
+    frac = (lod - lo)[..., None]
+    lo_i = lo.to(torch.int64)
+    acc_lo = sample_bilinear(mips[0], u, v, address_mode)
+    acc_hi = sample_bilinear(mips[1], u, v, address_mode)
+    for level in range(1, n):
+        sel = (lo_i == level)[..., None]
+        acc_lo = torch.where(sel, sample_bilinear(mips[level], u, v,
+                                                  address_mode), acc_lo)
+        acc_hi = torch.where(sel, sample_bilinear(
+            mips[min(level + 1, n - 1)], u, v, address_mode), acc_hi)
+    return acc_lo * (1.0 - frac) + acc_hi * frac
+
+
+def mip_level_from_uv_derivatives(du_dx, dv_dx, du_dy, dv_dy, tex_w, tex_h):
+    """Standard isotropic LOD: log2 of the max screen-space texel footprint."""
+    ax, bx = du_dx * tex_w, dv_dx * tex_h
+    ay, by = du_dy * tex_w, dv_dy * tex_h
+    fx = torch.sqrt(ax * ax + bx * bx)
+    fy = torch.sqrt(ay * ay + by * by)
+    rho = torch.maximum(fx, fy)
+    return torch.log2(torch.clamp_min(rho, 1e-12))

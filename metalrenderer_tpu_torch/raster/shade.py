@@ -1,20 +1,40 @@
-"""Fragment stage math: Blinn-Phong + shadow test, in SoA channels.
+"""Deferred shading: Blinn-Phong + emissive + shadow test + textures + normal
+maps over per-pixel SoA channel planes.
 
-Torch counterpart of the parts of ``metalrenderer_tpu.raster.shade`` that
-the fused path uses (``_blinn_phong_soa``, ``_shadow_factor_soa``), in the
-same expression order, which is also the order of the CUDA fused kernel:
+Torch counterpart of ``metalrenderer_tpu.raster.shade`` (its per-pixel
+path), in the same expression order, which for the Blinn-Phong and shadow
+parts is also the order of the CUDA fused kernel (K2):
   * fragmentBP_NoShadow / fragmentBP (BlinnPhong.metal:40-58, :60-97):
     ambient + diffuse + specular(half vector, shininess) times the
-    material color; the interpolated normal is NOT renormalized;
+    material color, for a point light or a directional one; the
+    interpolated normal is NOT renormalized;
   * the shadow test (BlinnPhong.metal:79-96): light-space position, the
     ``z*0.5+0.5`` depth remap quirk, the self-consistent viewport mapping
-    ``v = (1-ndc.y)/2``, a bilinear REPEAT lookup, bias and factor.
+    ``v = (1-ndc.y)/2``, a bilinear REPEAT lookup (kernel K7), bias and
+    factor;
+  * color textures and tangent-space normal maps, trilinear over their mip
+    chains (kernel K9) at an isotropic LOD from screen-space uv
+    differences. Differences wrap around the frame (``torch.roll``, as
+    ``jnp.roll`` there), so the last row and column match too.
+Texture and shadow lookups go through the kernels' wrappers: on CUDA
+tensors they launch the kernels, on CPU tensors their plain twins run.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from . import sampling
+from ..scene.materials import BLINN_PHONG_SHADOW, EMISSIVE
+from . import mip_cuda, sample_cuda, sampling
+
+
+@dataclasses.dataclass(frozen=True)
+class ShadowContext:
+    """Shadow pass output consumed by the main pass."""
+
+    depth_map: torch.Tensor   # f32[S, S] light-space depth
+    light_m: torch.Tensor     # f32[4, 4] light_proj @ light_view
 
 
 def _rsqrt_norm3(x, y, z):
@@ -23,9 +43,13 @@ def _rsqrt_norm3(x, y, z):
 
 
 def _blinn_phong_soa(w, n, base, camera_pos, light_pos, light_color,
-                     ambient_intensity, shininess):
-    """BlinnPhong.metal:44-57 with a point light. Each argument is a tuple
-    of channels (or a 3-vector of scalars for positions and colors)."""
+                     ambient_intensity, shininess, light_dir=None):
+    """BlinnPhong.metal:44-57 / :66-77. Each argument is a tuple of channels
+    (or a 3-vector of scalars for positions, colors and ``light_dir``).
+
+    ``light_dir``: if given (pointing FROM the light), the light is
+    directional: L = -normalize(light_dir), the same for every fragment.
+    Otherwise L points at ``light_pos`` per fragment."""
     wx, wy, wz = w
     nx, ny, nz = n
     vx = camera_pos[0] - wx
@@ -33,11 +57,16 @@ def _blinn_phong_soa(w, n, base, camera_pos, light_pos, light_color,
     vz = camera_pos[2] - wz
     inv = _rsqrt_norm3(vx, vy, vz)
     vx, vy, vz = vx * inv, vy * inv, vz * inv
-    lx = light_pos[0] - wx
-    ly = light_pos[1] - wy
-    lz = light_pos[2] - wz
-    inv = _rsqrt_norm3(lx, ly, lz)
-    lx, ly, lz = lx * inv, ly * inv, lz * inv
+    if light_dir is not None:
+        inv = _rsqrt_norm3(light_dir[0], light_dir[1], light_dir[2])
+        lx, ly, lz = (-light_dir[0] * inv, -light_dir[1] * inv,
+                      -light_dir[2] * inv)
+    else:
+        lx = light_pos[0] - wx
+        ly = light_pos[1] - wy
+        lz = light_pos[2] - wz
+        inv = _rsqrt_norm3(lx, ly, lz)
+        lx, ly, lz = lx * inv, ly * inv, lz * inv
     hx, hy, hz = lx + vx, ly + vy, lz + vz
     inv = _rsqrt_norm3(hx, hy, hz)
     hx, hy, hz = hx * inv, hy * inv, hz * inv
@@ -52,12 +81,9 @@ def _blinn_phong_soa(w, n, base, camera_pos, light_pos, light_color,
             s * light_color[2] * base[2])
 
 
-def _shadow_factor_soa(w, light_m, depth_map, bias, factor, needs):
-    """BlinnPhong.metal:79-96. ``light_m`` = light_proj @ light_view
-    (f32[4,4]); ``depth_map`` f32[S, S]; ``needs``: fragments whose material
-    runs the test. Returns the factor (``factor`` where shadowed, else 1)
-    for those fragments and 1 elsewhere; the map is only read for
-    fragments that need it and whose light-space uv lies in [0,1]^2."""
+def _shadow_coords(w, light_m):
+    """Light-space lookup of world positions ``w`` (BlinnPhong.metal:79-90):
+    (u, v, the fragment's remapped depth, uv inside [0,1]^2)."""
     wx, wy, wz = w
     m = light_m
     lx = m[0, 0] * wx + m[0, 1] * wy + m[0, 2] * wz + m[0, 3]
@@ -69,12 +95,169 @@ def _shadow_factor_soa(w, light_m, depth_map, bias, factor, needs):
     v = (1.0 - ly * inv_w) * 0.5             # self-consistent viewport map
     shadow_depth = lz * inv_w * 0.5 + 0.5    # reference depth remap quirk
     in_bounds = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
-    mask = in_bounds & needs
-    zero = torch.zeros_like(u)
-    d = sampling.sample_bilinear(depth_map[..., None],
-                                 torch.where(mask, u, zero),
-                                 torch.where(mask, v, zero),
-                                 sampling.REPEAT)[..., 0]
+    return u, v, shadow_depth, in_bounds
+
+
+def _shadow_factor_soa(w, light_m, depth_map, bias, factor, needs,
+                       sample=None):
+    """BlinnPhong.metal:79-96. ``light_m`` = light_proj @ light_view
+    (f32[4,4]); ``depth_map`` f32[S, S]; ``needs``: fragments whose material
+    runs the test. Returns ``factor`` where a fragment's light-space uv lies
+    in [0,1]^2 and it is shadowed, else 1. The map is read (by ``sample``:
+    kernel K7 by default, or its twin) only for fragments that need it and
+    are in bounds; the others read depth 1.0, i.e. lit."""
+    sample = sample or sample_cuda.sample_bilinear
+    u, v, shadow_depth, in_bounds = _shadow_coords(w, light_m)
+    d = sample(depth_map, u, v, sampling.REPEAT, 1.0, in_bounds & needs)
     shadowed = (shadow_depth - bias) > d
     one = torch.ones_like(u)
-    return torch.where(mask & shadowed, factor * one, one)
+    return torch.where(in_bounds & shadowed, factor * one, one)
+
+
+def _ddx(a):
+    return torch.roll(a, -1, dims=-1) - a
+
+
+def _ddy(a):
+    return torch.roll(a, -1, dims=-2) - a
+
+
+def _texture_lod(u, v, tex_w, tex_h):
+    """Per-pixel isotropic LOD from screen-space uv derivatives (the
+    dFdx/dFdy equivalent: finite differences along framebuffer axes)."""
+    return sampling.mip_level_from_uv_derivatives(
+        _ddx(u), _ddx(v), _ddy(u), _ddy(v), tex_w, tex_h)
+
+
+def _sample_rgb(mips, u, v, mask):
+    """Texture RGB in SoA channels: one K9 launch per call, trilinear at the
+    pixel's LOD (bilinear for a single-level texture), pixels outside
+    ``mask`` 0."""
+    if len(mips) > 1:
+        lod = _texture_lod(u, v, mips[0].shape[1], mips[0].shape[0])
+    else:
+        lod = torch.zeros_like(u)
+    return mip_cuda.sample_pyramid(mip_cuda.build_pyramid(mips), u, v, lod,
+                                   mask, sampling.REPEAT)
+
+
+def _resolve_base_color_soa(base, tex_id, u, v, textures):
+    """A texture sample replaces materialColor where tex_id selects it
+    (Metal-Tutorial textured path)."""
+    for i, mips in enumerate(textures):
+        sel = tex_id == i
+        tex = _sample_rgb(mips, u, v, sel)
+        base = tuple(torch.where(sel, tex[c], base[c]) for c in range(3))
+    return base
+
+
+def _norm3(x, y, z):
+    r = torch.sqrt(x * x + y * y + z * z)
+    s = torch.where(r > 1e-12, 1.0 / r, torch.zeros_like(r))
+    return x * s, y * s, z * s
+
+
+def _apply_normal_maps_soa(w, n, u, v, covered, textures, normal_map_ids):
+    """Tangent-space normal mapping from screen-space derivatives (BASELINE
+    config 4; the reference has no normal mapping). Deferred-style TBN:
+    tangent and bitangent come from finite differences of world position
+    and uv along the framebuffer axes, so no per-vertex tangents are
+    needed."""
+    if not textures:
+        return n
+    wx, wy, wz = w
+    dwx_x, dwy_x, dwz_x = _ddx(wx), _ddx(wy), _ddx(wz)
+    dwx_y, dwy_y, dwz_y = _ddy(wx), _ddy(wy), _ddy(wz)
+    du_x, dv_x = _ddx(u), _ddx(v)
+    du_y, dv_y = _ddy(u), _ddy(v)
+
+    det = du_x * dv_y - dv_x * du_y
+    inv = torch.where(torch.abs(det) > 1e-12, 1.0 / det,
+                      torch.zeros_like(det))
+    tx = (dwx_x * dv_y - dwx_y * dv_x) * inv
+    ty = (dwy_x * dv_y - dwy_y * dv_x) * inv
+    tz = (dwz_x * dv_y - dwz_y * dv_x) * inv
+    bx = (dwx_y * du_x - dwx_x * du_y) * inv
+    by = (dwy_y * du_x - dwy_x * du_y) * inv
+    bz = (dwz_y * du_x - dwz_x * du_y) * inv
+
+    tx, ty, tz = _norm3(tx, ty, tz)
+    bx, by, bz = _norm3(bx, by, bz)
+    nx, ny, nz = _norm3(*n)
+
+    out = n
+    for i, mips in enumerate(textures):
+        use = (normal_map_ids == i) & covered
+        m0, m1, m2 = _sample_rgb(mips, u, v, use)
+        m0 = m0 * 2.0 - 1.0
+        m1 = m1 * 2.0 - 1.0
+        m2 = m2 * 2.0 - 1.0
+        px = tx * m0 + bx * m1 + nx * m2
+        py = ty * m0 + by * m1 + ny * m2
+        pz = tz * m0 + bz * m1 + nz * m2
+        px, py, pz = _norm3(px, py, pz)
+        out = (torch.where(use, px, out[0]), torch.where(use, py, out[1]),
+               torch.where(use, pz, out[2]))
+    return out
+
+
+def shade_channels(ch, camera_pos, light_pos, light_color,
+                   ambient_intensity, shininess, clear_color,
+                   shadow: ShadowContext = None, textures=(),
+                   shadow_bias=0.005, shadow_factor_value=0.5,
+                   light_dir=None):
+    """The fragment stage over per-pixel SoA channel planes -> (r, g, b, a)
+    f32[H, W] planes (``shade.shade_channels(per_pixel=True)`` of the JAX
+    package on ``channels_from_gout_px`` channels).
+
+    ``ch``: wx wy wz, nx ny nz, u v, kind, texid, nmid, cr cg cb, covered
+    and cov_frac planes, the fragment of each pixel's first covered sample.
+    Scalars (positions, colors, ambient, shininess, clear color, bias,
+    factor, ``light_dir``) may be numbers or tensors; ``textures``: mip
+    chains on the planes' device. Coverage is resolved by blending with the
+    clear color by ``cov_frac``.
+    """
+    dev = ch["wx"].device
+
+    def vec(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    camera_pos, light_pos = vec(camera_pos), vec(light_pos)
+    light_color, clear = vec(light_color), vec(clear_color)
+    if light_dir is not None:
+        light_dir = vec(light_dir)
+    w = (ch["wx"], ch["wy"], ch["wz"])
+    n = (ch["nx"], ch["ny"], ch["nz"])
+    u, v = ch["u"], ch["v"]
+    base = (ch["cr"], ch["cg"], ch["cb"])
+    covered = ch["covered"]
+    cov_frac = ch["cov_frac"]
+
+    if ch.get("nmid") is not None:
+        n = _apply_normal_maps_soa(w, n, u, v, covered, textures, ch["nmid"])
+    base = _resolve_base_color_soa(base, ch["texid"], u, v, textures)
+
+    lit = _blinn_phong_soa(w, n, base, camera_pos, light_pos, light_color,
+                           ambient_intensity, shininess, light_dir)
+    emissive = ch["kind"] == EMISSIVE
+    r = torch.where(emissive, base[0], lit[0])
+    g = torch.where(emissive, base[1], lit[1])
+    b = torch.where(emissive, base[2], lit[2])
+    a = torch.ones_like(r)
+
+    if shadow is not None:
+        receives = ch["kind"] == BLINN_PHONG_SHADOW
+        sf = _shadow_factor_soa(w, shadow.light_m, shadow.depth_map,
+                                shadow_bias, shadow_factor_value,
+                                receives & covered)
+        # fragColor * shadow multiplies all four channels
+        # (BlinnPhong.metal:96).
+        msk = torch.where(receives, sf, torch.ones_like(sf))
+        r, g, b, a = r * msk, g * msk, b * msk, a * msk
+
+    # Per-sample coverage resolve: every covered sample of a pixel carries
+    # the per-pixel fragment color, uncovered samples the clear color; the
+    # MSAA box filter reduces to this blend.
+    keep = 1.0 - cov_frac
+    return (r * cov_frac + clear[0] * keep, g * cov_frac + clear[1] * keep,
+            b * cov_frac + clear[2] * keep, a * cov_frac + clear[3] * keep)

@@ -3,8 +3,8 @@
 The reference has one point light (LightingData, VertexData.hpp:20-28) whose
 shadow-pass view is an ortho projection looking at the main cube with an
 adaptive up vector (mtl_engine.mm:668-690). Lighting is host-side state,
-packed into the fused kernel's uniforms each frame.
-Directional lights belong to the split path and are not ported yet.
+packed into the kernels' uniforms each frame. A directional light (BASELINE
+config 4's sun) is at infinity; it takes the split path.
 """
 from __future__ import annotations
 
@@ -30,6 +30,15 @@ class PointLight:
 
 
 @dataclasses.dataclass(frozen=True)
+class DirectionalLight:
+    """``direction`` points FROM the light (values as for PointLight)."""
+
+    direction: tuple = (0.0, -1.0, -0.3)
+    color: tuple = (1.0, 1.0, 1.0)
+    intensity: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Lighting:
     """Global lighting parameters (LightingData, VertexData.hpp:20-28;
     values set at mtl_engine.mm:755-758: ambient 0.1, shininess 32)."""
@@ -45,11 +54,16 @@ class Lighting:
 
 def light_anchor_position(light, shadow_target,
                           shadow: ShadowConfig = ShadowConfig()):
-    """World position anchoring the shadow pass's light view: a point light
-    uses its own position (mtl_engine.mm:668)."""
-    if not isinstance(light, PointLight):
-        raise NotImplementedError(
-            "directional lights take the split path (ROADMAP A6)")
+    """World position anchoring the shadow pass's light view.
+
+    A point light uses its own position (mtl_engine.mm:668). A directional
+    light's shadow camera sits along -direction from the target at
+    mid-ortho-depth, so casters near the target land inside the [near, far]
+    depth range of the ortho volume."""
+    if isinstance(light, DirectionalLight):
+        d = transforms.normalize(_f32(light.direction))
+        standoff = 0.5 * (shadow.near + shadow.far)
+        return _f32(shadow_target) - d * standoff
     return _f32(light.position)
 
 

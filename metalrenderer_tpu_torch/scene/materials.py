@@ -23,7 +23,7 @@ EMISSIVE = 2             # flat color
 class Material:
     color: torch.Tensor                 # f32[3] materialColor / lightColor
     kind: int = BLINN_PHONG
-    # Texture index; -1 = untextured (the only kind this port renders yet).
+    # Indices into Scene.textures; -1 = none.
     texture_id: int = -1
     normal_map_id: int = -1
 

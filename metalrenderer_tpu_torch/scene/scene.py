@@ -42,13 +42,15 @@ class Instance:
 @dataclasses.dataclass(frozen=True)
 class Scene:
     instances: tuple = ()
-    # Texture mip pyramids. Textured scenes take the split path, which is
-    # not ported yet; the fused path requires this to be empty.
+    # Texture mip chains: a tuple of tuples of f32[H, W, 4] levels, indexed
+    # by Material.texture_id / normal_map_id. A textured scene takes the
+    # split path.
     textures: tuple = ()
 
     def to(self, device):
         return Scene(instances=tuple(i.to(device) for i in self.instances),
-                     textures=self.textures)
+                     textures=tuple(tuple(level.to(device) for level in mips)
+                                    for mips in self.textures))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
-"""Port parity, the two raster kernels: the plain twins of ``raster_depth``
-(K1) and ``render_fused`` (K2) against the JAX Pallas kernels in interpret
-mode, fed the SAME converted JAX triangle setup and field tables, so only
-the kernels are compared; and, on a CUDA device, each CUDA kernel against
-its twin.
+"""Port parity, the three raster kernels: the plain twins of
+``raster_depth`` (K1), ``render_fused`` (K2) and ``raster_gbuffer`` (K3)
+against the JAX Pallas kernels in interpret mode, fed the SAME converted JAX
+triangle setup and field tables, so only the kernels are compared; and, on
+a CUDA device, each CUDA kernel against its twin.
 
 Tolerances, with their reasons:
   * winners and covered fractions: equal (integer / exact counts);
@@ -15,7 +15,11 @@ Tolerances, with their reasons:
   * K2 rgba: 1e-5 absolute — shading divides, takes square roots and a
     ``pow`` that XLA:CPU and torch evaluate with different approximations
     and FMA contraction; pixels that differ because the Pallas kernel falls
-    back to "lit" outside its shadow-map window (ROADMAP C1) are counted.
+    back to "lit" outside its shadow-map window (ROADMAP C1) are counted;
+  * K3 gout: covered counts and per-sample winners equal; attribute rows
+    within 1e-6 relative to their magnitude (the interpret-mode kernel's
+    ``a*sx + b*sy + c`` is FMA-contracted, ROADMAP C6), bit-equal to a
+    numpy evaluation that rounds every step.
 """
 import functools
 
@@ -35,6 +39,8 @@ from metalrenderer_tpu.raster.geometry import clip_near, setup_triangles
 from metalrenderer_tpu.scene import lights as j_lights
 from metalrenderer_tpu.scene.camera import OrbitCamera as JCamera
 from metalrenderer_tpu.scene.scene import bake, project
+
+from benchmarks import configs as j_configs
 
 from metalrenderer_tpu_torch import convert
 from metalrenderer_tpu_torch.raster import binning, raster_cuda, sampling
@@ -176,6 +182,81 @@ def test_render_fused_plain_matches_pallas(with_shadow):
     assert c1_pixels == 0, f"{c1_pixels} pixels differ (ROADMAP C1)"
 
 
+@functools.cache
+def _gbuffer_inputs(case, width=96, height=72):
+    """JAX main-pass setup and pass geometry of the flagship AudioApp frame
+    or of BASELINE config 4 at ``width`` x ``height`` MSAA4."""
+    cfg = JConfig(width=width, height=height, msaa=4)
+    if case == "flagship":
+        scene, disp = j_app.build_scene(), 0.02
+        cam = JCamera(radius=5.0, theta=2.5, phi=1.2, aspect=width / height)
+    else:
+        scene, cam, _, _ = j_configs.config4_shadow_normal_map(width, height)
+        disp = 0.0
+    prep = jax.jit(j_pipe.prepare_main_pass, static_argnums=(3,))
+    return prep(bake(scene, disp), cam.view_matrix(), cam.projection_matrix(),
+                cfg)
+
+
+def _numpy_gout(bins, winner, sample_offsets):
+    """gout from per-sample winners in numpy f32, every multiply and add
+    rounded on its own: (a*sx + b*sy) + c at the first covered sample."""
+    f32 = np.float32
+    win = np.asarray(winner)
+    S, H, W = win.shape
+    attr = np.asarray(bins.attr)
+    cov = win >= 0
+    first = np.argmax(cov, axis=0)
+    cnt = cov.sum(axis=0)
+    tid = np.take_along_axis(win, first[None], 0)[0]
+    offs = np.asarray(sample_offsets, f32)
+    py, px = np.mgrid[0:H, 0:W]
+    sx = px.astype(f32) + offs[first, 0]
+    sy = py.astype(f32) + offs[first, 1]
+    A = attr[np.maximum(tid, 0)]
+    rows = [np.where(cnt > 0, (A[..., k] * sx + A[..., 16 + k] * sy)
+                     + A[..., 32 + k], f32(0)) for k in range(15)]
+    return np.stack(rows + [cnt.astype(f32)])
+
+
+@pytest.mark.parametrize("case", ["flagship", "config4"])
+def test_raster_gbuffer_plain_matches_pallas(case):
+    width, height = 96, 72
+    setup, pg = _gbuffer_inputs(case)
+    d_j, w_j, gout_j, _ = raster_pallas.rasterize_tiles(
+        setup, width, height, 8, 128, MSAA4, with_attrs=True,
+        pass_geom=pg, attr_px=True)
+    bins = _bins(setup, width, height, 128, 8, pg)
+    gout_p, d_p, w_p = raster_cuda.raster_gbuffer_plain(
+        bins, width, height, MSAA4, with_samples=True)
+    gout_j, w_j = np.array(gout_j), np.asarray(w_j)
+    assert gout_p.shape == (16, height, width)
+    np.testing.assert_array_equal(w_p.numpy(), w_j)
+    np.testing.assert_allclose(d_p.numpy(), np.asarray(d_j), rtol=0,
+                               atol=1e-6)
+    cnt = gout_p[binning.ROW_DEPTH].numpy()
+    np.testing.assert_array_equal(cnt, gout_j[binning.ROW_DEPTH])
+    assert 0.3 < (cnt > 0).mean() < 1.0
+    # Bit-equal to the no-FMA numpy evaluation, 1e-6 of the FMA'd kernel.
+    np.testing.assert_array_equal(
+        gout_p.numpy().view(np.int32),
+        _numpy_gout(bins, w_p, MSAA4).view(np.int32))
+    scale = np.maximum(np.abs(gout_j), 1.0)
+    assert float((np.abs(gout_p.numpy() - gout_j) / scale).max()) <= 1e-6
+    # channels_from_gout_px on the same gout: the same channels.
+    ch_p = raster_cuda.channels_from_gout_px(torch.from_numpy(gout_j), 4)
+    ch_j = raster_pallas.channels_from_gout_px(jnp.asarray(gout_j), 4)
+    assert set(ch_p) == set(ch_j)
+    for k, ref in ch_j.items():
+        np.testing.assert_array_equal(ch_p[k].numpy(), np.asarray(ref),
+                                      err_msg=k)
+    # The CPU route of the wrapper is the twin, and launches nothing.
+    before = dict(raster_cuda.LAUNCHES)
+    gout_w, d_w, w_w = raster_cuda.raster_gbuffer(bins, width, height, MSAA4)
+    assert torch.equal(gout_w, gout_p) and d_w is None and w_w is None
+    assert raster_cuda.LAUNCHES == before
+
+
 @pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
 def test_sample_bilinear_matches(mode):
     """The twin's shadow lookup: same texels and weights as the JAX
@@ -226,3 +307,13 @@ def test_kernels_match_twins_on_card(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(covf_k, covf_p)
         assert float((rgba_k - rgba_p).abs().max()) <= 1e-5
+    for case in ("flagship", "config4"):
+        setup, pg = _gbuffer_inputs(case)
+        bins = _to(_bins(setup, 96, 72, 128, 8, pg), cuda_device)
+        out_k = raster_cuda.raster_gbuffer(bins, 96, 72, MSAA4,
+                                           with_samples=True)
+        out_p = raster_cuda.raster_gbuffer_plain(bins, 96, 72, MSAA4,
+                                                 with_samples=True)
+        torch.cuda.synchronize()
+        for k, p in zip(out_k, out_p):
+            assert torch.equal(k.view(torch.int32), p.view(torch.int32))

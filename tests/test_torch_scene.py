@@ -108,7 +108,7 @@ def test_light_matrices_match():
 
 
 def test_build_scene_equals_converted_jax_scene():
-    ported = audio_app.build_scene()
+    ported = audio_app.build_scene(device="cpu")
     converted = convert.scene_from_jax(j_app.build_scene())
     assert len(ported.instances) == len(converted.instances) == 3
     for a, b in zip(ported.instances, converted.instances):
