@@ -39,18 +39,49 @@ Phases (one line each; any failure exits non-zero and prints no result):
      1e-6 and the rgba difference from it;
  11. torch.profiler over 4 frames of each path: CUDA launch calls and device
      events (kernels and copies) per frame, device-busy ms per frame and
-     its share of the frame's wall time under the profiler.
+     its share of the frame's wall time under the profiler;
+ 12. K4 raster_depth_batch against its twin on 8 flagship shadow passes at
+     1024^2 (displacements linspace(0, 0.05, 7) and 5.0; the last frame,
+     seen from theta 2.2, near-clips heavily) — winners equal, depth
+     bit-equal, and bit-equal to eight K1 launches on the same bins;
+ 13. K6 render_fused_batch against its twin on that batch's main passes
+     (1920x1080 MSAA4, K4's shadow maps) — covered fractions equal, rgba
+     within 1e-5, and bit-equal to eight K2 launches;
+ 14. K5 raster_gbuffer_batch against its twin on 8 config-4 frames (the
+     camera orbiting by 0.01 rad a frame) — gout bit-equal, and bit-equal
+     to eight K3 launches;
+ 15. K8 sample_bilinear_batch against its twin on those frames' shadow
+     lookups (their own 1024^2 maps) — max abs error 0, and bit-equal to
+     eight K7 launches; beside it, the time of one grid_sample call on the
+     eight padded maps at the eight frames' coordinates (as in phase 7);
+ 16. serve batches of 8 frames through render_batch(device="cuda"): the
+     flagship (displacements linspace(0, 0.05, 8)) and config 4 (phase
+     10's cameras): median/min/max ms per batch and per frame, Mpixel/s;
+     per batch one K4 and one K6 (flagship), or one K4, one K5, one K8 and
+     two K9 (config 4), and no per-frame kernel; every batch frame
+     bit-equal to render_frame of the same frame on the card; the last
+     frame's covered_fraction equal to the CPU run (phases 5 and 10)
+     within 1e-6; beside them, per frame, the prep alone and render_frame
+     looped over the same frames, and render_frame_batch_hoisted's ms on
+     the flagship frames (prep for all frames, then one K1 + K2 per
+     frame);
+ 17. torch.profiler over one batch of each branch: launch calls and
+     device-busy ms per frame, as in phase 11.
 Then one JSON line with each kernel's numbers, the nvidia-smi line, and the
 result line {"ok": true, "device": {...}}.
 
 Tolerances: K1 and K3 run their twins' exact operation sequence (anchored
 planes, every multiply and add rounded on its own: nvcc -fmad=false, eager
 torch ops), and so do K7 and K9 (the reference sampler's coordinate and
-lerp expressions), so their outputs are bit-equal. K2's shading adds sqrtf,
-IEEE division and powf: sqrt and division are correctly rounded on both
-sides, and powf is the same libdevice routine in torch's kernel and in
-ours, so rgba agrees to float32 rounding; 1e-5 leaves room for a differing
-libdevice version. CPU against GPU frames: the prep is device-independent,
+lerp expressions), so their outputs are bit-equal. K2's shading adds
+sqrtf, IEEE division and powf: sqrt and division are correctly rounded on
+both sides, and powf is the same libdevice routine in torch's kernel and
+in ours, so rgba agrees to float32 rounding; 1e-5 leaves room for a
+differing libdevice version. K4, K5, K6 and K8 run the per-frame kernels'
+code on each frame's slice of the stacked tables, so each batch frame is
+bit-equal to the per-frame launch, K4, K5 and K8 bit-equal to their twins
+(the per-frame twins frame by frame) and K6 within K2's 1e-5 of its
+twin. CPU against GPU frames: the prep is device-independent,
 but the split path's LOD takes a log2 that CPU and GPU may round one ulp
 apart, which moves a trilinear blend weight by ~1e-7: covered fractions
 must be equal (1e-6), the rgba difference is reported.
@@ -61,10 +92,16 @@ operations over 67 TFLOP/s (the H100 SXM's published rates at 700 W). The
 raster kernels' operations are counted from this run's bins: 16 per
 (candidate triangle, sample) — four plane evaluations of two multiplies
 and two adds — plus 60 per covered pixel for the 15 attribute planes
-(K2, K3); the samplers' per sampled pixel: 18 (K7), 94 (K9).
+(K2, K3); the samplers' per sampled pixel: 18 (K7), 94 (K9). The
+samplers read u, v (and K9 its LOD) only where the mask is set, so their
+bytes count 8 (K7, K8) or 12 (K9) per sampled pixel, plus the whole
+texture, mask and output. A batch kernel's bound counts every frame's
+bytes and operations (K4, K5, K6 as K1, K3, K2 summed over the frames;
+K8 as K7).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -74,6 +111,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 W, H, SHADOW, FRAMES, FRAMES4 = 1920, 1080, 1024, 16, 8
+BATCH, BATCHES = 8, 4      # frames per served batch, batches timed
 DEVICE = "cuda:0"
 RASTER_SRC = "metalrenderer_tpu_torch/csrc/raster.cu"
 SAMPLE_SRC = "metalrenderer_tpu_torch/csrc/sample.cu"
@@ -158,6 +196,27 @@ def bound(n_bytes, ops):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
+def wrapped_grid_sample(maps, u, v):
+    """A yardstick for K7/K8: one torch.nn.functional.grid_sample call
+    (bilinear, align_corners=False; batch item f samples maps[f]) on the
+    square maps f32[F,S,S] padded by one wrapped texel, at the REPEAT
+    coordinates u, v f32[F,H,W]. Returns the call; it yields f32[F,1,H,W]."""
+    import torch
+    s = maps.shape[-1]
+    padded = torch.cat([maps[..., -1:], maps, maps[..., :1]], dim=-1)
+    padded = torch.cat([padded[:, -1:], padded, padded[:, :1]],
+                       dim=1)[:, None].contiguous()
+    gx = ((u * s + 1.0) / (s + 2)) * 2.0 - 1.0
+    gy = ((v * s + 1.0) / (s + 2)) * 2.0 - 1.0
+    grid = torch.stack([gx, gy], dim=-1).contiguous()
+
+    def call():
+        return torch.nn.functional.grid_sample(
+            padded, grid, mode="bilinear", padding_mode="border",
+            align_corners=False)
+    return call
+
+
 def psnr_db(fb, golden):
     import numpy as np
     a = np.clip(fb.cpu().numpy()[..., :3], 0, 1)
@@ -208,6 +267,14 @@ def profile_frames(fn, args):
             "busy_share": busy / wall}
 
 
+def profile_batch(fn, frames):
+    """profile_frames over one call of fn, a batch of ``frames`` frames:
+    its counts and times per frame."""
+    prof = profile_frames(lambda _: fn(), [None])
+    return {k: v if k == "busy_share" else v / frames
+            for k, v in prof.items()}
+
+
 def reset_counts():
     from metalrenderer_tpu_torch.raster import mip_cuda, raster_cuda, sample_cuda
     for mod in (raster_cuda, sample_cuda, mip_cuda):
@@ -226,7 +293,7 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a CUDA GPU")
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from metalrenderer_tpu_torch.config import RenderConfig
+    from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
     from metalrenderer_tpu_torch.engine import audio_app, configs
     from metalrenderer_tpu_torch.io import png
     from metalrenderer_tpu_torch.passes import pipeline
@@ -389,6 +456,7 @@ def main():
     if not abs(covf_gpu - covf_cpu) <= 1e-6:
         fail(f"covered_fraction {covf_gpu} (GPU) vs {covf_cpu} (CPU)")
     path_launches = dict(launches)
+    covf_cpu_flagship = covf_cpu
 
     # Config-4 inputs (split path), built by the port's own prep on the card.
     scene4, cam4, light4, cfg4 = configs.config4_shadow_normal_map(W, H,
@@ -451,22 +519,12 @@ def main():
         smap4, su, sv, sampling.REPEAT, 1.0, smask), 200)
     k7_plain_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_plain(
         smap4, su, sv, sampling.REPEAT, 1.0, smask), 20)
-    # Yardstick: one grid_sample call (bilinear, align_corners=False) on
-    # the map padded by one wrapped texel, at the same coordinates.
-    padded = torch.cat([smap4[:, -1:], smap4, smap4[:, :1]], dim=1)
-    padded = torch.cat([padded[-1:], padded, padded[:1]], dim=0)[None, None]
-    gx = ((su * SHADOW + 1.0) / (SHADOW + 2)) * 2.0 - 1.0
-    gy = ((sv * SHADOW + 1.0) / (SHADOW + 2)) * 2.0 - 1.0
-    grid = torch.stack([gx, gy], dim=-1)[None].contiguous()
-
-    def grid_sample():
-        return torch.nn.functional.grid_sample(
-            padded, grid, mode="bilinear", padding_mode="border",
-            align_corners=False)
-
+    grid_sample = wrapped_grid_sample(smap4[None], su[None], sv[None])
     lib_err = float((grid_sample()[0, 0] - d_k).abs()[smask].max())
     k7_lib_ms = cuda_ms(grid_sample, 200)
-    k7_bound = bound(nbytes(smap4, su, sv, smask, d_k), 18 * sampled7)
+    # u and v are read only where the mask is set: 8 bytes per sampled px.
+    k7_bound = bound(nbytes(smap4, smask, d_k) + 8 * sampled7,
+                     18 * sampled7)
     say("k7", ms=f"{k7_ms:.4f}", plain_ms=f"{k7_plain_ms:.4f}",
         library_ms=f"{k7_lib_ms:.4f}", library_max_abs_err=lib_err,
         bound_ms=f"{k7_bound[0]:.5f}", bound_by=k7_bound[1], card=repr(smi))
@@ -505,8 +563,8 @@ def main():
     k9_err = max(c[2] for c in cases9)
     k9_ms = cuda_ms(lambda: mip_cuda.sample_pyramid(*args9), 200)
     k9_plain_ms = cuda_ms(lambda: mip_cuda.sample_pyramid_plain(*args9), 20)
-    pyr9, u9, v9, lod9, mask9, _ = args9
-    k9_bound = bound(nbytes(pyr9.texels, u9, v9, lod9, mask9, *out9),
+    pyr9, mask9 = args9[0], args9[4]
+    k9_bound = bound(nbytes(pyr9.texels, mask9, *out9) + 12 * sampled9,
                      94 * sampled9)
     k9_grass_ms = cuda_ms(lambda: mip_cuda.sample_pyramid(*cases9[1][1]), 200)
     say("k9", case="config4_normal_map", ms=f"{k9_ms:.4f}",
@@ -573,6 +631,7 @@ def main():
         fail(f"config-4 covered_fraction {covf_gpu} (GPU) vs {covf_cpu} (CPU)")
     for k, n in launches.items():
         path_launches[k] += n
+    covf_cpu_config4 = covf_cpu
 
     # 11. profile both paths -------------------------------------------------
     for name, fn, args in (("flagship", frame, disps[:4]),
@@ -581,11 +640,286 @@ def main():
         say("profile", path=name, frames=len(args),
             **{k: f"{v:.4f}" for k, v in prof.items()}, card=repr(smi))
 
+    # 12. K4 against its twin: 8 flagship shadow passes ---------------------
+    # The last frame's cube, blown up by displacement 5.0 and seen from
+    # theta 2.2, reaches past the camera: its main pass near-clips heavily.
+    disps8 = [float(d) for d in np.linspace(0.0, 0.05, BATCH - 1)] + [5.0]
+    cams_k = [cam] * (BATCH - 1) + [dataclasses.replace(cam, theta=2.2)]
+    preps8 = [pipeline.prepare_frame(scene, c, lighting, cfg,
+                                     displacement=d,
+                                     shadow_target=(0.0, 0.0, -1.0),
+                                     device=dev)
+              for d, c in zip(disps8, cams_k)]
+    sb8 = raster_cuda.stack_bins([p.shadow_bins for p in preps8])
+    d_k, w_k = raster_cuda.raster_depth_batch(sb8, SHADOW, SHADOW, center)
+    d_p, w_p = raster_cuda.raster_depth_batch_plain(sb8, SHADOW, SHADOW,
+                                                    center)
+    k1_eq = True
+    for f, p in enumerate(preps8):
+        d1, w1 = raster_cuda.raster_depth(p.shadow_bins, SHADOW, SHADOW,
+                                          center)
+        k1_eq &= (torch.equal(d1.view(torch.int32), d_k[f].view(torch.int32))
+                  and torch.equal(w1, w_k[f]))
+    torch.cuda.synchronize()
+    win_eq = torch.equal(w_k, w_p)
+    bits_eq = torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+    k4_err = float((d_k - d_p).abs().max())
+    say("k4", frames=BATCH, shape=f"{BATCH}x{SHADOW}x{SHADOW}x1",
+        covered=int((w_k >= 0).sum()), big_n=sb8.big_n.tolist(),
+        winners_equal=win_eq, depth_bit_equal=bits_eq, equal_to_k1=k1_eq)
+    if not (win_eq and bits_eq and k1_eq):
+        fail("K4 disagrees with its twin or with K1")
+    k4_ms = cuda_ms(lambda: raster_cuda.raster_depth_batch(
+        sb8, SHADOW, SHADOW, center), 100)
+    k4_plain_ms = cuda_ms(lambda: raster_cuda.raster_depth_batch_plain(
+        sb8, SHADOW, SHADOW, center), 2)
+    k4_bound = bound(bins_bytes(sb8, False) + nbytes(d_k, w_k),
+                     sum(raster_ops(raster_cuda.frame_bins(sb8, f), SHADOW,
+                                    SHADOW, 1)
+                         for f in range(BATCH)))
+    say("k4", ms=f"{k4_ms:.4f}", plain_ms=f"{k4_plain_ms:.4f}",
+        per_frame_ms=f"{k4_ms / BATCH:.4f}", bound_ms=f"{k4_bound[0]:.5f}",
+        bound_by=k4_bound[1], card=repr(smi))
+    stats["raster_depth_batch"] = (k4_err, k4_ms, k4_plain_ms, k4_bound, None)
+
+    # 13. K6 against its twin: that batch's main passes -----------------------
+    mb8 = raster_cuda.stack_bins([p.main_bins for p in preps8])
+    uni8 = torch.stack([p.uniforms for p in preps8])
+    smaps8 = d_k[:, 0]
+    r_k, c_k = raster_cuda.render_fused_batch(mb8, uni8, smaps8, W, H,
+                                              samples)
+    r_p, c_p = raster_cuda.render_fused_batch_plain(mb8, uni8, smaps8, W, H,
+                                                    samples)
+    k2_eq = True
+    for f, p in enumerate(preps8):
+        r2, c2 = raster_cuda.render_fused(p.main_bins, p.uniforms, smaps8[f],
+                                          W, H, samples)
+        k2_eq &= torch.equal(r2, r_k[f]) and torch.equal(c2, c_k[f])
+    torch.cuda.synchronize()
+    k6_err = float((r_k - r_p).abs().max())
+    covf_eq = torch.equal(c_k, c_p)
+    covered6 = [int((c_k[f] > 0).sum()) for f in range(BATCH)]
+    say("k6", frames=BATCH, shape=f"{BATCH}x{W}x{H}xS4",
+        covered_fraction=[round(float(c.mean()), 6) for c in c_k],
+        covf_equal=covf_eq, rgba_max_abs_err=k6_err, tol=1e-5,
+        equal_to_k2=k2_eq)
+    if not (covf_eq and k6_err <= 1e-5 and k2_eq):
+        fail("K6 disagrees with its twin or with K2")
+    del r_p, c_p
+    k6_ms = cuda_ms(lambda: raster_cuda.render_fused_batch(
+        mb8, uni8, smaps8, W, H, samples), 50)
+    k6_plain_ms = cuda_ms(lambda: raster_cuda.render_fused_batch_plain(
+        mb8, uni8, smaps8, W, H, samples), 1)
+    k6_bound = bound(
+        bins_bytes(mb8, True) + nbytes(uni8, smaps8, r_k, c_k),
+        sum(raster_ops(raster_cuda.frame_bins(mb8, f), W, H, len(samples),
+                       covered6[f])
+            for f in range(BATCH)))
+    say("k6", ms=f"{k6_ms:.4f}", plain_ms=f"{k6_plain_ms:.4f}",
+        per_frame_ms=f"{k6_ms / BATCH:.4f}", bound_ms=f"{k6_bound[0]:.5f}",
+        bound_by=k6_bound[1], card=repr(smi))
+    stats["render_fused_batch"] = (k6_err, k6_ms, k6_plain_ms, k6_bound, None)
+    del r_k, c_k
+
+    # 14. K5 against its twin: 8 config-4 frames ------------------------------
+    cams8 = cams4[:BATCH]
+    preps48 = [pipeline.prepare_frame(scene4, c, light4, cfg4, device=dev)
+               for c in cams8]
+    mb48 = raster_cuda.stack_bins([p.main_bins for p in preps48])
+    g_k = raster_cuda.raster_gbuffer_batch(mb48, W, H, samples)
+    g_p = raster_cuda.raster_gbuffer_batch_plain(mb48, W, H, samples)
+    torch.cuda.synchronize()
+    gout_eq = torch.equal(g_k.view(torch.int32), g_p.view(torch.int32))
+    k5_err = float((g_k - g_p).abs().max())
+    del g_p
+    k3_eq = True
+    for f, p in enumerate(preps48):
+        g3 = raster_cuda.raster_gbuffer(p.main_bins, W, H, samples)[0]
+        k3_eq &= torch.equal(g3.view(torch.int32), g_k[f].view(torch.int32))
+    covered5 = [int((g_k[f, binning.ROW_DEPTH] > 0).sum())
+                for f in range(BATCH)]
+    say("k5", frames=BATCH, shape=f"{BATCH}x16x{W}x{H}xS4",
+        gout_bytes=nbytes(g_k), covered_px=covered5, gout_bit_equal=gout_eq,
+        equal_to_k3=k3_eq, max_abs_err=k5_err)
+    if not (gout_eq and k3_eq):
+        fail("K5 disagrees with its twin or with K3")
+    if min(covered5) == 0:
+        fail("K5 covered nothing in a frame")
+    k5_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_batch(
+        mb48, W, H, samples), 50)
+    k5_plain_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_batch_plain(
+        mb48, W, H, samples), 1)
+    k5_bound = bound(bins_bytes(mb48, True) + nbytes(g_k),
+                     sum(raster_ops(raster_cuda.frame_bins(mb48, f), W, H,
+                                    len(samples), covered5[f])
+                         for f in range(BATCH)))
+    say("k5", ms=f"{k5_ms:.4f}", plain_ms=f"{k5_plain_ms:.4f}",
+        per_frame_ms=f"{k5_ms / BATCH:.4f}", bound_ms=f"{k5_bound[0]:.5f}",
+        bound_by=k5_bound[1], card=repr(smi))
+    stats["raster_gbuffer_batch"] = (k5_err, k5_ms, k5_plain_ms, k5_bound,
+                                     None)
+
+    # 15. K8 against its twin: those frames' shadow lookups ------------------
+    sb48 = raster_cuda.stack_bins([p.shadow_bins for p in preps48])
+    smaps48 = raster_cuda.raster_depth_batch(sb48, SHADOW, SHADOW,
+                                             center)[0][:, 0]
+    ch48 = raster_cuda.channels_from_gout_px(g_k.transpose(0, 1),
+                                             len(samples))
+    su, sv, _, inb = shade._shadow_coords(
+        (ch48["wx"], ch48["wy"], ch48["wz"]),
+        preps48[0].uniforms[:16].reshape(4, 4))
+    smask = inb & (ch48["kind"] == BLINN_PHONG_SHADOW) & ch48["covered"]
+    del ch48, g_k
+    s_args = (smaps48, su, sv, sampling.REPEAT, 1.0, smask)
+    s_k = sample_cuda.sample_bilinear_batch(*s_args)
+    s_p = sample_cuda.sample_bilinear_batch_plain(*s_args)
+    k7_eq = True
+    for f in range(BATCH):
+        s7 = sample_cuda.sample_bilinear(
+            smaps48[f], su[f].contiguous(), sv[f].contiguous(),
+            sampling.REPEAT, 1.0, smask[f].contiguous())
+        k7_eq &= torch.equal(s7, s_k[f])
+    torch.cuda.synchronize()
+    k8_err = float((s_k - s_p).abs().max())
+    sampled8 = int(smask.sum())
+    say("k8", frames=BATCH, maps=f"{BATCH}x{SHADOW}x{SHADOW}",
+        grid=f"{BATCH}x{W}x{H}", sampled_px=sampled8, max_abs_err=k8_err,
+        tol=0, equal_to_k7=k7_eq)
+    if not (k8_err == 0.0 and k7_eq) or sampled8 == 0:
+        fail("K8 disagrees with its twin or with K7 (or sampled nothing)")
+    k8_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_batch(*s_args), 100)
+    k8_plain_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_batch_plain(
+        *s_args), 5)
+    grid_sample = wrapped_grid_sample(smaps48, su, sv)
+    lib_err = float((grid_sample()[:, 0] - s_k).abs()[smask].max())
+    k8_lib_ms = cuda_ms(grid_sample, 100)
+    del grid_sample
+    k8_bound = bound(nbytes(smaps48, smask, s_k) + 8 * sampled8,
+                     18 * sampled8)
+    say("k8", ms=f"{k8_ms:.4f}", plain_ms=f"{k8_plain_ms:.4f}",
+        per_frame_ms=f"{k8_ms / BATCH:.4f}", library_ms=f"{k8_lib_ms:.4f}",
+        library_max_abs_err=lib_err, bound_ms=f"{k8_bound[0]:.5f}",
+        bound_by=k8_bound[1], card=repr(smi))
+    stats["sample_bilinear_batch"] = (k8_err, k8_ms, k8_plain_ms, k8_bound,
+                                      k8_lib_ms)
+    del s_args, s_k, s_p, su, sv, smask
+
+    # 16. serve batches through render_batch ---------------------------------
+    sdisps = [float(d) for d in np.linspace(0.0, 0.05, BATCH)]
+    thetas8 = [cam.theta] * BATCH
+    zeros8 = [0.0] * BATCH
+    shadow_cfg = ShadowConfig()
+
+    def batch_flagship():
+        return pipeline.render_batch(scene, cam, lighting, sdisps, thetas8,
+                                     config=cfg, device=dev)
+
+    def batch_config4():
+        return pipeline.render_batch(scene4, cam4, light4, zeros8,
+                                     config=cfg4, cameras=cams8,
+                                     shadow_target=(0.0, 0.0, 0.0),
+                                     device=dev)
+
+    def hoisted():
+        return pipeline.render_frame_batch_hoisted(
+            scene, cam, lighting, cfg, shadow_cfg, sdisps, thetas8,
+            device=dev)
+
+    singles = {
+        "flagship": lambda i: pipeline.render_frame(
+            scene, cam, lighting, cfg, displacement=sdisps[i],
+            shadow_target=(0.0, 0.0, -1.0), device=dev),
+        "config4": lambda i: pipeline.render_frame(
+            scene4, cams8[i], light4, cfg4, device=dev)}
+    preps = {
+        "flagship": lambda i: pipeline.prepare_frame(
+            scene, cam, lighting, cfg, displacement=sdisps[i],
+            shadow_target=(0.0, 0.0, -1.0), device=dev),
+        "config4": lambda i: pipeline.prepare_frame(
+            scene4, cams8[i], light4, cfg4, device=dev)}
+    want_batch = {
+        "flagship": dict(raster_depth_batch=1, render_fused_batch=1),
+        "config4": dict(raster_depth_batch=1, raster_gbuffer_batch=1,
+                        sample_bilinear_batch=1, sample_pyramid=2)}
+    covf_cpu_last = {"flagship": covf_cpu_flagship,
+                     "config4": covf_cpu_config4}
+    for name, fn in (("flagship", batch_flagship),
+                     ("config4", batch_config4)):
+        fn()                                          # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        batch_ms, outs = timed_frames(lambda _: fn(), range(BATCHES))
+        launches = read_counts()
+        rgba, st = outs[-1]
+        del outs
+        med = statistics.median(batch_ms)
+        finite = bool(torch.isfinite(rgba).all())
+        shapes_ok = tuple(rgba.shape) == (BATCH, H, W, 4)
+        # The same frames one by one, and their prep alone, in this call.
+        single_ms, single_outs = timed_frames(singles[name], range(BATCH))
+        frames_eq = all(torch.equal(fb, rgba[i])
+                        for i, (fb, _) in enumerate(single_outs))
+        del single_outs
+        prep_ms, _ = timed_frames(preps[name], range(BATCH))
+        covf_gpu = float(st["covered_fraction"][-1])
+        say("serve_batch", path=name, frames=BATCH, batches=BATCHES,
+            size=f"{W}x{H}", msaa=4, shadow=SHADOW,
+            median_ms=f"{med:.4f}", min_ms=f"{min(batch_ms):.4f}",
+            max_ms=f"{max(batch_ms):.4f}",
+            per_frame_ms=f"{med / BATCH:.4f}",
+            mpix_s=f"{BATCH * W * H / med / 1e3:.3f}", card=repr(smi))
+        say("serve_batch", path=name, split="median ms per frame",
+            batch=f"{med / BATCH:.4f}",
+            prep=f"{statistics.median(prep_ms):.4f}",
+            render_frame_loop=f"{statistics.median(single_ms):.4f}",
+            card=repr(smi))
+        say("serve_batch", path=name, launches=json.dumps(launches),
+            finite=finite, shapes_ok=shapes_ok,
+            frames_equal_render_frame=frames_eq,
+            covered_fraction_gpu=covf_gpu,
+            covered_fraction_cpu=covf_cpu_last[name])
+        want = {k: 0 for k in launches}
+        want.update({k: n * BATCHES for k, n in want_batch[name].items()})
+        if launches != want:
+            fail(f"{name} batch launch counts {launches} != {want}")
+        if not (finite and shapes_ok and frames_eq):
+            fail(f"{name} batch frames non-finite, misshapen or unequal to "
+                 "render_frame")
+        if not abs(covf_gpu - covf_cpu_last[name]) <= 1e-6:
+            fail(f"{name} batch covered_fraction {covf_gpu} (GPU) vs "
+                 f"{covf_cpu_last[name]} (CPU)")
+        for k, n in launches.items():
+            path_launches[k] += n
+        del rgba, st
+    hoisted()                                         # warm-up
+    hoisted_ms, outs = timed_frames(lambda _: hoisted(), range(BATCHES))
+    hoisted_eq = torch.equal(outs[-1][0], batch_flagship()[0])
+    del outs
+    med = statistics.median(hoisted_ms)
+    say("serve_batch", path="flagship_hoisted", frames=BATCH,
+        batches=BATCHES, median_ms=f"{med:.4f}",
+        per_frame_ms=f"{med / BATCH:.4f}",
+        mpix_s=f"{BATCH * W * H / med / 1e3:.3f}",
+        frames_equal_fused_batch=hoisted_eq, card=repr(smi))
+    if not hoisted_eq:
+        fail("the hoisted batch's frames differ from the fused batch's")
+
+    # 17. profile one batch of each branch -----------------------------------
+    for name, fn in (("flagship_batch", batch_flagship),
+                     ("config4_batch", batch_config4)):
+        prof = profile_batch(fn, BATCH)
+        say("profile", path=name, frames=BATCH, per="frame",
+            **{k: f"{v:.4f}" for k, v in prof.items()}, card=repr(smi))
+
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),
             "render_fused": (RASTER_SRC, "raster_pallas.py:997"),
             "raster_gbuffer": (RASTER_SRC, "raster_pallas.py:865"),
             "sample_bilinear": (SAMPLE_SRC, "sample_pallas.py:642"),
-            "sample_pyramid": (SAMPLE_SRC, "mip_pallas.py:475")}
+            "sample_pyramid": (SAMPLE_SRC, "mip_pallas.py:475"),
+            "raster_depth_batch": (RASTER_SRC, "raster_pallas.py:1151"),
+            "raster_gbuffer_batch": (RASTER_SRC, "raster_pallas.py:1207"),
+            "render_fused_batch": (RASTER_SRC, "raster_pallas.py:1278"),
+            "sample_bilinear_batch": (SAMPLE_SRC, "sample_pallas.py:587")}
     kernels = []
     for name, (src, tpu) in meta.items():
         err, ms, plain_ms, (bound_ms, bound_by), lib_ms = stats[name]

@@ -16,7 +16,7 @@ from .scene.materials import (BLINN_PHONG, BLINN_PHONG_SHADOW, EMISSIVE,
                               Material)
 from .scene.mesh import Mesh, cube, plane
 from .scene.scene import Instance, Scene
-from .passes.pipeline import render_frame
+from .passes.pipeline import render_batch, render_frame
 
 __version__ = "0.1.0"
 
@@ -24,4 +24,5 @@ __all__ = [
     "RenderConfig", "ShadowConfig", "OrbitCamera", "Lighting", "PointLight",
     "DirectionalLight", "Material", "BLINN_PHONG", "BLINN_PHONG_SHADOW",
     "EMISSIVE", "Mesh", "cube", "plane", "Instance", "Scene", "render_frame",
+    "render_batch",
 ]

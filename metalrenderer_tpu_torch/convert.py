@@ -10,6 +10,8 @@ are read by attribute and their arrays with ``numpy.asarray``.
 """
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 
@@ -68,6 +70,24 @@ def camera_from_jax(cam) -> OrbitCamera:
         phi=_floats(cam.phi), target=_floats(cam.target),
         fov_degrees=_floats(cam.fov_degrees), near=_floats(cam.near),
         far=_floats(cam.far), aspect=_floats(cam.aspect))
+
+
+def cameras_from_jax(cams) -> list:
+    """A stacked orbit-camera pytree (every leaf with a leading frame axis
+    F, as the JAX ``render_batch(cameras=...)`` takes) as F port cameras.
+    A field given as a tuple (``target=(0.0, 0.0, 0.0)``) is a tuple of
+    stacked leaves there."""
+    def frame(x, i):
+        if isinstance(x, (tuple, list)):
+            return tuple(np.asarray(e, np.float32)[i] for e in x)
+        return np.asarray(x, np.float32)[i]
+
+    fields = ("radius", "theta", "phi", "target", "fov_degrees", "near",
+              "far", "aspect")
+    n = np.asarray(cams.theta).shape[0]
+    return [camera_from_jax(types.SimpleNamespace(
+        **{f: frame(getattr(cams, f), i) for f in fields}))
+        for i in range(n)]
 
 
 def lighting_from_jax(lighting) -> Lighting:

@@ -14,6 +14,15 @@
 //    rasterize_tiles): K2's visibility and fragment selection, writing the
 //    first covered sample's raw attribute planes and the covered count
 //    instead of shading them: the split path's main pass.
+// K4, K5, K6 are the same three kernels over a frame batch, replacing the
+//    frame-folded Pallas launches raster_pallas.rasterize_depth_batch,
+//    rasterize_tiles_batch and render_fused_batch: blockIdx.z is the frame.
+//    Each block offsets its tables (vis, attr, tile_off, tile_tris, big_*),
+//    its uniforms, its shadow map and its outputs by its frame's base and
+//    then runs the per-frame code unchanged, so a batch frame is bit-equal
+//    to a per-frame launch on the same bins. A per-frame launch is the
+//    batch of one (gridDim.z == 1). Frame offsets are size_t: K5's output
+//    at 8 frames of 1080p is 1.06 GB.
 //
 // What bounds them on the H100: K1 and K2 do not move many bytes (K2
 // writes 20 B per pixel, ~41 MB at 1080p, and reads per-triangle tables
@@ -66,6 +75,7 @@ constexpr int kFuShin = 26;
 constexpr int kFuClear = 27;
 constexpr int kFuBias = 31;
 constexpr int kFuFactor = 32;
+constexpr int kFuLen = 33;
 
 constexpr float kEmissive = 2.0f;            // materials.EMISSIVE
 constexpr float kBlinnPhongShadow = 1.0f;    // materials.BLINN_PHONG_SHADOW
@@ -76,22 +86,45 @@ struct Samples {
   float oy[kMaxSamples];
 };
 
+// Per frame f of F (F == 1 for a per-frame launch); tids are frame-local.
 struct Bins {
-  const float* vis;        // [T, 17]
-  const int* tile_off;     // [NT + 1] CSR row pointers
-  const int* tile_tris;    // tids, grouped by tile
-  const int* big_ids;      // [cap] live big-list tids first
-  const int* big_aabb;     // [cap, 4] xmin, ymin, xmax, ymax (floor/ceil)
-  const int* big_n;        // [1] live big-list length
+  const float* vis;        // [F, T, 17]
+  const int* tile_off;     // [F, NT + 1] CSR row pointers into the frame's list
+  const int* tile_tris;    // [F, L] tids, grouped by tile
+  const int* big_ids;      // [F, cap] live big-list tids first
+  const int* big_aabb;     // [F, cap, 4] xmin, ymin, xmax, ymax (floor/ceil)
+  const int* big_n;        // [F] live big-list length
   int tile_w, tile_h, ntx;
+  int n_tiles, n_tris, n_tile_tris, big_cap;   // NT, T, L, cap
 };
 
 struct Shading {
-  const float* attr;       // [T, 48]
-  const float* uni;        // [33]
-  const float* smap;       // [tex_h, tex_w] or nullptr
+  const float* attr;       // [F, T, 48]
+  const float* uni;        // [F, 33]
+  const float* smap;       // [F, tex_h, tex_w] or nullptr
   int tex_h, tex_w;
 };
+
+// Frame f's slice of the stacked tables.
+__device__ __forceinline__ Bins frame_bins(const Bins& B0, int f) {
+  Bins B = B0;
+  B.vis += (size_t)f * B0.n_tris * kVis;
+  B.tile_off += (size_t)f * (B0.n_tiles + 1);
+  B.tile_tris += (size_t)f * B0.n_tile_tris;
+  B.big_ids += (size_t)f * B0.big_cap;
+  B.big_aabb += (size_t)f * B0.big_cap * 4;
+  B.big_n += f;
+  return B;
+}
+
+__device__ __forceinline__ Shading frame_shading(const Shading& SH0,
+                                                 int n_tris, int f) {
+  Shading SH = SH0;
+  SH.attr += (size_t)f * n_tris * kAttr;
+  SH.uni += (size_t)f * kFuLen;
+  if (SH.smap != nullptr) SH.smap += (size_t)f * SH0.tex_h * SH0.tex_w;
+  return SH;
+}
 
 __device__ __forceinline__ float plane_at(float a, float b, float c, float ox,
                                           float oy, float xr, float yr) {
@@ -186,15 +219,18 @@ __device__ void visibility(const Bins& B, const Samples& S, float clear_depth,
 }
 
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-raster_depth_kernel(Bins B, Samples S, float clear_depth, int width, int height,
-                    float* __restrict__ depth, int* __restrict__ winner) {
+raster_depth_kernel(Bins B0, Samples S, float clear_depth, int width,
+                    int height, float* __restrict__ depth,
+                    int* __restrict__ winner) {
   const int px = blockIdx.x * kBlockX + threadIdx.x;
   const int py = blockIdx.y * kBlockY + threadIdx.y;
   if (px >= width || py >= height) return;
+  const int f = blockIdx.z;
+  const Bins B = frame_bins(B0, f);
   PixelState p;
   visibility(B, S, clear_depth, px, py, p);
   const size_t plane = (size_t)width * height;
-  const size_t o = (size_t)py * width + px;
+  const size_t o = (size_t)f * S.n * plane + (size_t)py * width + px;
 #pragma unroll
   for (int s = 0; s < kMaxSamples; ++s) {
     if (s < S.n) {
@@ -265,54 +301,62 @@ __device__ __forceinline__ Fragment first_covered(const PixelState& p,
 // raw value/w planes (binning.py ROW_*), row 15 the covered-sample count;
 // an uncovered pixel is all zeros. Per-sample depth/winner only on request.
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-raster_gbuffer_kernel(Bins B, Samples S, float clear_depth,
+raster_gbuffer_kernel(Bins B0, Samples S, float clear_depth,
                       const float* __restrict__ attr, int width, int height,
                       float* __restrict__ gout, float* __restrict__ depth,
                       int* __restrict__ winner) {
   const int px = blockIdx.x * kBlockX + threadIdx.x;
   const int py = blockIdx.y * kBlockY + threadIdx.y;
   if (px >= width || py >= height) return;
+  const int fr = blockIdx.z;
+  const Bins B = frame_bins(B0, fr);
   PixelState p;
   visibility(B, S, clear_depth, px, py, p);
   const size_t plane = (size_t)width * height;
   const size_t o = (size_t)py * width + px;
   if (depth != nullptr) {
+    const size_t os = (size_t)fr * S.n * plane + o;
 #pragma unroll
     for (int s = 0; s < kMaxSamples; ++s) {
       if (s < S.n) {
-        depth[s * plane + o] = p.zb[s];
-        winner[s * plane + o] = p.wb[s];
+        depth[s * plane + os] = p.zb[s];
+        winner[s * plane + os] = p.wb[s];
       }
     }
   }
+  float* __restrict__ G = gout + (size_t)fr * kGoutRows * plane;
   const Fragment f = first_covered(p, S, px, py);
   if (f.cnt == 0) {
 #pragma unroll
-    for (int g = 0; g < kGoutRows; ++g) gout[g * plane + o] = 0.0f;
+    for (int g = 0; g < kGoutRows; ++g) G[g * plane + o] = 0.0f;
     return;
   }
-  const float* __restrict__ A = attr + (size_t)f.tid * kAttr;
+  const float* __restrict__ A =
+      attr + ((size_t)fr * B0.n_tris + f.tid) * kAttr;
 #pragma unroll
   for (int g = 0; g < kGoutRows - 1; ++g) {
-    gout[g * plane + o] = attr_at(A, g, f.sx, f.sy);
+    G[g * plane + o] = attr_at(A, g, f.sx, f.sy);
   }
-  gout[(kGoutRows - 1) * plane + o] = (float)f.cnt;
+  G[(kGoutRows - 1) * plane + o] = (float)f.cnt;
 }
 
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-render_fused_kernel(Bins B, Samples S, float clear_depth, Shading SH,
+render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
                     int width, int height, float4* __restrict__ rgba,
                     float* __restrict__ covf) {
   const int px = blockIdx.x * kBlockX + threadIdx.x;
   const int py = blockIdx.y * kBlockY + threadIdx.y;
   if (px >= width || py >= height) return;
+  const int fr = blockIdx.z;
+  const Bins B = frame_bins(B0, fr);
+  const Shading SH = frame_shading(SH0, B0.n_tris, fr);
   PixelState p;
   visibility(B, S, clear_depth, px, py, p);
 
   const Fragment f = first_covered(p, S, px, py);
   const int cnt = f.cnt;
   const float* __restrict__ U = SH.uni;
-  const size_t o = (size_t)py * width + px;
+  const size_t o = (size_t)fr * width * height + (size_t)py * width + px;
   if (cnt == 0) {
     rgba[o] = make_float4(U[kFuClear], U[kFuClear + 1], U[kFuClear + 2],
                           U[kFuClear + 3]);
@@ -396,63 +440,69 @@ Samples make_samples(int n, float ox0, float oy0, float ox1, float oy1,
   return S;
 }
 
-dim3 grid_for(int width, int height) {
-  return dim3((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+dim3 grid_for(int width, int height, int frames) {
+  return dim3((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY,
+              frames);
+}
+
+Bins make_bins(const float* vis, const int* tile_off, const int* tile_tris,
+               const int* big_ids, const int* big_aabb, const int* big_n,
+               int tile_w, int tile_h, int ntx, int n_tris, int n_tile_tris,
+               int big_cap, int height) {
+  const int nty = (height + tile_h - 1) / tile_h;
+  return Bins{vis,    tile_off, tile_tris, big_ids,  big_aabb,    big_n,
+              tile_w, tile_h,   ntx,       ntx * nty, n_tris, n_tile_tris,
+              big_cap};
 }
 
 }  // namespace
 
-extern "C" int mr_raster_depth(
-    const float* vis, const int* tile_off, const int* tile_tris,
-    const int* big_ids, const int* big_aabb, const int* big_n,
-    int tile_w, int tile_h, int ntx,
-    int n_samples, float ox0, float oy0, float ox1, float oy1,
-    float ox2, float oy2, float ox3, float oy3, float clear_depth,
-    int width, int height, float* depth, int* winner, void* stream) {
-  const Bins B{vis, tile_off, tile_tris, big_ids, big_aabb, big_n,
-               tile_w, tile_h, ntx};
-  const Samples S = make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3);
-  raster_depth_kernel<<<grid_for(width, height), dim3(kBlockX, kBlockY), 0,
-                        (cudaStream_t)stream>>>(B, S, clear_depth, width, height,
-                                                depth, winner);
+// Every entry point takes F stacked frames (F == 1: one frame) and launches
+// one grid of F frames. n_tris, n_tile_tris, big_cap: T, L and cap, the
+// per-frame lengths of the stacked tables.
+#define MR_BINS_PARAMS                                                     \
+  const float *vis, const int *tile_off, const int *tile_tris,             \
+      const int *big_ids, const int *big_aabb, const int *big_n,           \
+      int tile_w, int tile_h, int ntx, int frames, int n_tris,             \
+      int n_tile_tris, int big_cap, int n_samples, float ox0, float oy0,   \
+      float ox1, float oy1, float ox2, float oy2, float ox3, float oy3,    \
+      float clear_depth
+#define MR_BINS_SETUP                                                      \
+  const Bins B = make_bins(vis, tile_off, tile_tris, big_ids, big_aabb,    \
+                           big_n, tile_w, tile_h, ntx, n_tris, n_tile_tris,\
+                           big_cap, height);                               \
+  const Samples S =                                                        \
+      make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3)
+
+extern "C" int mr_raster_depth(MR_BINS_PARAMS, int width, int height,
+                               float* depth, int* winner, void* stream) {
+  MR_BINS_SETUP;
+  raster_depth_kernel<<<grid_for(width, height, frames),
+                        dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
+      B, S, clear_depth, width, height, depth, winner);
   return (int)cudaGetLastError();
 }
 
 // depth/winner: nullptr unless the per-sample planes are wanted.
-extern "C" int mr_raster_gbuffer(
-    const float* vis, const int* tile_off, const int* tile_tris,
-    const int* big_ids, const int* big_aabb, const int* big_n,
-    int tile_w, int tile_h, int ntx,
-    int n_samples, float ox0, float oy0, float ox1, float oy1,
-    float ox2, float oy2, float ox3, float oy3, float clear_depth,
-    const float* attr, int width, int height, float* gout, float* depth,
-    int* winner, void* stream) {
-  const Bins B{vis, tile_off, tile_tris, big_ids, big_aabb, big_n,
-               tile_w, tile_h, ntx};
-  const Samples S = make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3);
-  raster_gbuffer_kernel<<<grid_for(width, height), dim3(kBlockX, kBlockY), 0,
-                          (cudaStream_t)stream>>>(B, S, clear_depth, attr, width,
-                                                  height, gout, depth, winner);
+extern "C" int mr_raster_gbuffer(MR_BINS_PARAMS, const float* attr, int width,
+                                 int height, float* gout, float* depth,
+                                 int* winner, void* stream) {
+  MR_BINS_SETUP;
+  raster_gbuffer_kernel<<<grid_for(width, height, frames),
+                          dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
+      B, S, clear_depth, attr, width, height, gout, depth, winner);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mr_render_fused(
-    const float* vis, const int* tile_off, const int* tile_tris,
-    const int* big_ids, const int* big_aabb, const int* big_n,
-    int tile_w, int tile_h, int ntx,
-    int n_samples, float ox0, float oy0, float ox1, float oy1,
-    float ox2, float oy2, float ox3, float oy3, float clear_depth,
-    const float* attr, const float* uniforms, const float* shadow_map,
-    int tex_h, int tex_w, int width, int height, float* rgba, float* covf,
-    void* stream) {
-  const Bins B{vis, tile_off, tile_tris, big_ids, big_aabb, big_n,
-               tile_w, tile_h, ntx};
-  const Samples S = make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3);
+extern "C" int mr_render_fused(MR_BINS_PARAMS, const float* attr,
+                               const float* uniforms, const float* shadow_map,
+                               int tex_h, int tex_w, int width, int height,
+                               float* rgba, float* covf, void* stream) {
+  MR_BINS_SETUP;
   const Shading SH{attr, uniforms, shadow_map, tex_h, tex_w};
-  render_fused_kernel<<<grid_for(width, height), dim3(kBlockX, kBlockY), 0,
-                        (cudaStream_t)stream>>>(B, S, clear_depth, SH, width,
-                                                height,
-                                                reinterpret_cast<float4*>(rgba),
-                                                covf);
+  render_fused_kernel<<<grid_for(width, height, frames),
+                        dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
+      B, S, clear_depth, SH, width, height, reinterpret_cast<float4*>(rgba),
+      covf);
   return (int)cudaGetLastError();
 }

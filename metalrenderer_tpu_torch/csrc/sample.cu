@@ -5,6 +5,13 @@
 //    (metalrenderer_tpu/raster/sample_pallas.py: sample_bilinear_tiled ->
 //    _sample_padded): bilinear, REPEAT or CLAMP, masked-out pixels read
 //    oob_value. On the split path it is the shadow-map test.
+// K8 is the same kernel over a frame batch, replacing
+//    sample_pallas.sample_bilinear_tiled_batch -> _sample_padded_frames:
+//    one texture per frame, tex f32[F, TH, TW] sampled at f32[F, H, W]
+//    grids in one launch. Thread i reads frame f = i / (H*W), an integer,
+//    and its taps at tex + f*TH*TW (size_t); the frame never enters the
+//    float coordinates, so K8 is bit-equal to K7 run frame by frame. A K7
+//    launch is the batch of one (hw == n).
 // K9 sample_pyramid_kernel replaces the mip-pyramid sampler
 //    (metalrenderer_tpu/raster/mip_pallas.py: sample_pyramid_tiled ->
 //    _sample_padded): trilinear over a mip chain, 3 channels, LOD clipped
@@ -83,16 +90,17 @@ sample_bilinear_kernel(const float* __restrict__ tex, int th, int tw,
                        const float* __restrict__ u,
                        const float* __restrict__ v,
                        const uint8_t* __restrict__ mask, float oob_value,
-                       int repeat, int n, float* __restrict__ out) {
+                       int repeat, int n, int hw, float* __restrict__ out) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
   if (mask != nullptr && mask[i] == 0) {
     out[i] = oob_value;
     return;
   }
+  const float* __restrict__ tf = tex + (size_t)(i / hw) * th * tw;
   const Taps t = taps(u[i], v[i], th, tw, repeat);
-  out[i] = lerp2(__ldg(tex + t.a + t.xa), __ldg(tex + t.a + t.xb),
-                 __ldg(tex + t.b + t.xa), __ldg(tex + t.b + t.xb), t.fx, t.fy);
+  out[i] = lerp2(__ldg(tf + t.a + t.xa), __ldg(tf + t.a + t.xb),
+                 __ldg(tf + t.b + t.xa), __ldg(tf + t.b + t.xb), t.fx, t.fy);
 }
 
 struct Levels {
@@ -152,13 +160,16 @@ int blocks_for(int n) { return (n + kBlock - 1) / kBlock; }
 
 }  // namespace
 
+// n pixels in frames of hw (n / hw textures of th x tw, stacked).
 extern "C" int mr_sample_bilinear(const float* tex, int th, int tw,
                                   const float* u, const float* v,
                                   const uint8_t* mask, float oob_value,
-                                  int repeat, int n, float* out, void* stream) {
+                                  int repeat, int n, int hw, float* out,
+                                  void* stream) {
   if (n == 0) return 0;
+  if (hw < 1 || n % hw != 0) return (int)cudaErrorInvalidValue;
   sample_bilinear_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      tex, th, tw, u, v, mask, oob_value, repeat, n, out);
+      tex, th, tw, u, v, mask, oob_value, repeat, n, hw, out);
   return (int)cudaGetLastError();
 }
 

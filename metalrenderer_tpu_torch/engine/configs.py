@@ -1,12 +1,17 @@
 """BASELINE configurations built from the port's own primitives.
 
-``config4_shadow_normal_map`` is ``benchmarks/configs.py``'s config 4 (a
-copy: that module imports JAX): a Blinn-Phong cube with a 256^2 normal map
-(a sinusoidal height field, a 9-level mip chain) casting a shadow onto a
-shadow-receiving floor, under a shadow-mapped directional light (the sun),
-at 1920x1080 with 4x MSAA and a 1024^2 shadow map. It renders with
-``render_frame``'s default ``shadow_target`` (0, 0, 0), through the split
-path (K1, K3, K7, K9).
+``config1_textured_cube`` is ``benchmarks/configs.py``'s config 1 (a copy:
+that module imports JAX): a cube with a 256^2 checkerboard texture under
+the default point light, 512x512 with 4x MSAA; no shadow pass (nothing
+receives shadows). It renders through the split path (K3 and K9; K5 in a
+batch).
+
+``config4_shadow_normal_map`` is its config 4 (a copy too): a Blinn-Phong
+cube with a 256^2 normal map (a sinusoidal height field, a 9-level mip
+chain) casting a shadow onto a shadow-receiving floor, under a
+shadow-mapped directional light (the sun), at 1920x1080 with 4x MSAA and a
+1024^2 shadow map. It renders with ``render_frame``'s default
+``shadow_target`` (0, 0, 0), through the split path (K1, K3, K7, K9).
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..io.textures import from_array
+from ..io.textures import checkerboard, from_array
 from ..math import transforms
 from ..scene import mesh
 from ..scene.camera import OrbitCamera
@@ -36,6 +41,23 @@ def bumpy_normal_map(n=256):
     return from_array(
         np.concatenate([nm01, np.ones((n, n, 1), np.float32)], -1),
         generate_mips=True)
+
+
+def config1_textured_cube(width=512, height=512, device="cuda"):
+    """(scene on ``device``, camera, lighting, config) of BASELINE config 1."""
+    tex = checkerboard(size=256, squares=8, color_a=(0.9, 0.9, 0.85),
+                       color_b=(0.25, 0.55, 0.2))
+    scene = Scene(
+        instances=(Instance(
+            mesh=mesh.cube(), model_matrix=transforms.translation(0, 0, 0),
+            material=Material(color=torch.ones(3), kind=BLINN_PHONG,
+                              texture_id=0)),),
+        textures=(tex,))
+    camera = OrbitCamera(radius=2.5, theta=2.5, phi=1.2,
+                         aspect=width / height)
+    cfg = RenderConfig(width=width, height=height, msaa=4,
+                       shadow_map_size=64)
+    return scene.to(device), camera, Lighting.default(), cfg
 
 
 def config4_shadow_normal_map(width=1920, height=1080, device="cuda"):

@@ -18,6 +18,11 @@ Everything between the kernels (vertex stage, clipping, triangle setup,
 binning, the split path's elementwise shading) is ordinary tensor code on
 the render device.
 
+The frame-batch API (``render_batch`` and the ``render_frame_batch_*``
+functions, as in the JAX package) runs the same frames through the batch
+kernels: K4 for the shadow pass, K6 for the fused main pass, or K5 with
+the split shading on [F, H, W] planes (K8 for the shadow test, K9).
+
 Entry points render on the GPU (``device="cuda"``) unless the caller asks
 for the CPU; on a CUDA device the kernels run, on the CPU their plain twins.
 """
@@ -35,6 +40,12 @@ from ..raster.geometry import clip_near, guard_clip_xy, setup_triangles
 from ..scene import lights as lights_mod
 from ..scene.materials import BLINN_PHONG_SHADOW
 from ..scene.scene import Scene, bake, project
+
+
+# The shadow pass bins with the JAX kernels' default span cap, whatever
+# config.span_cap says: every JAX shadow pass (rasterize_tiles,
+# rasterize_depth_batch) leaves span_cap at its default of 8.
+SHADOW_SPAN_CAP = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,7 +196,7 @@ def prepare_frame(scene: Scene, camera, lighting,
         shadow_bins = bin_triangles(
             setup_l, build_tri_fields(setup_l), size, size,
             config.shadow_tile_w, config.shadow_tile_h,
-            span_cap=config.span_cap, big_capacity=config.big_capacity)
+            span_cap=SHADOW_SPAN_CAP, big_capacity=config.big_capacity)
         stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
 
     setup, pg, gstats = prepare_main_pass(geom, camera.view_matrix(),
@@ -213,6 +224,73 @@ def prepare_frame(scene: Scene, camera, lighting,
                      stats)
 
 
+def _shadow_pass(shadow_bins, config, stats):
+    """K1 on one frame's shadow bins, or K4 on a batch's: the shadow map
+    f32[S, S] or f32[F, S, S] (None without shadow bins)."""
+    if shadow_bins is None:
+        return None
+    size = config.shadow_map_size
+    if raster_cuda.is_batch(shadow_bins):
+        depth, _ = raster_cuda.raster_depth_batch(
+            shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0)
+        shadow_map = depth[:, 0]
+    else:
+        depth, _ = raster_cuda.raster_depth(shadow_bins, size, size,
+                                            ((0.5, 0.5),), clear_depth=1.0)
+        shadow_map = depth[0]
+    stats["shadow_min_depth"] = torch.amin(shadow_map, dim=(-2, -1))
+    return shadow_map
+
+
+def _split_shade(ch, uniforms, shadow_map, textures, light_dir):
+    """The split path's fragment stage on channel planes: [H, W] planes
+    with uniforms f32[FU_LEN], or [F, H, W] planes with per-frame uniforms
+    f32[F, FU_LEN] (equal in every frame but the camera position) and
+    per-frame shadow maps. Returns rgba f32[..., H, W, 4]."""
+    fc = raster_cuda
+    if uniforms.dim() == 2:
+        camera_pos = uniforms[:, fc.FU_CAM:fc.FU_CAM + 3].T[:, :, None, None]
+        u = uniforms[0]
+    else:
+        u = uniforms
+        camera_pos = u[fc.FU_CAM:fc.FU_CAM + 3]
+    shadow_ctx = None
+    if shadow_map is not None:
+        shadow_ctx = shade.ShadowContext(
+            depth_map=shadow_map,
+            light_m=u[fc.FU_M:fc.FU_M + 16].reshape(4, 4))
+    r, g, b, a = shade.shade_channels(
+        ch, camera_pos=camera_pos,
+        light_pos=u[fc.FU_LPOS:fc.FU_LPOS + 3],
+        light_color=u[fc.FU_LCOL:fc.FU_LCOL + 3],
+        ambient_intensity=u[fc.FU_AMB], shininess=u[fc.FU_SHIN],
+        clear_color=u[fc.FU_CLEAR:fc.FU_CLEAR + 4],
+        shadow=shadow_ctx, textures=textures,
+        shadow_bias=u[fc.FU_BIAS], shadow_factor_value=u[fc.FU_FACTOR],
+        light_dir=light_dir)
+    return torch.stack([r, g, b, a], dim=-1)
+
+
+def _render_prepared(prep: FramePrep, config: RenderConfig):
+    """The kernels and shading of one prepared frame: (rgba, stats)."""
+    stats = dict(prep.stats)
+    shadow_map = _shadow_pass(prep.shadow_bins, config, stats)
+    samples = tuple(config.sample_positions)
+    if prep.fused:
+        rgba, covf = raster_cuda.render_fused(
+            prep.main_bins, prep.uniforms, shadow_map, config.width,
+            config.height, samples, clear_depth=config.clear_depth)
+        stats["covered_fraction"] = torch.mean(covf)
+        return rgba, stats
+    gout, _, _ = raster_cuda.raster_gbuffer(
+        prep.main_bins, config.width, config.height, samples,
+        clear_depth=config.clear_depth)
+    ch = raster_cuda.channels_from_gout_px(gout, len(samples))
+    stats["covered_fraction"] = torch.mean(ch["cov_frac"])
+    return _split_shade(ch, prep.uniforms, shadow_map, prep.textures,
+                        prep.light_dir), stats
+
+
 def render_frame(scene: Scene, camera, lighting,
                  config: RenderConfig = RenderConfig(),
                  shadow_config: ShadowConfig = ShadowConfig(),
@@ -222,43 +300,283 @@ def render_frame(scene: Scene, camera, lighting,
     stats dict of 0-d tensors, both on ``device``)."""
     prep = prepare_frame(scene, camera, lighting, config, shadow_config,
                          displacement, shadow_target, backend, device)
-    stats = dict(prep.stats)
-    shadow_map = None
-    if prep.shadow_bins is not None:
-        size = config.shadow_map_size
-        depth, _ = raster_cuda.raster_depth(prep.shadow_bins, size, size,
-                                            ((0.5, 0.5),), clear_depth=1.0)
-        shadow_map = depth[0]
-        stats["shadow_min_depth"] = torch.amin(shadow_map)
-    samples = tuple(config.sample_positions)
-    if prep.fused:
-        rgba, covf = raster_cuda.render_fused(
-            prep.main_bins, prep.uniforms, shadow_map, config.width,
-            config.height, samples, clear_depth=config.clear_depth)
-        stats["covered_fraction"] = torch.mean(covf)
-        return rgba, stats
+    return _render_prepared(prep, config)
 
-    gout, _, _ = raster_cuda.raster_gbuffer(
-        prep.main_bins, config.width, config.height, samples,
+
+# --------------------------------------------------------------------------
+# Frame batches (``metalrenderer_tpu.passes.pipeline``'s batch API)
+# --------------------------------------------------------------------------
+#
+# Every frame of a batch is prepared by ``prepare_frame`` (a loop over the
+# frames; vectorizing the prep is ROADMAP D1), its bins are stacked, and the
+# kernels run once per batch: K4 for the shadow maps, then K6 (fused
+# branch) or K5 + the batch-transparent split shading with K8 and one K9
+# per texture and pass (px branch). Each frame is bit-equal to
+# ``render_frame`` of the same frame. Batch stats carry per-frame leaves.
+
+
+def fused_batch_eligible(scene: Scene, lighting, config: RenderConfig,
+                         camera=None) -> bool:
+    """Can (scene, lighting, config) take ``render_frame_batch_fused``? The
+    fused branch's condition (untextured, point light, ``fused_shade``)
+    plus ``px_batch_eligible``'s."""
+    return (_fused_ok(scene, lighting, config)
+            and px_batch_eligible(scene, lighting, config, camera))
+
+
+def px_batch_eligible(scene: Scene, lighting, config: RenderConfig,
+                      camera=None) -> bool:
+    """Can (scene, lighting, config) take ``render_frame_batch_px``?
+    Per-pixel shading on 8x128 main-pass tiles (K5's layout) and, when
+    ``camera`` is given, an orbit camera (frames differ by ``theta``)."""
+    ok = (config.shading_per_pixel
+          and (config.tile_h, config.tile_w) == (8, 128))
+    if camera is not None:
+        ok = ok and hasattr(camera, "theta")
+    return ok
+
+
+def _batch_frames(camera, displacements, thetas, cameras):
+    """Per-frame displacements (f32 values) and cameras: ``cameras`` as
+    given, else the orbit ``camera`` at each of ``thetas`` (f32)."""
+    disps = [float(d) for d in torch.as_tensor(
+        displacements, dtype=torch.float32).reshape(-1)]
+    if cameras is not None:
+        cams = list(cameras)
+    else:
+        cams = [dataclasses.replace(camera, theta=float(t))
+                for t in torch.as_tensor(thetas,
+                                         dtype=torch.float32).reshape(-1)]
+    if len(cams) != len(disps) or not disps:
+        raise ValueError(f"{len(disps)} displacements for {len(cams)} "
+                         "cameras: need one of each per frame, at least one")
+    return disps, cams
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPrep:
+    """A batch's ``FramePrep``s stacked for the batch kernels."""
+
+    shadow_bins: object      # stacked TileBins of the shadow passes, or None
+    main_bins: object        # stacked TileBins of the main passes
+    uniforms: torch.Tensor   # f32[F, FU_LEN]
+    light_dir: torch.Tensor  # f32[3] or None (frame 0's)
+    textures: tuple          # frame 0's mip chains
+    stats: dict              # prep-side stats, leaves [F]
+
+
+def _stack_preps(preps) -> BatchPrep:
+    shadow = [p.shadow_bins for p in preps]
+    if any(b is None for b in shadow) and not all(b is None for b in shadow):
+        raise ValueError("some frames of the batch have a shadow pass, "
+                         "others not")
+    return BatchPrep(
+        shadow_bins=None if shadow[0] is None else
+        raster_cuda.stack_bins(shadow),
+        main_bins=raster_cuda.stack_bins([p.main_bins for p in preps]),
+        uniforms=torch.stack([p.uniforms for p in preps]),
+        light_dir=preps[0].light_dir, textures=preps[0].textures,
+        stats=_stack_stats([p.stats for p in preps]))
+
+
+def _stack_stats(stats):
+    return {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+
+
+def render_frame_batch_fused(scene: Scene, camera, lighting,
+                             config: RenderConfig,
+                             shadow_config: ShadowConfig,
+                             displacements, thetas,
+                             shadow_target=(0.0, 0.0, -1.0),
+                             scene_fn=None, lighting_fn=None,
+                             frame_params=None, cameras=None,
+                             backend="kernels", device="cuda"):
+    """A batch of frames through the fused branch in two launches: K4 (the
+    shadow maps, if the scene casts shadows) and K6.
+
+    ``displacements``, ``thetas``: per-frame audio displacement and orbit
+    angle (sequences of F numbers, taken as f32); ``cameras``: a sequence
+    of F cameras that replaces ``thetas``. Per-frame scene and lighting
+    (the audio-reactive shape: light color and emissive material follow
+    the audio): ``frame_params``, a sequence of F values, with
+    ``scene_fn(param) -> Scene`` and/or ``lighting_fn(param) -> Lighting``;
+    ``scene`` and ``lighting`` are then the templates that decide
+    eligibility, and every frame is ``render_frame`` of its own scene and
+    lighting. Raises ValueError unless ``fused_batch_eligible``. Returns (rgba
+    f32[F, H, W, 4], stats with per-frame leaves)."""
+    if not fused_batch_eligible(scene, lighting, config):
+        raise ValueError("the fused batch needs an untextured scene, a point "
+                         "light, fused_shade and per-pixel 8x128 tiles")
+    disps, cams = _batch_frames(camera, displacements, thetas, cameras)
+    params = ([0.0] * len(disps) if frame_params is None
+              else list(frame_params))
+    if len(params) != len(disps):
+        raise ValueError(f"{len(params)} frame_params for {len(disps)} "
+                         "frames")
+    preps = [prepare_frame(scene_fn(p) if scene_fn else scene, cam,
+                           lighting_fn(p) if lighting_fn else lighting,
+                           config, shadow_config, d, shadow_target, backend,
+                           device)
+             for d, cam, p in zip(disps, cams, params)]
+    if not all(p.fused for p in preps):
+        raise ValueError("scene_fn/lighting_fn left the fused branch")
+    batch = _stack_preps(preps)
+    stats = dict(batch.stats)
+    shadow_maps = _shadow_pass(batch.shadow_bins, config, stats)
+    rgba, covf = raster_cuda.render_fused_batch(
+        batch.main_bins, batch.uniforms, shadow_maps, config.width,
+        config.height, tuple(config.sample_positions),
         clear_depth=config.clear_depth)
-    ch = raster_cuda.channels_from_gout_px(gout, len(samples))
-    u = prep.uniforms
-    shadow_ctx = None
-    if shadow_map is not None:
-        shadow_ctx = shade.ShadowContext(
-            depth_map=shadow_map,
-            light_m=u[raster_cuda.FU_M:raster_cuda.FU_M + 16].reshape(4, 4))
-    r, g, b, a = shade.shade_channels(
-        ch,
-        camera_pos=u[raster_cuda.FU_CAM:raster_cuda.FU_CAM + 3],
-        light_pos=u[raster_cuda.FU_LPOS:raster_cuda.FU_LPOS + 3],
-        light_color=u[raster_cuda.FU_LCOL:raster_cuda.FU_LCOL + 3],
-        ambient_intensity=u[raster_cuda.FU_AMB],
-        shininess=u[raster_cuda.FU_SHIN],
-        clear_color=u[raster_cuda.FU_CLEAR:raster_cuda.FU_CLEAR + 4],
-        shadow=shadow_ctx, textures=prep.textures,
-        shadow_bias=u[raster_cuda.FU_BIAS],
-        shadow_factor_value=u[raster_cuda.FU_FACTOR],
-        light_dir=prep.light_dir)
-    stats["covered_fraction"] = torch.mean(ch["cov_frac"])
-    return torch.stack([r, g, b, a], dim=-1), stats
+    stats["covered_fraction"] = torch.mean(covf, dim=(1, 2))
+    return rgba, stats
+
+
+def render_frame_batch_px(scene: Scene, camera, lighting,
+                          config: RenderConfig,
+                          shadow_config: ShadowConfig,
+                          displacements, thetas,
+                          shadow_target=(0.0, 0.0, -1.0), cameras=None,
+                          backend="kernels", device="cuda"):
+    """A batch of frames through the split branch (textures, normal maps,
+    directional lights, ``fused_shade=False``): K4, K5 for every frame's
+    G-buffer, then the split shading once on [F, H, W] planes with K8 for
+    the shadow test and one K9 per texture and pass. Arguments as
+    ``render_frame_batch_fused`` (one scene and lighting for all frames).
+    Raises ValueError unless ``px_batch_eligible``. Returns (rgba
+    f32[F, H, W, 4], stats with per-frame leaves)."""
+    if not px_batch_eligible(scene, lighting, config):
+        raise ValueError("the px batch needs per-pixel shading on 8x128 "
+                         "main-pass tiles")
+    disps, cams = _batch_frames(camera, displacements, thetas, cameras)
+    batch = _stack_preps([
+        prepare_frame(scene, cam, lighting, config, shadow_config, d,
+                      shadow_target, backend, device)
+        for d, cam in zip(disps, cams)])
+    stats = dict(batch.stats)
+    shadow_maps = _shadow_pass(batch.shadow_bins, config, stats)
+    samples = tuple(config.sample_positions)
+    gout = raster_cuda.raster_gbuffer_batch(
+        batch.main_bins, config.width, config.height, samples,
+        clear_depth=config.clear_depth)
+    # channels_from_gout_px reads rows on axis 0: [16, F, H, W] gives
+    # [F, H, W] channels.
+    ch = raster_cuda.channels_from_gout_px(gout.transpose(0, 1), len(samples))
+    stats["covered_fraction"] = torch.mean(ch["cov_frac"], dim=(1, 2))
+    return _split_shade(ch, batch.uniforms, shadow_maps, batch.textures,
+                        batch.light_dir), stats
+
+
+def render_frame_batch_hoisted(scene: Scene, camera, lighting,
+                               config: RenderConfig,
+                               shadow_config: ShadowConfig,
+                               displacements, thetas,
+                               shadow_target=(0.0, 0.0, -1.0),
+                               frame_map=None, backend="kernels",
+                               device="cuda"):
+    """The fused branch's frames prepared first, all of them, then one K1
+    and one K2 per frame: the prep of ``render_frame_batch_fused`` without
+    its kernel fold, so the two shapes compare what the fold buys.
+    ``frame_map``: optional fn(rgba f32[H, W, 4]) -> tensor applied to
+    each frame. Raises ValueError unless ``fused_batch_eligible``. Returns
+    (rgba f32[F, H, W, 4], or the stacked ``frame_map`` outputs, and stats
+    with per-frame leaves)."""
+    if not fused_batch_eligible(scene, lighting, config):
+        raise ValueError("the hoisted batch needs an untextured scene, a "
+                         "point light, fused_shade and per-pixel 8x128 "
+                         "tiles")
+    disps, cams = _batch_frames(camera, displacements, thetas, None)
+    preps = [prepare_frame(scene, cam, lighting, config, shadow_config, d,
+                           shadow_target, backend, device)
+             for d, cam in zip(disps, cams)]
+    outs, stats = [], []
+    for prep in preps:
+        rgba, st = _render_prepared(prep, config)
+        outs.append(rgba if frame_map is None else frame_map(rgba))
+        stats.append(st)
+    return torch.stack(outs), _stack_stats(stats)
+
+
+def render_frame_batch_chunked(scene: Scene, camera, lighting,
+                               config: RenderConfig,
+                               shadow_config: ShadowConfig,
+                               displacements, thetas, chunk,
+                               shadow_target=(0.0, 0.0, -1.0),
+                               cameras=None, frame_map=None,
+                               backend="kernels", device="cuda"):
+    """The batch in sub-batches of ``chunk`` frames, each one fused or px
+    batch (whichever the scene takes); bounds the device memory of long
+    batches. ``frame_map``: optional fn(rgba f32[C, H, W, 4]) -> tensor
+    applied to each sub-batch. Raises ValueError unless ``chunk`` divides
+    the frame count and the scene takes a batch branch. Returns (rgba
+    f32[F, H, W, 4], or the ``frame_map`` outputs stacked [F/chunk, ...],
+    and stats with per-frame leaves)."""
+    disps, cams = _batch_frames(camera, displacements, thetas, cameras)
+    F = len(disps)
+    if not (isinstance(chunk, int) and chunk > 0 and F % chunk == 0):
+        raise ValueError(f"frame count {F} not divisible by chunk {chunk!r}")
+    if fused_batch_eligible(scene, lighting, config):
+        fn = render_frame_batch_fused
+    elif px_batch_eligible(scene, lighting, config):
+        fn = render_frame_batch_px
+    else:
+        raise ValueError("scene/config not eligible for a batch branch")
+    outs, stats = [], []
+    for i in range(0, F, chunk):
+        rgba, st = fn(scene, camera, lighting, config, shadow_config,
+                      disps[i:i + chunk], None, shadow_target=shadow_target,
+                      cameras=cams[i:i + chunk], backend=backend,
+                      device=device)
+        outs.append(rgba if frame_map is None else frame_map(rgba))
+        stats.append(st)
+    out = torch.cat(outs) if frame_map is None else torch.stack(outs)
+    return out, {k: torch.cat([s[k] for s in stats]) for k in stats[0]}
+
+
+def render_batch(scene: Scene, camera, lighting,
+                 displacements, thetas=None,
+                 config: RenderConfig = RenderConfig(),
+                 shadow_config: ShadowConfig = ShadowConfig(),
+                 shadow_target=(0.0, 0.0, -1.0), cameras=None,
+                 backend="kernels", chunk="auto", device="cuda"):
+    """Render a batch of frames in the fewest kernel launches available:
+    the fused batch (untextured point-light scenes: K4 + K6), else the px
+    batch (K4 + K5 + K8 + K9), else ``render_frame`` frame by frame, which
+    raises NotImplementedError where ``render_frame`` does (ROADMAP A6b,
+    A11). Every frame equals ``render_frame`` of the same frame.
+
+    ``displacements``: F numbers; ``thetas``: F orbit angles (default: the
+    camera's); ``cameras``: F cameras, replacing ``thetas``. ``chunk``:
+    "auto" or None folds the whole batch into one launch per kernel (the
+    card has no scratch-memory budget to respect); an int n splits it into
+    sub-batches of n frames (``render_frame_batch_chunked``) when n divides
+    the frame count, to bound device memory; the frames are the same
+    either way. Returns (rgba f32[F, H, W, 4], stats with per-frame
+    leaves)."""
+    if not (chunk in ("auto", None) or (isinstance(chunk, int)
+                                        and chunk > 0)):
+        raise ValueError(f"chunk: 'auto', None or a positive int, not "
+                         f"{chunk!r}")
+    F = torch.as_tensor(displacements).numel()
+    if cameras is None and not hasattr(camera, "theta"):
+        cameras = [camera] * F
+    if thetas is None and cameras is None:
+        thetas = [camera.theta] * F
+    cam = camera if cameras is None else None
+    fused = fused_batch_eligible(scene, lighting, config, cam)
+    if backend == "kernels" and (fused or px_batch_eligible(
+            scene, lighting, config, cam)):
+        kw = dict(shadow_target=shadow_target, cameras=cameras,
+                  backend=backend, device=device)
+        if isinstance(chunk, int) and F > chunk and F % chunk == 0:
+            return render_frame_batch_chunked(
+                scene, camera, lighting, config, shadow_config,
+                displacements, thetas, chunk, **kw)
+        fn = render_frame_batch_fused if fused else render_frame_batch_px
+        return fn(scene, camera, lighting, config, shadow_config,
+                  displacements, thetas, **kw)
+    disps, cams = _batch_frames(camera, displacements, thetas, cameras)
+    outs = [render_frame(scene, c, lighting, config, shadow_config, d,
+                         shadow_target, backend, device)
+            for d, c in zip(disps, cams)]
+    return (torch.stack([fb for fb, _ in outs]),
+            _stack_stats([st for _, st in outs]))

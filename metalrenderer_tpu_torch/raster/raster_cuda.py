@@ -3,7 +3,8 @@
 Three kernels (``csrc/raster.cu``), each behind a wrapper that launches it
 on a CUDA tensor and hands a CPU tensor to its plain PyTorch twin, all
 specializations of one Pallas band-kernel factory
-(``metalrenderer_tpu/raster/raster_pallas.py``: ``_make_kernel``):
+(``metalrenderer_tpu/raster/raster_pallas.py``: ``_make_kernel``), and each
+with a frame-batch wrapper that launches it once over F frames:
 
 ``raster_depth`` (K1) — the depth-only specialization (``with_attrs=False``,
 launched by ``rasterize_tiles``). The shadow pass.
@@ -18,6 +19,15 @@ coverage resolve. The fused main pass.
 visibility and fragment selection, writing the raw attribute rows that
 ``channels_from_gout_px`` and ``shade.shade_channels`` consume. The split
 path's main pass.
+
+``raster_depth_batch`` (K4), ``raster_gbuffer_batch`` (K5) and
+``render_fused_batch`` (K6) replace the frame-folded Pallas launches
+``rasterize_depth_batch``, ``rasterize_tiles_batch`` and
+``render_fused_batch``: the kernels' grid gains a frame axis over
+``stack_bins`` of per-frame ``TileBins`` (the same tables with a leading
+frame axis, the counterpart of ``raster_pallas._flatten_bins``), and every
+frame of a batch is bit-equal to the per-frame launch on the same bins.
+Their twins run the per-frame twins frame by frame.
 
 What the kernels compute (and the twins, in the same operation order):
 
@@ -60,6 +70,7 @@ on the card as well as on the CPU.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -86,13 +97,68 @@ MAX_SAMPLES = 4
 # Samples evaluated per step of a twin (bounds its temporaries).
 _PLAIN_PIECE_SAMPLES = 1 << 21
 
-# Launch counts of the three kernels; each wrapper adds one per launch.
-LAUNCHES = {"raster_depth": 0, "render_fused": 0, "raster_gbuffer": 0}
+# Launch counts of the kernels; each wrapper adds one per launch.
+LAUNCHES = {"raster_depth": 0, "render_fused": 0, "raster_gbuffer": 0,
+            "raster_depth_batch": 0, "render_fused_batch": 0,
+            "raster_gbuffer_batch": 0}
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def is_batch(bins: TileBins) -> bool:
+    """Does ``bins`` hold a frame batch (``stack_bins``' leading frame axis)?"""
+    return bins.vis.dim() == 3
+
+
+def frame_bins(bins: TileBins, f) -> TileBins:
+    """Frame ``f``'s bins (views) of a ``stack_bins`` batch."""
+    return dataclasses.replace(
+        bins, vis=bins.vis[f],
+        attr=None if bins.attr is None else bins.attr[f],
+        tile_offsets=bins.tile_offsets[f], tile_tris=bins.tile_tris[f],
+        big_ids=bins.big_ids[f], big_aabb=bins.big_aabb[f],
+        big_n=bins.big_n[f:f + 1], num_big_dropped=bins.num_big_dropped[f])
+
+
+_STACKED = ("vis", "attr", "tile_offsets", "tile_tris", "big_ids",
+            "big_aabb", "num_big_dropped")
+
+
+def stack_bins(frames) -> TileBins:
+    """Stack per-frame ``TileBins`` on a leading frame axis: vis f32[F,T,17],
+    attr f32[F,T,48] or None, tile_offsets i32[F,NT+1] into the frame's own
+    tile_tris i32[F,L], big_ids i32[F,cap], big_aabb i32[F,cap,4], big_n and
+    num_big_dropped i32[F]. Tids and CSR pointers stay frame-local. Raises
+    ValueError unless every frame has the same tile grid, the same table
+    shapes and dtypes, and attribute planes in all frames or in none."""
+    frames = list(frames)
+    if not frames:
+        raise ValueError("stack_bins: no frames")
+    first = frames[0]
+    grid = (first.tile_w, first.tile_h, first.ntx, first.nty)
+    for b in frames[1:]:
+        if (b.tile_w, b.tile_h, b.ntx, b.nty) != grid:
+            raise ValueError("stack_bins: frames binned on different tile "
+                             "grids")
+        for k in _STACKED + ("big_n",):
+            x, y = getattr(first, k), getattr(b, k)
+            if (x is None) != (y is None):
+                raise ValueError(f"stack_bins: {k} present in some frames "
+                                 "only")
+            if x is not None and (x.shape != y.shape or x.dtype != y.dtype
+                                  or x.device != y.device):
+                raise ValueError(f"stack_bins: {k} differs between frames: "
+                                 f"{tuple(x.shape)} {x.dtype} {x.device} vs "
+                                 f"{tuple(y.shape)} {y.dtype} {y.device}")
+    out = {k: (None if getattr(first, k) is None
+               else torch.stack([getattr(b, k) for b in frames]))
+           for k in _STACKED}
+    return dataclasses.replace(first, big_n=torch.cat([b.big_n
+                                                       for b in frames]),
+                               **out)
 
 
 # --------------------------------------------------------------------------
@@ -331,6 +397,47 @@ def raster_gbuffer_plain(bins: TileBins, width, height, sample_offsets,
             winner[:, :height, :width].contiguous())
 
 
+def _frames(bins: TileBins):
+    """The frame count of a ``stack_bins`` batch; ValueError otherwise."""
+    if not is_batch(bins):
+        raise ValueError("need a frame batch (stack_bins), got one frame's "
+                         f"bins: vis {tuple(bins.vis.shape)}")
+    return bins.vis.shape[0]
+
+
+def raster_depth_batch_plain(bins: TileBins, width, height,
+                             sample_offsets, clear_depth=1.0):
+    """Plain twin of ``raster_depth_batch``: ``raster_depth_plain`` frame by
+    frame. Returns (depth f32[F,S,H,W], winner i32[F,S,H,W])."""
+    outs = [raster_depth_plain(frame_bins(bins, f), width, height,
+                               sample_offsets, clear_depth)
+            for f in range(_frames(bins))]
+    return (torch.stack([d for d, _ in outs]),
+            torch.stack([w for _, w in outs]))
+
+
+def raster_gbuffer_batch_plain(bins: TileBins, width, height,
+                               sample_offsets, clear_depth=1.0):
+    """Plain twin of ``raster_gbuffer_batch``: ``raster_gbuffer_plain``
+    frame by frame. Returns gout f32[F,16,H,W]."""
+    return torch.stack([
+        raster_gbuffer_plain(frame_bins(bins, f), width, height,
+                             sample_offsets, clear_depth)[0]
+        for f in range(_frames(bins))])
+
+
+def render_fused_batch_plain(bins: TileBins, uniforms, shadow_maps, width,
+                             height, sample_offsets, clear_depth=1.0):
+    """Plain twin of ``render_fused_batch``: ``render_fused_plain`` frame by
+    frame. Returns (rgba f32[F,H,W,4], covered_frac f32[F,H,W])."""
+    outs = [render_fused_plain(
+        frame_bins(bins, f), uniforms[f],
+        None if shadow_maps is None else shadow_maps[f], width, height,
+        sample_offsets, clear_depth) for f in range(_frames(bins))]
+    return (torch.stack([c for c, _ in outs]),
+            torch.stack([v for _, v in outs]))
+
+
 def channels_from_gout_px(gout, n_samples):
     """Per-pixel shading channels from a ``raster_gbuffer`` gout
     (``raster_pallas.channels_from_gout_px``): the value/w rows divided by
@@ -370,7 +477,8 @@ def channels_from_gout_px(gout, n_samples):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_BINS_ARGS = [_P] * 6 + [_I] * 3          # tables, tile_w, tile_h, ntx
+# tables, tile_w, tile_h, ntx, frames, T, L, cap
+_BINS_ARGS = [_P] * 6 + [_I] * 7
 _SAMPLE_ARGS = [_I] + [_F] * (2 * MAX_SAMPLES) + [_F]   # n, offsets, clear
 
 
@@ -397,21 +505,38 @@ def _check_grid(bins: TileBins, width, height):
                          f"{bins.tile_w}x{bins.tile_h}, not {width}x{height}")
 
 
-def _bins_args(bins: TileBins, device):
-    T = bins.vis.shape[0]
+_MAX_FRAMES = 65535     # gridDim.z
+
+
+def _bins_args(bins: TileBins, device, lead):
+    """The C arguments of one frame's bins (``lead`` ()) or of a batch's
+    (``lead`` (F,)); the table shapes must carry ``lead``."""
+    F = lead[0] if lead else 1
+    if not 1 <= F <= _MAX_FRAMES:
+        raise ValueError(f"1..{_MAX_FRAMES} frames supported, got {F}")
+    T = bins.vis.shape[-2]
+    L = bins.tile_tris.shape[-1]
+    cap = bins.big_ids.shape[-1]
     check = _build.check
-    check("vis", bins.vis, torch.float32, device, (T, 17))
+    check("vis", bins.vis, torch.float32, device, lead + (T, 17))
     check("tile_offsets", bins.tile_offsets, torch.int32, device,
-          (bins.ntx * bins.nty + 1,))
-    check("tile_tris", bins.tile_tris, torch.int32, device)
-    check("big_ids", bins.big_ids, torch.int32, device)
-    check("big_aabb", bins.big_aabb, torch.int32, device,
-          (bins.big_ids.shape[0], 4))
-    check("big_n", bins.big_n, torch.int32, device, (1,))
+          lead + (bins.ntx * bins.nty + 1,))
+    check("tile_tris", bins.tile_tris, torch.int32, device, lead + (L,))
+    check("big_ids", bins.big_ids, torch.int32, device, lead + (cap,))
+    check("big_aabb", bins.big_aabb, torch.int32, device, lead + (cap, 4))
+    check("big_n", bins.big_n, torch.int32, device, (F,))
+    if bins.attr is not None:
+        check("attr", bins.attr, torch.float32, device, lead + (T, 48))
     ptr = _build.ptr
     return [ptr(bins.vis), ptr(bins.tile_offsets), ptr(bins.tile_tris),
             ptr(bins.big_ids), ptr(bins.big_aabb), ptr(bins.big_n),
-            bins.tile_w, bins.tile_h, bins.ntx]
+            bins.tile_w, bins.tile_h, bins.ntx, F, T, L, cap]
+
+
+def _need_attr(bins):
+    if bins.attr is None:
+        raise ValueError("bins carry no attribute planes (bin_triangles("
+                         "attr_fields=...))")
 
 
 def _sample_args(sample_offsets, clear_depth):
@@ -423,25 +548,67 @@ def _sample_args(sample_offsets, clear_depth):
     return [len(sample_offsets)] + flat + [float(clear_depth)]
 
 
+def _launch_depth(name, bins, width, height, sample_offsets, clear_depth,
+                  lead):
+    device = bins.vis.device
+    args = (_bins_args(bins, device, lead)
+            + _sample_args(sample_offsets, clear_depth))
+    shape = lead + (len(sample_offsets), height, width)
+    depth = torch.empty(shape, dtype=torch.float32, device=device)
+    winner = torch.empty(shape, dtype=torch.int32, device=device)
+    err = _lib().mr_raster_depth(*args, width, height, _build.ptr(depth),
+                                 _build.ptr(winner), _build.stream(device))
+    _build.raise_on(err, name)
+    LAUNCHES[name] += 1
+    return depth, winner
+
+
 def raster_depth(bins: TileBins, width, height, sample_offsets,
                  clear_depth=1.0):
     """Depth-only raster (kernel K1). Returns (depth f32[S,H,W], winner
     i32[S,H,W]; -1 = no triangle). CPU tensors go to the plain twin; CUDA
     tensors launch the kernel, and a failed launch raises."""
     _check_grid(bins, width, height)
-    device = bins.vis.device
-    if device.type == "cpu":
+    if bins.vis.device.type == "cpu":
         return raster_depth_plain(bins, width, height, sample_offsets,
                                   clear_depth)
-    args = _bins_args(bins, device) + _sample_args(sample_offsets, clear_depth)
-    S = len(sample_offsets)
-    depth = torch.empty((S, height, width), dtype=torch.float32, device=device)
-    winner = torch.empty((S, height, width), dtype=torch.int32, device=device)
-    err = _lib().mr_raster_depth(*args, width, height, _build.ptr(depth),
-                                 _build.ptr(winner), _build.stream(device))
-    _build.raise_on(err, "raster_depth")
-    LAUNCHES["raster_depth"] += 1
-    return depth, winner
+    return _launch_depth("raster_depth", bins, width, height, sample_offsets,
+                         clear_depth, ())
+
+
+def raster_depth_batch(bins: TileBins, width, height, sample_offsets,
+                       clear_depth=1.0):
+    """K1 over a ``stack_bins`` frame batch in one launch (kernel K4).
+    Returns (depth f32[F,S,H,W], winner i32[F,S,H,W]). CPU tensors go to
+    the plain twin; CUDA tensors launch the kernel, and a failed launch
+    raises."""
+    _check_grid(bins, width, height)
+    if bins.vis.device.type == "cpu":
+        return raster_depth_batch_plain(bins, width, height, sample_offsets,
+                                        clear_depth)
+    return _launch_depth("raster_depth_batch", bins, width, height,
+                         sample_offsets, clear_depth, (_frames(bins),))
+
+
+def _launch_gbuffer(name, bins, width, height, sample_offsets, clear_depth,
+                    lead, with_samples=False):
+    device = bins.vis.device
+    _need_attr(bins)
+    args = (_bins_args(bins, device, lead)
+            + _sample_args(sample_offsets, clear_depth))
+    gout = torch.empty(lead + (GOUT_ROWS, height, width), dtype=torch.float32,
+                       device=device)
+    depth = winner = None
+    if with_samples:
+        shape = lead + (len(sample_offsets), height, width)
+        depth = torch.empty(shape, dtype=torch.float32, device=device)
+        winner = torch.empty(shape, dtype=torch.int32, device=device)
+    err = _lib().mr_raster_gbuffer(
+        *args, _build.ptr(bins.attr), width, height, _build.ptr(gout),
+        _build.ptr(depth), _build.ptr(winner), _build.stream(device))
+    _build.raise_on(err, name)
+    LAUNCHES[name] += 1
+    return gout, depth, winner
 
 
 def raster_gbuffer(bins: TileBins, width, height, sample_offsets,
@@ -452,28 +619,52 @@ def raster_gbuffer(bins: TileBins, width, height, sample_offsets,
     winner i32[S,H,W], else None twice). CPU tensors go to the plain twin;
     CUDA tensors launch the kernel, and a failed launch raises."""
     _check_grid(bins, width, height)
-    device = bins.vis.device
-    if device.type == "cpu":
+    if bins.vis.device.type == "cpu":
         return raster_gbuffer_plain(bins, width, height, sample_offsets,
                                     clear_depth, with_samples)
-    args = _bins_args(bins, device) + _sample_args(sample_offsets, clear_depth)
-    _build.check("attr", bins.attr, torch.float32, device,
-                 (bins.vis.shape[0], 48))
-    S = len(sample_offsets)
-    gout = torch.empty((GOUT_ROWS, height, width), dtype=torch.float32,
+    return _launch_gbuffer("raster_gbuffer", bins, width, height,
+                           sample_offsets, clear_depth, (), with_samples)
+
+
+def raster_gbuffer_batch(bins: TileBins, width, height, sample_offsets,
+                         clear_depth=1.0):
+    """K3 over a ``stack_bins`` frame batch in one launch (kernel K5).
+    Returns gout f32[F,16,H,W]. CPU tensors go to the plain twin; CUDA
+    tensors launch the kernel, and a failed launch raises."""
+    _check_grid(bins, width, height)
+    if bins.vis.device.type == "cpu":
+        return raster_gbuffer_batch_plain(bins, width, height,
+                                          sample_offsets, clear_depth)
+    return _launch_gbuffer("raster_gbuffer_batch", bins, width, height,
+                           sample_offsets, clear_depth, (_frames(bins),))[0]
+
+
+def _launch_fused(name, bins, uniforms, shadow_map, width, height,
+                  sample_offsets, clear_depth, lead):
+    device = bins.vis.device
+    _need_attr(bins)
+    args = (_bins_args(bins, device, lead)
+            + _sample_args(sample_offsets, clear_depth))
+    _build.check("uniforms", uniforms, torch.float32, device, lead + (FU_LEN,))
+    tex_h = tex_w = 0
+    if shadow_map is not None:
+        if shadow_map.dim() != len(lead) + 2 or \
+                tuple(shadow_map.shape[:len(lead)]) != lead:
+            raise ValueError(f"shadow_map: need a {lead + ('H', 'W')} depth "
+                             f"map, got {tuple(shadow_map.shape)}")
+        _build.check("shadow_map", shadow_map, torch.float32, device)
+        tex_h, tex_w = shadow_map.shape[-2:]
+    rgba = torch.empty(lead + (height, width, 4), dtype=torch.float32,
                        device=device)
-    depth = winner = None
-    if with_samples:
-        depth = torch.empty((S, height, width), dtype=torch.float32,
-                            device=device)
-        winner = torch.empty((S, height, width), dtype=torch.int32,
-                             device=device)
-    err = _lib().mr_raster_gbuffer(
-        *args, _build.ptr(bins.attr), width, height, _build.ptr(gout),
-        _build.ptr(depth), _build.ptr(winner), _build.stream(device))
-    _build.raise_on(err, "raster_gbuffer")
-    LAUNCHES["raster_gbuffer"] += 1
-    return gout, depth, winner
+    covf = torch.empty(lead + (height, width), dtype=torch.float32,
+                       device=device)
+    err = _lib().mr_render_fused(*args, _build.ptr(bins.attr),
+                                 _build.ptr(uniforms), _build.ptr(shadow_map),
+                                 tex_h, tex_w, width, height, _build.ptr(rgba),
+                                 _build.ptr(covf), _build.stream(device))
+    _build.raise_on(err, name)
+    LAUNCHES[name] += 1
+    return rgba, covf
 
 
 def render_fused(bins: TileBins, uniforms, shadow_map, width, height,
@@ -483,26 +674,24 @@ def render_fused(bins: TileBins, uniforms, shadow_map, width, height,
     f32[H,W,4], covered_frac f32[H,W]). CPU tensors go to the plain twin;
     CUDA tensors launch the kernel, and a failed launch raises."""
     _check_grid(bins, width, height)
-    device = bins.vis.device
-    if device.type == "cpu":
+    if bins.vis.device.type == "cpu":
         return render_fused_plain(bins, uniforms, shadow_map, width, height,
                                   sample_offsets, clear_depth)
-    args = _bins_args(bins, device) + _sample_args(sample_offsets, clear_depth)
-    _build.check("attr", bins.attr, torch.float32, device,
-                 (bins.vis.shape[0], 48))
-    _build.check("uniforms", uniforms, torch.float32, device, (FU_LEN,))
-    tex_h = tex_w = 0
-    if shadow_map is not None:
-        if shadow_map.dim() != 2:
-            raise ValueError("shadow_map: need a 2-D [H, W] depth map")
-        _build.check("shadow_map", shadow_map, torch.float32, device)
-        tex_h, tex_w = shadow_map.shape
-    rgba = torch.empty((height, width, 4), dtype=torch.float32, device=device)
-    covf = torch.empty((height, width), dtype=torch.float32, device=device)
-    err = _lib().mr_render_fused(*args, _build.ptr(bins.attr),
-                                 _build.ptr(uniforms), _build.ptr(shadow_map),
-                                 tex_h, tex_w, width, height, _build.ptr(rgba),
-                                 _build.ptr(covf), _build.stream(device))
-    _build.raise_on(err, "render_fused")
-    LAUNCHES["render_fused"] += 1
-    return rgba, covf
+    return _launch_fused("render_fused", bins, uniforms, shadow_map, width,
+                         height, sample_offsets, clear_depth, ())
+
+
+def render_fused_batch(bins: TileBins, uniforms, shadow_maps, width,
+                       height, sample_offsets, clear_depth=1.0):
+    """K2 over a ``stack_bins`` frame batch in one launch (kernel K6).
+    ``uniforms``: f32[F, FU_LEN]; ``shadow_maps``: f32[F, SH, SW] or None.
+    Returns (rgba f32[F,H,W,4], covered_frac f32[F,H,W]). CPU tensors go to
+    the plain twin; CUDA tensors launch the kernel, and a failed launch
+    raises."""
+    _check_grid(bins, width, height)
+    if bins.vis.device.type == "cpu":
+        return render_fused_batch_plain(bins, uniforms, shadow_maps, width,
+                                        height, sample_offsets, clear_depth)
+    return _launch_fused("render_fused_batch", bins, uniforms, shadow_maps,
+                         width, height, sample_offsets, clear_depth,
+                         (_frames(bins),))

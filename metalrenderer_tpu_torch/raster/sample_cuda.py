@@ -1,10 +1,14 @@
-"""K7: single-channel bilinear sampling, a CUDA kernel with its plain twin.
+"""K7/K8: single-channel bilinear sampling, a CUDA kernel with its plain twins.
 
 ``sample_bilinear`` replaces ``metalrenderer_tpu/raster/sample_pallas.py``
 ``sample_bilinear_tiled`` (-> ``_sample_padded``): a single-channel texture
 f32[TH, TW] sampled at f32 ``u, v`` grids with ``sampling.sample_bilinear``
 semantics (half-texel centres, REPEAT or CLAMP addressing); pixels outside
 ``mask`` read ``oob_value``. The split path's shadow test is its caller.
+``sample_bilinear_batch`` (K8) replaces ``sample_bilinear_tiled_batch``
+(-> ``_sample_padded_frames``): one texture per frame, f32[F, TH, TW] at
+f32[F, H, W] grids in one launch of the same kernel (the batched shadow
+test); each frame is bit-equal to K7 on that frame.
 
 The Pallas kernel DMAs a window of the texture per 8x128 tile and sweeps
 segments for footprints beyond it; the CUDA kernel (``csrc/sample.cu``)
@@ -23,7 +27,7 @@ from . import _build, sampling
 from .sampling import REPEAT
 
 # Launch count of the kernel; the wrapper adds one per launch.
-LAUNCHES = {"sample_bilinear": 0}
+LAUNCHES = {"sample_bilinear": 0, "sample_bilinear_batch": 0}
 
 
 def reset_launch_counts():
@@ -44,13 +48,51 @@ def sample_bilinear_plain(tex, u, v, address_mode=REPEAT, oob_value=0.0,
     return torch.where(mask, d, torch.full_like(d, oob_value))
 
 
+def sample_bilinear_batch_plain(tex, u, v, address_mode=REPEAT,
+                                oob_value=0.0, mask=None):
+    """Plain twin of the batched kernel: ``sample_bilinear_plain`` frame by
+    frame, stacked."""
+    return torch.stack([
+        sample_bilinear_plain(tex[f], u[f], v[f], address_mode, oob_value,
+                              None if mask is None else mask[f])
+        for f in range(tex.shape[0])])
+
+
 @functools.cache
 def _lib():
     lib = _build.load_library()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mr_sample_bilinear.argtypes = [P, I, I, P, P, P, F, I, I, P, P]
+    lib.mr_sample_bilinear.argtypes = [P, I, I, P, P, P, F, I, I, I, P, P]
     lib.mr_sample_bilinear.restype = I
     return lib
+
+
+def _check_args(u, v, address_mode, mask):
+    if u.shape != v.shape or (mask is not None and mask.shape != u.shape):
+        raise ValueError("u, v and mask must have one shape")
+    if address_mode not in (REPEAT, sampling.CLAMP):
+        raise ValueError(f"unknown address mode {address_mode!r}")
+
+
+def _launch(name, tex, u, v, address_mode, oob_value, mask, hw):
+    device = tex.device
+    _build.check("tex", tex, torch.float32, device)
+    _build.check("u", u, torch.float32, device)
+    _build.check("v", v, torch.float32, device)
+    if mask is not None:
+        _build.check("mask", mask, torch.bool, device)
+    if u.numel() >= 2 ** 31:
+        raise ValueError(f"{u.numel()} pixels: the kernel indexes them "
+                         "with 32-bit ints")
+    out = torch.empty_like(u)
+    th, tw = tex.shape[-2:]
+    err = _lib().mr_sample_bilinear(
+        _build.ptr(tex), th, tw, _build.ptr(u), _build.ptr(v),
+        _build.ptr(mask), float(oob_value), int(address_mode == REPEAT),
+        u.numel(), hw, _build.ptr(out), _build.stream(device))
+    _build.raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def sample_bilinear(tex, u, v, address_mode=REPEAT, oob_value=0.0,
@@ -61,24 +103,25 @@ def sample_bilinear(tex, u, v, address_mode=REPEAT, oob_value=0.0,
     and a failed launch raises."""
     if tex.dim() != 2:
         raise ValueError("tex: need a 2-D [H, W] texture")
-    if u.shape != v.shape or (mask is not None and mask.shape != u.shape):
-        raise ValueError("u, v and mask must have one shape")
-    if address_mode not in (REPEAT, sampling.CLAMP):
-        raise ValueError(f"unknown address mode {address_mode!r}")
-    device = tex.device
-    if device.type == "cpu":
+    _check_args(u, v, address_mode, mask)
+    if tex.device.type == "cpu":
         return sample_bilinear_plain(tex, u, v, address_mode, oob_value, mask)
-    _build.check("tex", tex, torch.float32, device)
-    _build.check("u", u, torch.float32, device)
-    _build.check("v", v, torch.float32, device)
-    if mask is not None:
-        _build.check("mask", mask, torch.bool, device)
-    out = torch.empty_like(u)
-    th, tw = tex.shape
-    err = _lib().mr_sample_bilinear(
-        _build.ptr(tex), th, tw, _build.ptr(u), _build.ptr(v),
-        _build.ptr(mask), float(oob_value), int(address_mode == REPEAT),
-        u.numel(), _build.ptr(out), _build.stream(device))
-    _build.raise_on(err, "sample_bilinear")
-    LAUNCHES["sample_bilinear"] += 1
-    return out
+    return _launch("sample_bilinear", tex, u, v, address_mode, oob_value,
+                   mask, max(u.numel(), 1))
+
+
+def sample_bilinear_batch(tex, u, v, address_mode=REPEAT, oob_value=0.0,
+                          mask=None):
+    """Frame f of ``u, v`` f32[F, H, W] sampled from its own texture
+    ``tex[f]`` of f32[F, TH, TW] (kernel K8, one launch for all frames);
+    ``mask`` bool[F, H, W] or None. Returns f32[F, H, W]. CPU tensors go to
+    the plain twin; CUDA tensors launch the kernel, and a failed launch
+    raises."""
+    if tex.dim() != 3 or u.dim() != 3 or u.shape[0] != tex.shape[0]:
+        raise ValueError("need textures [F, TH, TW] and grids [F, H, W]")
+    _check_args(u, v, address_mode, mask)
+    if tex.device.type == "cpu":
+        return sample_bilinear_batch_plain(tex, u, v, address_mode,
+                                           oob_value, mask)
+    return _launch("sample_bilinear_batch", tex, u, v, address_mode,
+                   oob_value, mask, max(u[0].numel(), 1))

@@ -33,7 +33,7 @@ from . import mip_cuda, sample_cuda, sampling
 class ShadowContext:
     """Shadow pass output consumed by the main pass."""
 
-    depth_map: torch.Tensor   # f32[S, S] light-space depth
+    depth_map: torch.Tensor   # f32[S, S] light-space depth, or f32[F, S, S]
     light_m: torch.Tensor     # f32[4, 4] light_proj @ light_view
 
 
@@ -101,12 +101,16 @@ def _shadow_coords(w, light_m):
 def _shadow_factor_soa(w, light_m, depth_map, bias, factor, needs,
                        sample=None):
     """BlinnPhong.metal:79-96. ``light_m`` = light_proj @ light_view
-    (f32[4,4]); ``depth_map`` f32[S, S]; ``needs``: fragments whose material
-    runs the test. Returns ``factor`` where a fragment's light-space uv lies
-    in [0,1]^2 and it is shadowed, else 1. The map is read (by ``sample``:
-    kernel K7 by default, or its twin) only for fragments that need it and
-    are in bounds; the others read depth 1.0, i.e. lit."""
-    sample = sample or sample_cuda.sample_bilinear
+    (f32[4,4]); ``depth_map`` f32[S, S], or one map per frame f32[F, S, S]
+    for [F, H, W] planes; ``needs``: fragments whose material runs the
+    test. Returns ``factor`` where a fragment's light-space uv lies in
+    [0,1]^2 and it is shadowed, else 1. The map is read (by ``sample``:
+    kernel K7 by default, K8 for per-frame maps, or a twin) only for
+    fragments that need it and are in bounds; the others read depth 1.0,
+    i.e. lit."""
+    if sample is None:
+        sample = (sample_cuda.sample_bilinear_batch if depth_map.dim() == 3
+                  else sample_cuda.sample_bilinear)
     u, v, shadow_depth, in_bounds = _shadow_coords(w, light_m)
     d = sample(depth_map, u, v, sampling.REPEAT, 1.0, in_bounds & needs)
     shadowed = (shadow_depth - bias) > d
@@ -208,7 +212,9 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
                    light_dir=None):
     """The fragment stage over per-pixel SoA channel planes -> (r, g, b, a)
     f32[H, W] planes (``shade.shade_channels(per_pixel=True)`` of the JAX
-    package on ``channels_from_gout_px`` channels).
+    package on ``channels_from_gout_px`` channels). Batch-transparent:
+    planes may be [F, H, W], with ``camera_pos`` per frame as [3, F, 1, 1]
+    and ``shadow.depth_map`` per frame as [F, S, S].
 
     ``ch``: wx wy wz, nx ny nz, u v, kind, texid, nmid, cr cg cb, covered
     and cov_frac planes, the fragment of each pixel's first covered sample.

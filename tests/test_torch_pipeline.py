@@ -107,7 +107,13 @@ def test_flagship_frame_matches_golden(size):
 def test_port_imports_without_jax():
     code = ("import sys, metalrenderer_tpu_torch, "
             "metalrenderer_tpu_torch.engine.audio_app, "
+            "metalrenderer_tpu_torch.engine.configs, "
+            "metalrenderer_tpu_torch.passes.pipeline, "
             "metalrenderer_tpu_torch.convert; "
+            "from metalrenderer_tpu_torch import render_batch; "
+            "from metalrenderer_tpu_torch.passes.pipeline import ("
+            "render_frame_batch_fused, render_frame_batch_px, "
+            "render_frame_batch_hoisted, render_frame_batch_chunked); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'metalrenderer_tpu.')) or m == "
             "'metalrenderer_tpu']; print(bad); sys.exit(1 if bad else 0)")
