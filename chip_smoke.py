@@ -67,6 +67,32 @@ Phases (one line each; any failure exits non-zero and prints no result):
      frame);
  17. torch.profiler over one batch of each branch: launch calls and
      device-busy ms per frame, as in phase 11.
+ 18. K3s raster_gbuffer_samples against its twin on the flagship main pass
+     (1920x1080 MSAA4, 8x128 tiles) and on config 4's main pass binned on
+     16x128 tiles — per-sample winners equal, depth and gout (f32
+     [4,16,1080,1920], 531 MB) bit-equal;
+ 19. serve 8 flagship frames with shading_per_pixel=False (supersampled
+     shading) through render_frame(device="cuda"): median/min/max ms, the
+     prep/kernel split, per frame one K1, one K3s, one K7 and no K2/K3
+     launch, finite frames, covered_fraction equal to the CPU run of the
+     last frame within 1e-6 and its rgba within 2e-4 of it; K9 against its
+     twin on config 4's [4,1080,1920] sample planes (bit-equal); then one
+     config-4 frame with shading_per_pixel=False (K9 on those planes, one
+     launch per pass) and one with tile_h=16 (the fragment of the first
+     covered sample) against their CPU runs (covered_fraction within 1e-6,
+     rgba within 2e-4); peak device memory of each;
+ 20. the audio-reactive sequence: 32 chunks of audio synthesized with numpy
+     from a seed (stepped tones 110/220/440/880 Hz, a noise burst, silence;
+     48 kHz) through render_audio_reactive_sequence(device="cuda") at full
+     width: the track's VisualParams against the CPU run, the frames
+     through the fused batch (one K4 and one K6 for the sequence, no
+     per-frame kernel), ms per frame and Mpixel/s, the track's ms apart
+     from the render's; the same samples through
+     stream_audio_reactive(chunk_frames=16): the concatenation against the
+     offline frames; 8 chunks with shading_per_pixel=False: the per-frame
+     branch (one K1 + K3s + K7 per frame), each frame equal to
+     render_frame of the same parameters; and a 96x72 sequence of 6 chunks
+     on the card against the CPU run.
 Then one JSON line with each kernel's numbers, the nvidia-smi line, and the
 result line {"ok": true, "device": {...}}.
 
@@ -81,10 +107,27 @@ differing libdevice version. K4, K5, K6 and K8 run the per-frame kernels'
 code on each frame's slice of the stacked tables, so each batch frame is
 bit-equal to the per-frame launch, K4, K5 and K8 bit-equal to their twins
 (the per-frame twins frame by frame) and K6 within K2's 1e-5 of its
-twin. CPU against GPU frames: the prep is device-independent,
+twin. K3s runs its twin's operation sequence (K1's visibility, then
+(a*sx + b*sy) + c per covered sample, every step rounded on its own), so
+it is bit-equal. The audio track on the card against the CPU: cuFFT and
+the CPU FFT round differently (~1e-7 of a chunk's peak), the per-chunk
+sums and the prefix sum are taken in another order, and the carries run on
+the host in float32 either way: light intensity and displacement within
+1e-5 relative; the light color within 5e-5 absolute (its hue takes 0.08 of
+the melancholy, whose minor/major-third ratio sums bins that for a pure
+tone hold only window leakage at 1e-5 of the peak, and one ulp of log2,
+and multiplies both by 6 in the hue's sector fraction). The stream's
+frames against the offline ones: cuFFT may round a [16, 1024] batch and a
+[32, 1024] batch differently, so <= 1e-5 is required and the largest
+difference reported. CPU against GPU frames: the prep is device-independent,
 but the split path's LOD takes a log2 that CPU and GPU may round one ulp
 apart, which moves a trilinear blend weight by ~1e-7: covered fractions
-must be equal (1e-6), the rgba difference is reported.
+must be equal (1e-6), the rgba difference is reported. On the per-sample
+branch (phases 19 and 20) the card's frames must also lie within 2e-4 of
+the CPU run's: powf and log2 differ by an ulp between the two, which the
+specular term and the box resolve carry to ~1e-5 of a channel, while a
+fault in K3s, K7 or K9 on the [S, H, W] planes moves a pixel by 1e-2 or
+more.
 
 Bounds (bound_ms): the larger of the bytes a launch must move (each input
 tensor read once, each output written once) over 3.35 TB/s and its FP32
@@ -92,7 +135,9 @@ operations over 67 TFLOP/s (the H100 SXM's published rates at 700 W). The
 raster kernels' operations are counted from this run's bins: 16 per
 (candidate triangle, sample) — four plane evaluations of two multiplies
 and two adds — plus 60 per covered pixel for the 15 attribute planes
-(K2, K3); the samplers' per sampled pixel: 18 (K7), 94 (K9). The
+(K2, K3), 60 per covered sample (K3s, whose bytes are 64 per sample of
+gout plus the per-sample depth and winner planes); the samplers' per
+sampled pixel: 18 (K7), 94 (K9). The
 samplers read u, v (and K9 its LOD) only where the mask is set, so their
 bytes count 8 (K7, K8) or 12 (K9) per sampled pixel, plus the whole
 texture, mask and output. A batch kernel's bound counts every frame's
@@ -117,6 +162,7 @@ RASTER_SRC = "metalrenderer_tpu_torch/csrc/raster.cu"
 SAMPLE_SRC = "metalrenderer_tpu_torch/csrc/sample.cu"
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 FP32_OPS_PER_MS = 67e9        # 67 TFLOP/s outside the tensor cores
+SS_RGBA_TOL = 2e-4            # card vs CPU frames of the per-sample branch
 
 
 def fail(msg):
@@ -242,6 +288,31 @@ def soup_setup(n, size, seed, device):
                            size, size, cull_backfaces=False)
 
 
+def audio_signal(chunks, seed, sample_rate=48000.0):
+    """``chunks`` x 1024 samples, f32 numpy, from a seed: stepped tones
+    110/220/440/880 Hz (random phases), a noise burst, silence, in six
+    equal parts."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = chunks * 1024 // 6
+    t = np.arange(n) / sample_rate
+    parts = [0.4 * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+             for f in (110.0, 220.0, 440.0, 880.0)]
+    parts.append(0.3 * rng.standard_normal(n))
+    parts.append(np.zeros(chunks * 1024 - 5 * n))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def peak_mb(fn):
+    """fn() and the peak device memory it reached, in MB."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e6
+
+
 def profile_frames(fn, args):
     """Per frame under torch.profiler: CUDA launch calls, device events,
     device-busy ms (the device events' summed durations), wall ms."""
@@ -294,7 +365,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
-    from metalrenderer_tpu_torch.engine import audio_app, configs
+    from metalrenderer_tpu_torch.engine import audio_app, configs, renderer
     from metalrenderer_tpu_torch.io import png
     from metalrenderer_tpu_torch.passes import pipeline
     from metalrenderer_tpu_torch.raster import (_build, binning, mip_cuda,
@@ -911,9 +982,323 @@ def main():
         say("profile", path=name, frames=BATCH, per="frame",
             **{k: f"{v:.4f}" for k, v in prof.items()}, card=repr(smi))
 
+    # 18. K3s against its twin ------------------------------------------------
+    cfg4_t16 = cfg4.replace(tile_h=16)
+    prep4_t16 = pipeline.prepare_frame(scene4, cam4, light4, cfg4_t16,
+                                       device=dev)
+    k3s_err = 0.0
+    for name, bins in (("flagship_main_8x128", mb),
+                       ("config4_main_16x128", prep4_t16.main_bins)):
+        out_k = raster_cuda.raster_gbuffer_samples(bins, W, H, samples)
+        out_p = raster_cuda.raster_gbuffer_samples_plain(bins, W, H, samples)
+        torch.cuda.synchronize()
+        (g_k, d_k, w_k), (g_p, d_p, w_p) = out_k, out_p
+        win_eq = torch.equal(w_k, w_p)
+        depth_eq = torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+        gout_eq = torch.equal(g_k.view(torch.int32), g_p.view(torch.int32))
+        row15_eq = torch.equal(g_k[:, binning.ROW_DEPTH], d_k)
+        k3s_err = max(k3s_err, float((g_k - g_p).abs().max()))
+        covered_s = int((w_k >= 0).sum())
+        say("k3s", case=name, shape=f"{W}x{H}xS4",
+            tiles=f"{bins.tile_h}x{bins.tile_w}", triangles=bins.vis.shape[0],
+            big_n=int(bins.big_n[0]), gout_bytes=nbytes(g_k),
+            covered_samples=covered_s, winners_equal=win_eq,
+            depth_bit_equal=depth_eq, gout_bit_equal=gout_eq,
+            row15_is_depth=row15_eq)
+        if not (win_eq and depth_eq and gout_eq and row15_eq):
+            fail(f"K3s disagrees with its twin on {name}")
+        if covered_s == 0:
+            fail(f"K3s covered nothing on {name}")
+        if name.startswith("flagship"):
+            k3s_bound = bound(bins_bytes(bins, True) + nbytes(g_k, d_k, w_k),
+                              raster_ops(bins, W, H, len(samples), covered_s))
+        del out_k, out_p, g_k, g_p, d_k, d_p, w_k, w_p
+    k3s_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_samples(
+        mb, W, H, samples), 50)
+    k3s_plain_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_samples_plain(
+        mb, W, H, samples), 2)
+    say("k3s", case="flagship_main_8x128", ms=f"{k3s_ms:.4f}",
+        plain_ms=f"{k3s_plain_ms:.4f}", bound_ms=f"{k3s_bound[0]:.5f}",
+        bound_by=k3s_bound[1], card=repr(smi))
+    stats["raster_gbuffer_samples"] = (k3s_err, k3s_ms, k3s_plain_ms,
+                                       k3s_bound, None)
+
+    # 19. serve supersampled frames (the per-sample branch) -------------------
+    cfg_ss = cfg.replace(shading_per_pixel=False)
+    target = (0.0, 0.0, -1.0)
+
+    def frame_ss(d):
+        return pipeline.render_frame(scene, cam, lighting, cfg_ss,
+                                     displacement=d, shadow_target=target,
+                                     device=dev)
+
+    _, mem_ss = peak_mb(lambda: frame_ss(sdisps[0]))          # warm-up
+    reset_counts()
+    frame_ms, outs = timed_frames(frame_ss, sdisps)
+    launches = read_counts()
+    prep_ms, _ = timed_frames(lambda d: pipeline.prepare_frame(
+        scene, cam, lighting, cfg_ss, displacement=d, shadow_target=target,
+        device=dev), sdisps)
+    # K7 at this path's lookup: one test per pixel, at the first covered
+    # sample's world position.
+    g_k, _, w_k = raster_cuda.raster_gbuffer_samples(mb, W, H, samples)
+    ch = raster_cuda.channels_from_gout(g_k, w_k)
+    w0, _ = shade._first_covered((ch["wx"], ch["wy"], ch["wz"]),
+                                 ch["covered"])
+    su, sv, _, inb = shade._shadow_coords(w0, uni[:16].reshape(4, 4))
+    smask = inb & torch.any((ch["kind"] == BLINN_PHONG_SHADOW)
+                            & ch["covered"], dim=0)
+    k7ss_ms = cuda_ms(lambda: sample_cuda.sample_bilinear(
+        shadow_map, su, sv, sampling.REPEAT, 1.0, smask), 200)
+    del g_k, w_k, ch, w0, su, sv, inb, smask
+    med = statistics.median(frame_ms)
+    med_prep = statistics.median(prep_ms)
+    finite = all(bool(torch.isfinite(fb).all()) for fb, _ in outs)
+    shapes_ok = all(tuple(fb.shape) == (H, W, 4) for fb, _ in outs)
+    covf_gpu = float(outs[-1][1]["covered_fraction"])
+    fb_cpu, st_cpu = pipeline.render_frame(
+        audio_app.build_scene(device="cpu"), cam, lighting, cfg_ss,
+        displacement=sdisps[-1], shadow_target=target, device="cpu")
+    covf_cpu = float(st_cpu["covered_fraction"])
+    cpu_gpu_err = float((outs[-1][0].cpu() - fb_cpu).abs().max())
+    kernels_ms = k1_ms + k3s_ms + k7ss_ms
+    say("serve_ss", frames=BATCH, size=f"{W}x{H}", msaa=4, shadow=SHADOW,
+        shading="per sample", median_ms=f"{med:.4f}",
+        mpix_s=f"{W * H / med / 1e3:.3f}", min_ms=f"{min(frame_ms):.4f}",
+        max_ms=f"{max(frame_ms):.4f}", peak_mem_mb=f"{mem_ss:.1f}",
+        card=repr(smi))
+    say("serve_ss", split="median ms", prep_ms=f"{med_prep:.4f}",
+        k1_ms=f"{k1_ms:.4f}", k3s_ms=f"{k3s_ms:.4f}", k7_ms=f"{k7ss_ms:.4f}",
+        rest_ms=f"{med - med_prep - kernels_ms:.4f}")
+    say("serve_ss", launches=json.dumps(launches), finite=finite,
+        shapes_ok=shapes_ok, covered_fraction_gpu=covf_gpu,
+        covered_fraction_cpu=covf_cpu, rgba_max_abs_err_vs_cpu=cpu_gpu_err,
+        tol=SS_RGBA_TOL)
+    want = {k: 0 for k in launches}
+    want.update(raster_depth=BATCH, raster_gbuffer_samples=BATCH,
+                sample_bilinear=BATCH)
+    if launches != want:
+        fail(f"supersampled launch counts {launches} != {want}")
+    if not (finite and shapes_ok):
+        fail("non-finite or misshapen supersampled frames")
+    if not abs(covf_gpu - covf_cpu) <= 1e-6:
+        fail(f"supersampled covered_fraction {covf_gpu} (GPU) vs {covf_cpu} "
+             "(CPU)")
+    if not cpu_gpu_err <= SS_RGBA_TOL:
+        fail(f"the supersampled frame on the card differs from the CPU run "
+             f"by {cpu_gpu_err} > {SS_RGBA_TOL}")
+    for k, n in launches.items():
+        path_launches[k] += n
+    prof = profile_frames(frame_ss, sdisps[:4])
+    say("profile", path="flagship_supersampled", frames=4,
+        **{k: f"{v:.4f}" for k, v in prof.items()}, card=repr(smi))
+    del outs
+
+    # Config 4 through the per-sample branch: every sample shaded, and
+    # per-pixel shading on 16x128 tiles. Supersampled, K9 samples the
+    # [4, H, W] sample planes in one launch: hold it against its twin there.
+    g_k, _, w_k = raster_cuda.raster_gbuffer_samples(mb4, W, H, samples)
+    ch4s = raster_cuda.channels_from_gout(g_k, w_k)
+    del g_k, w_k
+    mips4 = scene4.textures[0]
+    args9s = (mip_cuda.build_pyramid(mips4), ch4s["u"], ch4s["v"],
+              shade._texture_lod(ch4s["u"], ch4s["v"], mips4[0].shape[1],
+                                 mips4[0].shape[0]),
+              (ch4s["nmid"] == 0) & ch4s["covered"], sampling.REPEAT)
+    k = mip_cuda.sample_pyramid(*args9s)
+    p = mip_cuda.sample_pyramid_plain(*args9s)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+    sampled = int(args9s[4].sum())
+    k9s_ms = cuda_ms(lambda: mip_cuda.sample_pyramid(*args9s), 50)
+    say("k9", case="config4_normal_map_sample_planes",
+        grid=f"{len(samples)}x{W}x{H}", sampled=sampled, max_abs_err=err,
+        tol=0, ms=f"{k9s_ms:.4f}", card=repr(smi))
+    if not err == 0.0 or sampled == 0:
+        fail("K9 disagrees with its twin on config 4's sample planes (or "
+             "sampled nothing)")
+    stats["sample_pyramid"] = (max(err, stats["sample_pyramid"][0]),
+                               *stats["sample_pyramid"][1:])
+    del ch4s, args9s, k, p
+    scene4_cpu = scene4.to("cpu")
+    for name, c4 in (("config4_supersampled",
+                      cfg4.replace(shading_per_pixel=False)),
+                     ("config4_tile_h16", cfg4_t16)):
+        reset_counts()
+        (fb, st), mem = peak_mb(lambda: pipeline.render_frame(
+            scene4, cam4, light4, c4, device=dev))
+        launches = read_counts()
+        fb_cpu, st_cpu = pipeline.render_frame(scene4_cpu, cam4, light4, c4,
+                                               device="cpu")
+        covf_gpu = float(st["covered_fraction"])
+        covf_cpu = float(st_cpu["covered_fraction"])
+        err = float((fb.cpu() - fb_cpu).abs().max())
+        finite = bool(torch.isfinite(fb).all())
+        say("serve_ss", path=name, launches=json.dumps(launches),
+            finite=finite, covered_fraction_gpu=covf_gpu,
+            covered_fraction_cpu=covf_cpu, rgba_max_abs_err_vs_cpu=err,
+            tol=SS_RGBA_TOL, peak_mem_mb=f"{mem:.1f}")
+        want = {k: 0 for k in launches}
+        want.update(raster_depth=1, raster_gbuffer_samples=1,
+                    sample_bilinear=1, sample_pyramid=2)
+        if launches != want:
+            fail(f"{name} launch counts {launches} != {want}")
+        if not finite or tuple(fb.shape) != (H, W, 4):
+            fail(f"{name}: non-finite or misshapen frame")
+        if not abs(covf_gpu - covf_cpu) <= 1e-6:
+            fail(f"{name} covered_fraction {covf_gpu} (GPU) vs {covf_cpu} "
+                 "(CPU)")
+        if not err <= SS_RGBA_TOL:
+            fail(f"{name}: the card's frame differs from the CPU run by "
+                 f"{err} > {SS_RGBA_TOL}")
+        for k, n in launches.items():
+            path_launches[k] += n
+        del fb, st, fb_cpu
+
+    # 20. the audio-reactive sequence ------------------------------------------
+    rate = 48000.0
+    chunks = 32
+    sig = audio_signal(chunks, seed=0, sample_rate=rate)
+
+    def sequence(config=cfg, samples_=sig):
+        return renderer.render_audio_reactive_sequence(
+            samples_, rate, camera=cam, config=config, device=dev)
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    track = renderer.audio_visual_track(sig, rate, device=dev)   # warm-up
+    _, track_ms = host_ms(lambda: renderer.audio_visual_track(
+        sig, rate, device=dev))
+    track_cpu = renderer.audio_visual_track(sig, rate, device="cpu")
+    p_gpu, p_cpu = track[2], track_cpu[2]
+
+    def rel_err(a, b):
+        b = b.to(torch.float64)
+        return float(((a.cpu().to(torch.float64) - b).abs()
+                      / torch.clamp_min(b.abs(), 0.1)).max())
+
+    err_int = rel_err(p_gpu.light_intensity, p_cpu.light_intensity)
+    err_disp = rel_err(p_gpu.displacement, p_cpu.displacement)
+    err_col = float((p_gpu.light_color.cpu() - p_cpu.light_color).abs().max())
+    lag_eq = torch.equal(torch.round(rate / track[3].dominant_pitch.cpu()),
+                         torch.round(rate / track_cpu[3].dominant_pitch))
+    say("sequence", check="track vs CPU", chunks=chunks,
+        light_intensity_rel_err=err_int, displacement_rel_err=err_disp,
+        tol=1e-5, light_color_abs_err=err_col, color_tol=5e-5,
+        best_lags_equal=lag_eq, track_ms=f"{track_ms:.4f}", card=repr(smi))
+    if not (err_int <= 1e-5 and err_disp <= 1e-5 and err_col <= 5e-5
+            and lag_eq):
+        fail("the audio track on the card disagrees with the CPU run")
+
+    sequence()                                        # warm-up
+    reset_counts()
+    ((frames, telem), seq_ms), mem_seq = peak_mb(lambda: host_ms(sequence))
+    launches = read_counts()
+    finite = bool(torch.isfinite(frames).all())
+    shapes_ok = tuple(frames.shape) == (chunks, H, W, 4)
+    distinct = float((frames[1] - frames[-1]).abs().max())
+    say("sequence", path="fused_batch", frames=chunks, size=f"{W}x{H}",
+        msaa=4, shadow=SHADOW, total_ms=f"{seq_ms:.4f}",
+        track_ms=f"{track_ms:.4f}", render_ms=f"{seq_ms - track_ms:.4f}",
+        per_frame_ms=f"{seq_ms / chunks:.4f}",
+        mpix_s=f"{chunks * W * H / seq_ms / 1e3:.3f}",
+        peak_mem_mb=f"{mem_seq:.1f}", card=repr(smi))
+    say("sequence", path="fused_batch", launches=json.dumps(launches),
+        finite=finite, shapes_ok=shapes_ok,
+        telemetry_keys=sorted(telem), loud_vs_silent_max_abs_diff=distinct)
+    want = {k: 0 for k in launches}
+    want.update(raster_depth_batch=1, render_fused_batch=1)
+    if launches != want:
+        fail(f"sequence launch counts {launches} != {want}")
+    if not (finite and shapes_ok) or distinct == 0.0:
+        fail("sequence frames non-finite, misshapen or not audio-reactive")
+    for k, n in launches.items():
+        path_launches[k] += n
+
+    reset_counts()
+    (streamed, stream_ms), mem_stream = peak_mb(lambda: host_ms(
+        lambda: torch.cat([f for f, _ in renderer.stream_audio_reactive(
+            sig, rate, chunk_frames=16, camera=cam, config=cfg,
+            device=dev)])))
+    launches = read_counts()
+    stream_err = float((streamed - frames).abs().max())
+    say("sequence", path="stream", chunk_frames=16,
+        total_ms=f"{stream_ms:.4f}", per_frame_ms=f"{stream_ms / chunks:.4f}",
+        launches=json.dumps(launches),
+        max_abs_diff_vs_offline=stream_err, tol=1e-5,
+        peak_mem_mb=f"{mem_stream:.1f}", card=repr(smi))
+    want = {k: 0 for k in launches}
+    want.update(raster_depth_batch=2, render_fused_batch=2)
+    if launches != want:
+        fail(f"stream launch counts {launches} != {want}")
+    if tuple(streamed.shape) != (chunks, H, W, 4) or not stream_err <= 1e-5:
+        fail(f"the stream's frames differ from the offline sequence by "
+             f"{stream_err}")
+    for k, n in launches.items():
+        path_launches[k] += n
+    del streamed, frames
+
+    n_ss = 8
+    sequence(cfg_ss, sig[:n_ss * 1024])               # warm-up
+    reset_counts()
+    (frames, telem), ss_ms = host_ms(lambda: sequence(cfg_ss,
+                                                      sig[:n_ss * 1024]))
+    launches = read_counts()
+    frames_eq = True
+    for f in range(n_ss):
+        color = telem["light_color"][f].cpu()
+        fb, _ = pipeline.render_frame(
+            audio_app.build_scene(light_color=color, device=dev), cam,
+            Lighting(light=PointLight(
+                color=color, intensity=telem["light_intensity"][f].cpu())),
+            cfg_ss, displacement=float(telem["displacement"][f]),
+            shadow_target=target, device=dev)
+        frames_eq &= torch.equal(fb, frames[f])
+    finite = bool(torch.isfinite(frames).all())
+    say("sequence", path="per_frame_supersampled", frames=n_ss,
+        total_ms=f"{ss_ms:.4f}", per_frame_ms=f"{ss_ms / n_ss:.4f}",
+        mpix_s=f"{n_ss * W * H / ss_ms / 1e3:.3f}",
+        launches=json.dumps(launches), finite=finite,
+        frames_equal_render_frame=frames_eq, card=repr(smi))
+    want = {k: 0 for k in launches}
+    want.update(raster_depth=n_ss, raster_gbuffer_samples=n_ss,
+                sample_bilinear=n_ss)
+    if launches != want:
+        fail(f"supersampled sequence launch counts {launches} != {want}")
+    if not (finite and frames_eq and tuple(frames.shape) == (n_ss, H, W, 4)):
+        fail("supersampled sequence frames non-finite, misshapen or unequal "
+             "to render_frame")
+    for k, n in launches.items():
+        path_launches[k] += n
+    del frames
+
+    # A small sequence on the card against the CPU run, both branches.
+    small = RenderConfig(width=96, height=72, msaa=4, shadow_map_size=128)
+    scam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=96 / 72)
+    for name, c in (("fused_batch", small),
+                    ("per_frame_supersampled",
+                     small.replace(shading_per_pixel=False))):
+        kw = dict(camera=scam, config=c)
+        f_gpu, _ = renderer.render_audio_reactive_sequence(
+            sig[3 * 1024:9 * 1024], rate, device=dev, **kw)
+        f_cpu, _ = renderer.render_audio_reactive_sequence(
+            sig[3 * 1024:9 * 1024], rate, device="cpu", **kw)
+        err = float((f_gpu.cpu() - f_cpu).abs().max())
+        say("sequence", check="card vs CPU", path=name, size="96x72",
+            frames=f_cpu.shape[0], rgba_max_abs_err=err, tol=SS_RGBA_TOL)
+        if not err <= SS_RGBA_TOL:
+            fail(f"the {name} sequence on the card differs from the CPU run "
+                 f"by {err}")
+
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),
             "render_fused": (RASTER_SRC, "raster_pallas.py:997"),
             "raster_gbuffer": (RASTER_SRC, "raster_pallas.py:865"),
+            "raster_gbuffer_samples": (RASTER_SRC, "raster_pallas.py:865"),
             "sample_bilinear": (SAMPLE_SRC, "sample_pallas.py:642"),
             "sample_pyramid": (SAMPLE_SRC, "mip_pallas.py:475"),
             "raster_depth_batch": (RASTER_SRC, "raster_pallas.py:1151"),

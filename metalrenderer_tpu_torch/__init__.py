@@ -2,7 +2,8 @@
 
 The same renderer (a Blinn-Phong rasterizer with shadow mapping, 4x MSAA,
 an orbit camera, textures, normal maps, point and directional lights and an
-audio-reactive scene), written in PyTorch, with the JAX package's Pallas
+audio-reactive scene driven by an audio analysis pipeline: ``audio/``,
+``engine/renderer.py``), written in PyTorch, with the JAX package's Pallas
 kernels replaced by CUDA C++ kernels for Hopper (``csrc/raster.cu``,
 ``csrc/sample.cu``, built with nvcc at first use). Entry points render on
 the GPU unless the caller asks for the CPU; tensors on the CPU take the

@@ -5,7 +5,9 @@ Scenes, meshes, model matrices, materials, cameras and lighting of
 port's objects on a given device, leaf by leaf through numpy, so both
 packages can render exactly the same inputs. Intermediate products
 (``TriangleSetup``, pass geometry) convert the same way, so a test can feed
-one kernel's inputs to both packages. Nothing here imports jax: the objects
+one kernel's inputs to both packages, and so do the audio pipeline's
+carried states, so a stream begun in one package continues in the other.
+Nothing here imports jax: the objects
 are read by attribute and their arrays with ``numpy.asarray``.
 """
 from __future__ import annotations
@@ -15,6 +17,8 @@ import types
 import numpy as np
 import torch
 
+from .audio.analyzer import AnalyzerState
+from .audio.mapping import VisualParams, VisualState
 from .passes.pipeline import PassGeometry
 from .raster.geometry import TriangleSetup
 from .scene.camera import OrbitCamera
@@ -119,3 +123,24 @@ def pass_geometry_from_jax(pg, device="cpu") -> PassGeometry:
         f: tensor(getattr(pg, f), device)
         for f in ("vattrs", "mat_kind", "mat_color", "tex_id",
                   "normal_map_id")})
+
+
+def analyzer_state_from_jax(state) -> AnalyzerState:
+    """The analyzer's cross-chunk carry (the port keeps it on the host)."""
+    return AnalyzerState(**{
+        f: tensor(getattr(state, f))
+        for f in ("rolling", "rolling_idx", "rolling_count", "rolling_sum",
+                  "smoothed_bass", "smoothed_mid", "smoothed_treble")})
+
+
+def visual_state_from_jax(state) -> VisualState:
+    """The brightness envelope's carry (on the host)."""
+    return VisualState(brightness_envelope=_f32(state.brightness_envelope))
+
+
+def visual_params_from_jax(params, device="cpu") -> VisualParams:
+    """One frame's or a whole track's scene parameters."""
+    return VisualParams(
+        light_color=_f32(params.light_color, device),
+        light_intensity=_f32(params.light_intensity, device),
+        displacement=_f32(params.displacement, device))

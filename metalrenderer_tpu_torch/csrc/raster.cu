@@ -14,6 +14,12 @@
 //    rasterize_tiles): K2's visibility and fragment selection, writing the
 //    first covered sample's raw attribute planes and the covered count
 //    instead of shading them: the split path's main pass.
+// K3s raster_gbuffer_samples_kernel replaces its per-sample G-buffer
+//    specialization (_make_kernel(with_attrs=True, attr_px=False), launched
+//    by rasterize_tiles): the same visibility, then for every sample its own
+//    winner's raw attribute planes at that sample's position and the
+//    sample's depth: supersampled shading, and main-pass tiles other than
+//    8x128.
 // K4, K5, K6 are the same three kernels over a frame batch, replacing the
 //    frame-folded Pallas launches raster_pallas.rasterize_depth_batch,
 //    rasterize_tiles_batch and render_fused_batch: blockIdx.z is the frame.
@@ -36,6 +42,9 @@
 // every thread of a warp loads the same triangle's fields (one broadcast
 // transaction), the per-sample depth/winner stay in registers, and nothing
 // is written until the pixel is final. No shared memory, no atomics.
+// K3s writes 64 B per SAMPLE (531 MB at 1080p x 4) and is bound by those
+// bytes: a thread stores its pixel's S x 16 values plane by plane, each
+// store coalesced across the warp's 32 consecutive pixels.
 //
 // Visibility is order-free (see raster_cuda.py): the winner of a sample is
 // the lexicographic minimum of (z, -tid) over its candidates, so the tile
@@ -340,6 +349,49 @@ raster_gbuffer_kernel(Bins B0, Samples S, float clear_depth,
   G[(kGoutRows - 1) * plane + o] = (float)f.cnt;
 }
 
+// K3s: the per-sample G-buffer (raster_pallas.rasterize_tiles with
+// with_attrs=True, attr_px=False), one frame. gout[s] rows 0-14 are sample
+// s's winner's raw value/w planes at the sample's absolute position, row 15
+// the sample's depth; an uncovered sample is zeros with clear_depth in row
+// 15. The Pallas kernel rewrites a sample's rows each time a chunk's
+// triangle takes it; the order-free walk knows the final winner, so every
+// plane is evaluated once.
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+raster_gbuffer_samples_kernel(Bins B, Samples S, float clear_depth,
+                              const float* __restrict__ attr, int width,
+                              int height, float* __restrict__ gout,
+                              float* __restrict__ depth,
+                              int* __restrict__ winner) {
+  const int px = blockIdx.x * kBlockX + threadIdx.x;
+  const int py = blockIdx.y * kBlockY + threadIdx.y;
+  if (px >= width || py >= height) return;
+  PixelState p;
+  visibility(B, S, clear_depth, px, py, p);
+  const size_t plane = (size_t)width * height;
+  const size_t o = (size_t)py * width + px;
+#pragma unroll
+  for (int s = 0; s < kMaxSamples; ++s) {
+    if (s < S.n) {
+      depth[s * plane + o] = p.zb[s];
+      winner[s * plane + o] = p.wb[s];
+      float* __restrict__ G = gout + (size_t)s * kGoutRows * plane + o;
+      if (p.wb[s] >= 0) {
+        const float* __restrict__ A = attr + (size_t)p.wb[s] * kAttr;
+        const float sx = __fadd_rn((float)px, S.ox[s]);
+        const float sy = __fadd_rn((float)py, S.oy[s]);
+#pragma unroll
+        for (int g = 0; g < kGoutRows - 1; ++g) {
+          G[g * plane] = attr_at(A, g, sx, sy);
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < kGoutRows - 1; ++g) G[g * plane] = 0.0f;
+      }
+      G[(kGoutRows - 1) * plane] = p.zb[s];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
                     int width, int height, float4* __restrict__ rgba,
@@ -490,6 +542,21 @@ extern "C" int mr_raster_gbuffer(MR_BINS_PARAMS, const float* attr, int width,
   MR_BINS_SETUP;
   raster_gbuffer_kernel<<<grid_for(width, height, frames),
                           dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
+      B, S, clear_depth, attr, width, height, gout, depth, winner);
+  return (int)cudaGetLastError();
+}
+
+// One frame (frames == 1): gout f32[S,16,H,W], depth f32[S,H,W], winner
+// i32[S,H,W].
+extern "C" int mr_raster_gbuffer_samples(MR_BINS_PARAMS, const float* attr,
+                                         int width, int height, float* gout,
+                                         float* depth, int* winner,
+                                         void* stream) {
+  if (frames != 1) return (int)cudaErrorInvalidValue;
+  MR_BINS_SETUP;
+  raster_gbuffer_samples_kernel<<<grid_for(width, height, 1),
+                                  dim3(kBlockX, kBlockY), 0,
+                                  (cudaStream_t)stream>>>(
       B, S, clear_depth, attr, width, height, gout, depth, winner);
   return (int)cudaGetLastError();
 }

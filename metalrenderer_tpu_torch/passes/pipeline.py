@@ -1,19 +1,25 @@
 """Two-pass render pipeline: shadow pass + main pass.
 
 Torch counterpart of ``metalrenderer_tpu.passes.pipeline.render_frame``
-with ``backend="pallas"`` and per-pixel shading on 8x128 main-pass tiles.
+with ``backend="pallas"``.
 Frame anatomy (MtlEngine::draw, mtl_engine.mm:767-770):
   1. shadow pass: depth-only render of the shadow casters from the light
      (renderShadowPass, :772-792) -> kernel K1 ``raster_depth``;
-  2. main pass, one of two branches:
-     * fused (untextured scene, point light, ``fused_shade``): raster +
-       Blinn-Phong/emissive shading + shadow test + MSAA coverage resolve
-       in one launch -> kernel K2 ``render_fused``;
+  2. main pass, one of three branches:
+     * fused (untextured scene, point light, ``fused_shade``, per-pixel
+       shading on 8x128 tiles): raster + Blinn-Phong/emissive shading +
+       shadow test + MSAA coverage resolve in one launch -> kernel K2
+       ``render_fused``;
      * split (textures, normal maps, a directional light, or
        ``fused_shade=False``): per-pixel G-buffer raster -> kernel K3
        ``raster_gbuffer``, then ``channels_from_gout_px`` and
        ``shade.shade_channels``, whose shadow test runs kernel K7 and whose
-       texture and normal-map lookups run kernel K9.
+       texture and normal-map lookups run kernel K9;
+     * per sample (``shading_per_pixel=False``, or main-pass tiles other
+       than 8x128): per-sample G-buffer raster -> kernel K3s
+       ``raster_gbuffer_samples``, ``channels_from_gout`` and the same
+       shading on [S, H, W] planes: once per pixel at the first covered
+       sample, or supersampled with a box resolve.
 Everything between the kernels (vertex stage, clipping, triangle setup,
 binning, the split path's elementwise shading) is ordinary tensor code on
 the render device.
@@ -22,6 +28,8 @@ The frame-batch API (``render_batch`` and the ``render_frame_batch_*``
 functions, as in the JAX package) runs the same frames through the batch
 kernels: K4 for the shadow pass, K6 for the fused main pass, or K5 with
 the split shading on [F, H, W] planes (K8 for the shadow test, K9).
+The per-sample branch has no batch kernel (nor has the JAX package):
+``render_batch`` renders such frames one by one.
 
 Entry points render on the GPU (``device="cuda"``) unless the caller asks
 for the CPU; on a CUDA device the kernels run, on the CPU their plain twins.
@@ -130,19 +138,20 @@ def _check_supported(lighting, config, backend):
     if not isinstance(lighting.light, (lights_mod.PointLight,
                                        lights_mod.DirectionalLight)):
         raise TypeError(f"unknown light type {type(lighting.light)!r}")
-    if not config.shading_per_pixel:
-        raise NotImplementedError(
-            "shading_per_pixel=False (supersampled shading) needs K3's "
-            "per-sample G-buffer layout (ROADMAP A6b)")
-    if (config.tile_h, config.tile_w) != (8, 128):
-        raise NotImplementedError(
-            "per-pixel G-buffers are binned on 8x128 main-pass tiles; other "
-            "tile shapes need K3's per-sample layout (ROADMAP A6b)")
+
+
+def _attr_px(config):
+    """The JAX pipeline's ``attr_px``: the per-pixel G-buffer (K2, K3 and
+    their batches) needs per-pixel shading on 8x128 main-pass tiles; every
+    other configuration takes the per-sample G-buffer (K3s)."""
+    return (config.shading_per_pixel
+            and (config.tile_h, config.tile_w) == (8, 128))
 
 
 def _fused_ok(scene, lighting, config):
     """The JAX pipeline's ``fused_ok``: untextured scene, point light."""
-    return (config.fused_shade and len(scene.textures) == 0
+    return (_attr_px(config) and config.fused_shade
+            and len(scene.textures) == 0
             and isinstance(lighting.light, lights_mod.PointLight))
 
 
@@ -242,11 +251,13 @@ def _shadow_pass(shadow_bins, config, stats):
     return shadow_map
 
 
-def _split_shade(ch, uniforms, shadow_map, textures, light_dir):
+def _split_shade(ch, uniforms, shadow_map, textures, light_dir, config):
     """The split path's fragment stage on channel planes: [H, W] planes
     with uniforms f32[FU_LEN], or [F, H, W] planes with per-frame uniforms
     f32[F, FU_LEN] (equal in every frame but the camera position) and
-    per-frame shadow maps. Returns rgba f32[..., H, W, 4]."""
+    per-frame shadow maps, or [S, H, W] sample planes (no ``cov_frac``),
+    box-resolved here when every sample was shaded. Returns rgba
+    f32[..., H, W, 4]."""
     fc = raster_cuda
     if uniforms.dim() == 2:
         camera_pos = uniforms[:, fc.FU_CAM:fc.FU_CAM + 3].T[:, :, None, None]
@@ -267,7 +278,11 @@ def _split_shade(ch, uniforms, shadow_map, textures, light_dir):
         clear_color=u[fc.FU_CLEAR:fc.FU_CLEAR + 4],
         shadow=shadow_ctx, textures=textures,
         shadow_bias=u[fc.FU_BIAS], shadow_factor_value=u[fc.FU_FACTOR],
-        light_dir=light_dir)
+        light_dir=light_dir, shadow_per_pixel=config.shadow_per_pixel,
+        per_pixel=config.shading_per_pixel)
+    if ch.get("cov_frac") is None and r.dim() == 3:
+        # Sample planes: the MSAA box resolve, per channel plane.
+        r, g, b, a = (torch.mean(c, dim=0) for c in (r, g, b, a))
     return torch.stack([r, g, b, a], dim=-1)
 
 
@@ -282,13 +297,21 @@ def _render_prepared(prep: FramePrep, config: RenderConfig):
             config.height, samples, clear_depth=config.clear_depth)
         stats["covered_fraction"] = torch.mean(covf)
         return rgba, stats
-    gout, _, _ = raster_cuda.raster_gbuffer(
-        prep.main_bins, config.width, config.height, samples,
-        clear_depth=config.clear_depth)
-    ch = raster_cuda.channels_from_gout_px(gout, len(samples))
-    stats["covered_fraction"] = torch.mean(ch["cov_frac"])
+    if _attr_px(config):
+        gout, _, _ = raster_cuda.raster_gbuffer(
+            prep.main_bins, config.width, config.height, samples,
+            clear_depth=config.clear_depth)
+        ch = raster_cuda.channels_from_gout_px(gout, len(samples))
+        stats["covered_fraction"] = torch.mean(ch["cov_frac"])
+    else:
+        gout, _, winner = raster_cuda.raster_gbuffer_samples(
+            prep.main_bins, config.width, config.height, samples,
+            clear_depth=config.clear_depth)
+        ch = raster_cuda.channels_from_gout(gout, winner)
+        stats["covered_fraction"] = torch.mean(
+            ch["covered"].to(torch.float32))
     return _split_shade(ch, prep.uniforms, shadow_map, prep.textures,
-                        prep.light_dir), stats
+                        prep.light_dir, config), stats
 
 
 def render_frame(scene: Scene, camera, lighting,
@@ -329,8 +352,7 @@ def px_batch_eligible(scene: Scene, lighting, config: RenderConfig,
     """Can (scene, lighting, config) take ``render_frame_batch_px``?
     Per-pixel shading on 8x128 main-pass tiles (K5's layout) and, when
     ``camera`` is given, an orbit camera (frames differ by ``theta``)."""
-    ok = (config.shading_per_pixel
-          and (config.tile_h, config.tile_w) == (8, 128))
+    ok = _attr_px(config)
     if camera is not None:
         ok = ok and hasattr(camera, "theta")
     return ok
@@ -463,7 +485,7 @@ def render_frame_batch_px(scene: Scene, camera, lighting,
     ch = raster_cuda.channels_from_gout_px(gout.transpose(0, 1), len(samples))
     stats["covered_fraction"] = torch.mean(ch["cov_frac"], dim=(1, 2))
     return _split_shade(ch, batch.uniforms, shadow_maps, batch.textures,
-                        batch.light_dir), stats
+                        batch.light_dir, config), stats
 
 
 def render_frame_batch_hoisted(scene: Scene, camera, lighting,
@@ -540,9 +562,11 @@ def render_batch(scene: Scene, camera, lighting,
                  backend="kernels", chunk="auto", device="cuda"):
     """Render a batch of frames in the fewest kernel launches available:
     the fused batch (untextured point-light scenes: K4 + K6), else the px
-    batch (K4 + K5 + K8 + K9), else ``render_frame`` frame by frame, which
-    raises NotImplementedError where ``render_frame`` does (ROADMAP A6b,
-    A11). Every frame equals ``render_frame`` of the same frame.
+    batch (K4 + K5 + K8 + K9), else ``render_frame`` frame by frame
+    (supersampled shading and main-pass tiles other than 8x128: K1 + K3s +
+    K7 per frame), which raises NotImplementedError where ``render_frame``
+    does (ROADMAP A11). Every frame equals ``render_frame`` of the same
+    frame.
 
     ``displacements``: F numbers; ``thetas``: F orbit angles (default: the
     camera's); ``cameras``: F cameras, replacing ``thetas``. ``chunk``:

@@ -5,7 +5,9 @@
 chain sampled at f32 ``u, v, lod`` grids, REPEAT or CLAMP, the LOD clipped
 to ``[0, L-1]``, levels ``floor(lod)`` and ``min(floor(lod)+1, L-1)``
 blended by ``frac(lod)``, pixels outside ``mask`` 0: exactly
-``sampling.sample_trilinear``.
+``sampling.sample_trilinear``. The grids may have any shape: [H, W],
+[F, H, W] frames or [S, H, W] sample planes, one launch over the flattened
+planes (the JAX kernel takes such a stack whole, too).
 
 The Pallas kernel walks per-tile visit lists of DMA windows and, where a
 tile's footprint does not fit them (three or more uv islands, or more

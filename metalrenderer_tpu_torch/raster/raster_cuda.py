@@ -1,10 +1,10 @@
 """Hand-written CUDA raster kernels for Hopper, with their plain twins.
 
-Three kernels (``csrc/raster.cu``), each behind a wrapper that launches it
+Four kernels (``csrc/raster.cu``), each behind a wrapper that launches it
 on a CUDA tensor and hands a CPU tensor to its plain PyTorch twin, all
 specializations of one Pallas band-kernel factory
-(``metalrenderer_tpu/raster/raster_pallas.py``: ``_make_kernel``), and each
-with a frame-batch wrapper that launches it once over F frames:
+(``metalrenderer_tpu/raster/raster_pallas.py``: ``_make_kernel``), and the
+first three with a frame-batch wrapper that launches them once over F frames:
 
 ``raster_depth`` (K1) — the depth-only specialization (``with_attrs=False``,
 launched by ``rasterize_tiles``). The shadow pass.
@@ -19,6 +19,14 @@ coverage resolve. The fused main pass.
 visibility and fragment selection, writing the raw attribute rows that
 ``channels_from_gout_px`` and ``shade.shade_channels`` consume. The split
 path's main pass.
+
+``raster_gbuffer_samples`` (K3s) — the per-sample G-buffer specialization
+(``with_attrs=True, attr_px=False``, launched by ``rasterize_tiles``): the
+same visibility, then every sample's own winner's raw attribute rows at
+that sample's position and the sample's depth, f32[S,16,H,W], which
+``channels_from_gout`` and ``shade.shade_channels`` consume. Supersampled
+shading (``shading_per_pixel=False``) and main-pass tiles other than 8x128.
+The JAX package has no batch form of it, and neither has the port.
 
 ``raster_depth_batch`` (K4), ``raster_gbuffer_batch`` (K5) and
 ``render_fused_batch`` (K6) replace the frame-folded Pallas launches
@@ -55,14 +63,19 @@ What the kernels compute (and the twins, in the same operation order):
   the shadow map with an exact REPEAT bilinear lookup over the whole map
   (``sampling.sample_bilinear`` semantics; the Pallas kernel's DMA windows
   and its "lit" fallback outside them are not reproduced — ROADMAP C1) and
-  blends with the clear color by the covered fraction.
+  blends with the clear color by the covered fraction. K3s evaluates, for
+  every covered sample, its winner's 15 planes at that sample's absolute
+  position, once: the Pallas kernel rewrites them whenever a chunk's
+  triangle takes the sample (``where(take8, val, old)``), which leaves the
+  final winner's values, the same thing.
 
 On the H100 K1 and K2 are not bound by memory traffic: a thread walks its
 tile's candidate list serially (FP32 issue plus dependent table loads), so
 the design keeps that walk warp-uniform — a 32x8 block lies inside one
 binning tile, every lane loads the same triangle's fields — and keeps the
 per-sample depth and winner in registers (``csrc/raster.cu`` header). K3
-adds 64 bytes of output per pixel, written plane by plane, coalesced.
+adds 64 bytes of output per pixel, written plane by plane, coalesced; K3s
+64 bytes per sample (531 MB at 1920x1080x4), which bound it.
 
 The twins work on pieces of tile rows at a time, so they run at 1080p MSAA4
 on the card as well as on the CPU.
@@ -99,7 +112,7 @@ _PLAIN_PIECE_SAMPLES = 1 << 21
 
 # Launch counts of the kernels; each wrapper adds one per launch.
 LAUNCHES = {"raster_depth": 0, "render_fused": 0, "raster_gbuffer": 0,
-            "raster_depth_batch": 0, "render_fused_batch": 0,
+            "raster_gbuffer_samples": 0, "raster_depth_batch": 0, "render_fused_batch": 0,
             "raster_gbuffer_batch": 0}
 
 
@@ -397,6 +410,45 @@ def raster_gbuffer_plain(bins: TileBins, width, height, sample_offsets,
             winner[:, :height, :width].contiguous())
 
 
+def raster_gbuffer_samples_plain(bins: TileBins, width, height,
+                                 sample_offsets, clear_depth=1.0):
+    """Plain PyTorch twin of the ``raster_gbuffer_samples`` kernel (same
+    inputs, same arithmetic). Returns (gout f32[S,16,H,W], depth f32[S,H,W],
+    winner i32[S,H,W])."""
+    dev = bins.vis.device
+    S = len(sample_offsets)
+    xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
+    offs = torch.tensor(sample_offsets, dtype=torch.float32, device=dev)
+    hp, wp = bins.nty * bins.tile_h, bins.ntx * bins.tile_w
+    gout = torch.empty((S, GOUT_ROWS, hp, wp), dtype=torch.float32,
+                       device=dev)
+    depth = torch.empty((S, hp, wp), dtype=torch.float32, device=dev)
+    winner = torch.empty((S, hp, wp), dtype=torch.int32, device=dev)
+    coef = bins.attr.T.contiguous()                          # [48, T]
+    p = torch.arange(bins.tile_h * bins.tile_w, device=dev)
+    for tiles in _tile_pieces(bins, S, dev):
+        zb, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth)
+        _place(zb, bins, tiles, depth)
+        _place(wb.to(torch.int32), bins, tiles, winner)
+        px = (tiles % bins.ntx)[:, None] * bins.tile_w + (p % bins.tile_w)
+        py = (tiles // bins.ntx)[:, None] * bins.tile_h + (p // bins.tile_w)
+        sx = px.to(torch.float32)[:, None] + offs[:, 0, None]   # [n, S, P]
+        sy = py.to(torch.float32)[:, None] + offs[:, 1, None]
+        covered = wb >= 0
+        tid = torch.clamp_min(wb, 0)
+        zero = torch.zeros_like(zb)
+        rows = [torch.where(
+            covered,
+            (coef[k][tid] * sx + coef[ATTR_GROUPS_PADDED + k][tid] * sy)
+            + coef[2 * ATTR_GROUPS_PADDED + k][tid], zero)
+            for k in range(GOUT_ROWS - 1)]
+        rows.append(zb)
+        _place(torch.stack(rows, dim=2), bins, tiles, gout)
+    return (gout[..., :height, :width].contiguous(),
+            depth[:, :height, :width].contiguous(),
+            winner[:, :height, :width].contiguous())
+
+
 def _frames(bins: TileBins):
     """The frame count of a ``stack_bins`` batch; ValueError otherwise."""
     if not is_batch(bins):
@@ -438,22 +490,19 @@ def render_fused_batch_plain(bins: TileBins, uniforms, shadow_maps, width,
             torch.stack([v for _, v in outs]))
 
 
-def channels_from_gout_px(gout, n_samples):
-    """Per-pixel shading channels from a ``raster_gbuffer`` gout
-    (``raster_pallas.channels_from_gout_px``): the value/w rows divided by
-    the interpolated 1/w, ids rounded half-to-even (``jnp.rint``), -1 where
-    no sample is covered, and the covered fraction from ROW_DEPTH's count."""
-    invw = gout[ROW_INVW]
-    cnt = gout[ROW_DEPTH]
-    covered = cnt > 0.0
+def _channels(rows, covered):
+    """Shading channels from raw gout rows (``rows[i]``: row i's planes):
+    the value/w rows divided by the interpolated 1/w, ids rounded
+    half-to-even (``jnp.rint``), -1 where not covered."""
+    invw = rows[ROW_INVW]
     inv = 1.0 / torch.where(invw > 0.0, invw, torch.ones_like(invw))
 
     def row(i):
-        return gout[i] * inv
+        return rows[i] * inv
 
     def ids(i):
         return torch.where(covered, torch.round(row(i)).to(torch.int32),
-                           torch.full_like(cnt, -1, dtype=torch.int32))
+                           torch.full_like(invw, -1, dtype=torch.int32))
 
     return {
         "wx": row(ROW_WORLD), "wy": row(ROW_WORLD + 1),
@@ -466,8 +515,24 @@ def channels_from_gout_px(gout, n_samples):
         "cr": row(ROW_COLOR), "cg": row(ROW_COLOR + 1),
         "cb": row(ROW_COLOR + 2),
         "covered": covered,
-        "cov_frac": cnt * (1.0 / n_samples),
     }
+
+
+def channels_from_gout_px(gout, n_samples):
+    """Per-pixel shading channels from a ``raster_gbuffer`` gout
+    f32[16, ...] (``raster_pallas.channels_from_gout_px``): covered where
+    ROW_DEPTH's covered-sample count is positive, and the covered fraction
+    from that count."""
+    cnt = gout[ROW_DEPTH]
+    return dict(_channels(gout, cnt > 0.0), cov_frac=cnt * (1.0 / n_samples))
+
+
+def channels_from_gout(gout, winner):
+    """Per-sample shading channels, [S, H, W] planes, from a
+    ``raster_gbuffer_samples`` gout f32[S,16,H,W] and its winners
+    (``raster_pallas.channels_from_gout``): covered means the sample has a
+    winner, and there is no covered fraction."""
+    return _channels(gout.transpose(0, 1), winner >= 0)
 
 
 # --------------------------------------------------------------------------
@@ -495,6 +560,9 @@ def _lib():
     lib.mr_raster_gbuffer.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
                                       + [_P, _I, _I, _P, _P, _P, _P])
     lib.mr_raster_gbuffer.restype = _I
+    lib.mr_raster_gbuffer_samples.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
+                                              + [_P, _I, _I, _P, _P, _P, _P])
+    lib.mr_raster_gbuffer_samples.restype = _I
     return lib
 
 
@@ -624,6 +692,37 @@ def raster_gbuffer(bins: TileBins, width, height, sample_offsets,
                                     clear_depth, with_samples)
     return _launch_gbuffer("raster_gbuffer", bins, width, height,
                            sample_offsets, clear_depth, (), with_samples)
+
+
+def raster_gbuffer_samples(bins: TileBins, width, height, sample_offsets,
+                           clear_depth=1.0):
+    """Per-sample G-buffer raster (kernel K3s), on bins of any tile shape.
+    Returns (gout f32[S,16,H,W]: every sample's winner's raw value/w rows at
+    that sample's position, zeros where the sample is uncovered, and in
+    ROW_DEPTH the sample's depth; depth f32[S,H,W]; winner i32[S,H,W], -1 =
+    no triangle). CPU tensors go to the plain twin; CUDA tensors launch the
+    kernel, and a failed launch raises."""
+    _check_grid(bins, width, height)
+    _need_attr(bins)
+    if bins.vis.device.type == "cpu":
+        return raster_gbuffer_samples_plain(bins, width, height,
+                                            sample_offsets, clear_depth)
+    device = bins.vis.device
+    args = (_bins_args(bins, device, ())
+            + _sample_args(sample_offsets, clear_depth))
+    S = len(sample_offsets)
+    gout = torch.empty((S, GOUT_ROWS, height, width), dtype=torch.float32,
+                       device=device)
+    depth = torch.empty((S, height, width), dtype=torch.float32,
+                        device=device)
+    winner = torch.empty((S, height, width), dtype=torch.int32,
+                         device=device)
+    err = _lib().mr_raster_gbuffer_samples(
+        *args, _build.ptr(bins.attr), width, height, _build.ptr(gout),
+        _build.ptr(depth), _build.ptr(winner), _build.stream(device))
+    _build.raise_on(err, "raster_gbuffer_samples")
+    LAUNCHES["raster_gbuffer_samples"] += 1
+    return gout, depth, winner
 
 
 def raster_gbuffer_batch(bins: TileBins, width, height, sample_offsets,

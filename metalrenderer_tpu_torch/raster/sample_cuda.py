@@ -5,6 +5,10 @@
 f32[TH, TW] sampled at f32 ``u, v`` grids with ``sampling.sample_bilinear``
 semantics (half-texel centres, REPEAT or CLAMP addressing); pixels outside
 ``mask`` read ``oob_value``. The split path's shadow test is its caller.
+The grids may have any shape: [S, H, W] sample planes against the one
+texture are sampled in one launch over the flattened planes (threads index
+pixels linearly), where the JAX package launches its kernel once per
+sample plane.
 ``sample_bilinear_batch`` (K8) replaces ``sample_bilinear_tiled_batch``
 (-> ``_sample_padded_frames``): one texture per frame, f32[F, TH, TW] at
 f32[F, H, W] grids in one launch of the same kernel (the batched shadow

@@ -1,8 +1,8 @@
 """Deferred shading: Blinn-Phong + emissive + shadow test + textures + normal
-maps over per-pixel SoA channel planes.
+maps over SoA channel planes, per pixel or per MSAA sample.
 
-Torch counterpart of ``metalrenderer_tpu.raster.shade`` (its per-pixel
-path), in the same expression order, which for the Blinn-Phong and shadow
+Torch counterpart of ``metalrenderer_tpu.raster.shade``, in the same
+expression order, which for the Blinn-Phong and shadow
 parts is also the order of the CUDA fused kernel (K2):
   * fragmentBP_NoShadow / fragmentBP (BlinnPhong.metal:40-58, :60-97):
     ambient + diffuse + specular(half vector, shininess) times the
@@ -18,6 +18,10 @@ parts is also the order of the CUDA fused kernel (K2):
     ``jnp.roll`` there), so the last row and column match too.
 Texture and shadow lookups go through the kernels' wrappers: on CUDA
 tensors they launch the kernels, on CPU tensors their plain twins run.
+On [S, H, W] sample planes each lookup is ONE launch over the flattened
+planes against the one texture (the kernels index pixels linearly and the
+frame differences roll within each plane), where the JAX package loops its
+shadow sampler over the samples.
 """
 from __future__ import annotations
 
@@ -205,23 +209,59 @@ def _apply_normal_maps_soa(w, n, u, v, covered, textures, normal_map_ids):
     return out
 
 
+_SELECTED = ("wx", "wy", "wz", "nx", "ny", "nz", "u", "v", "kind", "texid",
+             "nmid", "cr", "cg", "cb")
+
+
+def _first_covered(planes, covered):
+    """Each of ``planes`` ([S, H, W]) at the pixel's first covered sample
+    (sample 0's where none is), and any-covered bool[H, W]."""
+    sel = [p[0] for p in planes]
+    cov_any = covered[0]
+    for si in range(1, covered.shape[0]):
+        use = (~cov_any) & covered[si]
+        sel = [torch.where(use, p[si], q) for p, q in zip(planes, sel)]
+        cov_any = cov_any | covered[si]
+    return sel, cov_any
+
+
+def _select_first_covered(ch):
+    """Per-pixel channel planes at the FIRST covered sample: Metal runs the
+    fragment shader once per pixel, not once per MSAA sample."""
+    keys = [k for k in _SELECTED if ch.get(k) is not None]
+    sel, cov_any = _first_covered([ch[k] for k in keys], ch["covered"])
+    return dict(ch, covered=cov_any, **dict(zip(keys, sel)))
+
+
 def shade_channels(ch, camera_pos, light_pos, light_color,
                    ambient_intensity, shininess, clear_color,
                    shadow: ShadowContext = None, textures=(),
                    shadow_bias=0.005, shadow_factor_value=0.5,
-                   light_dir=None):
-    """The fragment stage over per-pixel SoA channel planes -> (r, g, b, a)
-    f32[H, W] planes (``shade.shade_channels(per_pixel=True)`` of the JAX
-    package on ``channels_from_gout_px`` channels). Batch-transparent:
-    planes may be [F, H, W], with ``camera_pos`` per frame as [3, F, 1, 1]
-    and ``shadow.depth_map`` per frame as [F, S, S].
+                   light_dir=None, shadow_per_pixel=True, per_pixel=True):
+    """The fragment stage over SoA channel planes -> (r, g, b, a) planes
+    (``shade.shade_channels(return_planes=True)`` of the JAX package).
 
     ``ch``: wx wy wz, nx ny nz, u v, kind, texid, nmid, cr cg cb, covered
-    and cov_frac planes, the fragment of each pixel's first covered sample.
+    planes, in one of two layouts:
+      * per pixel, [H, W] with ``cov_frac`` (``channels_from_gout_px``):
+        the fragment of each pixel's first covered sample. Coverage is
+        resolved by blending with the clear color by ``cov_frac``; returns
+        [H, W] planes. Batch-transparent: planes may be [F, H, W], with
+        ``camera_pos`` per frame as [3, F, 1, 1] and ``shadow.depth_map``
+        per frame as [F, S, S];
+      * per sample, [S, H, W] without ``cov_frac``
+        (``channels_from_gout``). ``per_pixel`` (the default; the JAX
+        function's is False) shades once per pixel at the first covered
+        sample's channels and blends by the covered share of the S samples:
+        [H, W] planes (for S == 1 the one sample is shaded as below).
+        ``per_pixel=False`` shades every sample (supersampling), uncovered
+        samples take the clear color, and the caller box-resolves the
+        [S, H, W] planes; ``shadow_per_pixel`` then tests the shadow map
+        once per pixel, at the first covered sample's world position, else
+        once per sample.
     Scalars (positions, colors, ambient, shininess, clear color, bias,
     factor, ``light_dir``) may be numbers or tensors; ``textures``: mip
-    chains on the planes' device. Coverage is resolved by blending with the
-    clear color by ``cov_frac``.
+    chains on the planes' device.
     """
     dev = ch["wx"].device
 
@@ -232,12 +272,21 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
     light_color, clear = vec(light_color), vec(clear_color)
     if light_dir is not None:
         light_dir = vec(light_dir)
+
+    # A leading axis means samples only without ``cov_frac``: the frame
+    # batch carries [F, H, W] per-pixel planes with it.
+    sample_planes = ch.get("cov_frac") is None
+    cov_frac = ch.get("cov_frac") if per_pixel else None
+    if (per_pixel and sample_planes and ch["covered"].dim() == 3
+            and ch["covered"].shape[0] > 1):
+        cov_frac = torch.mean(ch["covered"].to(torch.float32), dim=0)
+        ch = _select_first_covered(ch)
+
     w = (ch["wx"], ch["wy"], ch["wz"])
     n = (ch["nx"], ch["ny"], ch["nz"])
     u, v = ch["u"], ch["v"]
     base = (ch["cr"], ch["cg"], ch["cb"])
     covered = ch["covered"]
-    cov_frac = ch["cov_frac"]
 
     if ch.get("nmid") is not None:
         n = _apply_normal_maps_soa(w, n, u, v, covered, textures, ch["nmid"])
@@ -253,17 +302,29 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
 
     if shadow is not None:
         receives = ch["kind"] == BLINN_PHONG_SHADOW
-        sf = _shadow_factor_soa(w, shadow.light_m, shadow.depth_map,
-                                shadow_bias, shadow_factor_value,
-                                receives & covered)
+        if shadow_per_pixel and sample_planes and covered.dim() == 3:
+            # One shadow test per pixel at the first covered sample's world
+            # position (Metal shades fragments per pixel, not per sample).
+            w0, _ = _first_covered(w, covered)
+            sf = _shadow_factor_soa(w0, shadow.light_m, shadow.depth_map,
+                                    shadow_bias, shadow_factor_value,
+                                    torch.any(receives & covered, dim=0))
+            sf = sf[None].expand(covered.shape)
+        else:
+            sf = _shadow_factor_soa(w, shadow.light_m, shadow.depth_map,
+                                    shadow_bias, shadow_factor_value,
+                                    receives & covered)
         # fragColor * shadow multiplies all four channels
         # (BlinnPhong.metal:96).
         msk = torch.where(receives, sf, torch.ones_like(sf))
         r, g, b, a = r * msk, g * msk, b * msk, a * msk
 
-    # Per-sample coverage resolve: every covered sample of a pixel carries
-    # the per-pixel fragment color, uncovered samples the clear color; the
-    # MSAA box filter reduces to this blend.
-    keep = 1.0 - cov_frac
-    return (r * cov_frac + clear[0] * keep, g * cov_frac + clear[1] * keep,
-            b * cov_frac + clear[2] * keep, a * cov_frac + clear[3] * keep)
+    if cov_frac is not None:
+        # Per-sample coverage resolve: every covered sample of a pixel
+        # carries the per-pixel fragment color, uncovered samples the clear
+        # color; the MSAA box filter reduces to this blend.
+        keep = 1.0 - cov_frac
+        return (r * cov_frac + clear[0] * keep, g * cov_frac + clear[1] * keep,
+                b * cov_frac + clear[2] * keep, a * cov_frac + clear[3] * keep)
+    return tuple(torch.where(covered, c, clear[i].expand_as(c))
+                 for i, c in enumerate((r, g, b, a)))

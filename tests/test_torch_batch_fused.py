@@ -263,8 +263,10 @@ def _record_calls(monkeypatch):
 def test_render_batch_dispatch(case, monkeypatch):
     """The flagship takes the fused batch (matching the JAX render_batch
     within the fused-batch tolerances); configurations no batch branch
-    takes go frame by frame through render_frame, which raises naming the
-    ROADMAP item that would render them."""
+    takes go frame by frame through render_frame: 16x128 tiles and
+    supersampled shading (the per-sample G-buffer) render, each frame
+    bit-equal to render_frame of that frame; the reference backend raises
+    naming the ROADMAP item that would render it."""
     called = _record_calls(monkeypatch)
     disps = DISPS[:2]
     if case == "flagship":
@@ -276,17 +278,32 @@ def test_render_batch_dispatch(case, monkeypatch):
             _f32(disps), config=JCFG)
         _assert_matches_jax(rgba, stats, rgba_j, stats_j)
         return
-    cfg, kw, item = CFG, {}, "A6b"
-    if case == "tiles":
-        cfg = CFG.replace(tile_h=16)
-    elif case == "per_sample":
-        cfg = CFG.replace(shading_per_pixel=False)
-    else:
-        kw, item = {"backend": "reference"}, "A11"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        render_batch(_scene(), CAM, Lighting.default(), disps, config=cfg,
-                     device="cpu", **kw)
-    assert called == ["render_frame"]
+    if case == "reference":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            render_batch(_scene(), CAM, Lighting.default(), disps,
+                         config=CFG, backend="reference", device="cpu")
+        assert called == ["render_frame"]
+        return
+    cfg = (CFG.replace(tile_h=16) if case == "tiles"
+           else CFG.replace(shading_per_pixel=False))
+    for fn in (pipeline.render_frame_batch_fused,
+               pipeline.render_frame_batch_px):
+        with pytest.raises(ValueError, match="8x128"):
+            fn(_scene(), CAM, Lighting.default(), cfg, ShadowConfig(), disps,
+               THETAS[:2], device="cpu")
+    del called[:]
+    rgba, stats = render_batch(_scene(), CAM, Lighting.default(), disps,
+                               THETAS[:2], config=cfg, device="cpu")
+    assert called == ["render_frame"] * 2
+    assert rgba.shape == (2, H, W, 4)
+    assert stats["covered_fraction"].shape == (2,)
+    for f, (d, t) in enumerate(zip(disps, THETAS)):
+        fb, st = pipeline.render_frame(
+            _scene(), dataclasses.replace(CAM, theta=t), Lighting.default(),
+            cfg, displacement=d, shadow_target=TARGET, device="cpu")
+        assert torch.equal(fb, rgba[f])
+        assert torch.equal(st["covered_fraction"],
+                           stats["covered_fraction"][f])
 
 
 def test_batch_entry_points_default_to_the_card():

@@ -109,6 +109,11 @@ def test_port_imports_without_jax():
             "metalrenderer_tpu_torch.engine.audio_app, "
             "metalrenderer_tpu_torch.engine.configs, "
             "metalrenderer_tpu_torch.passes.pipeline, "
+            "metalrenderer_tpu_torch.engine.renderer, "
+            "metalrenderer_tpu_torch.audio.analyzer, "
+            "metalrenderer_tpu_torch.audio.interpreter, "
+            "metalrenderer_tpu_torch.audio.mapping, "
+            "metalrenderer_tpu_torch.io.wav, "
             "metalrenderer_tpu_torch.convert; "
             "from metalrenderer_tpu_torch import render_batch; "
             "from metalrenderer_tpu_torch.passes.pipeline import ("
@@ -169,10 +174,12 @@ def _psnr_ok(fb_p, fb_j, st_p, st_j, bar=40.0):
 def test_branches_not_ported_raise(case):
     """Every branch of ``render_frame`` on a 32x32 flagship frame. The
     branches the split path covers (a textured scene, ``fused_shade=False``,
-    a directional light) render the JAX reference's frame (>= 40 dB,
-    covered fraction within 1e-6); the rest still raise NotImplementedError
-    naming their ROADMAP item: the brute-force oracle (A11) and K3's
-    per-sample layout (A6b: other main-pass tiles, supersampled shading)."""
+    a directional light) and those of the per-sample G-buffer (16x128
+    main-pass tiles, supersampled shading: kernel K3s' twin) render the JAX
+    reference's frame of the same configuration (>= 40 dB, covered fraction
+    within 1e-6); the one branch still not ported raises
+    NotImplementedError naming its ROADMAP item: the brute-force oracle
+    (A11)."""
     w = h = 32
     cfg = RenderConfig(width=w, height=h, shadow_map_size=64)
     cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2)
@@ -182,19 +189,17 @@ def test_branches_not_ported_raise(case):
     scene = audio_app.build_scene(device="cpu")
     jscene = j_app.build_scene()
     lighting, jlighting = Lighting(light=PointLight()), JLighting.default()
-    kw = {}
-    if case in ("reference", "tiles", "per_sample"):
-        if case == "reference":
-            kw["backend"] = "reference"
-        elif case == "tiles":
-            cfg = cfg.replace(tile_h=16)
-        else:
-            cfg = cfg.replace(shading_per_pixel=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    if case == "reference":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             pipeline.render_frame(scene, cam, lighting, cfg, device="cpu",
-                                  **kw)
+                                  backend="reference")
         return
-    if case == "textures":
+    if case == "tiles":
+        cfg, jcfg = cfg.replace(tile_h=16), jcfg.replace(tile_h=16)
+    elif case == "per_sample":
+        cfg = cfg.replace(shading_per_pixel=False)
+        jcfg = jcfg.replace(shading_per_pixel=False)
+    elif case == "textures":
         scene = audio_app.build_scene(textures=(audio_app.grass_texture(),),
                                       cube_texture_id=0, device="cpu")
         jscene = j_app.build_scene(textures=(j_app.grass_texture(),),
@@ -208,9 +213,48 @@ def test_branches_not_ported_raise(case):
     fb_p, st_p = pipeline.render_frame(scene, cam, lighting, cfg,
                                        shadow_target=target, device="cpu")
     assert raster_cuda.LAUNCHES == before
+    assert fb_p.shape == (h, w, 4)
     fb_j, st_j = mr.render(jscene, jcam, jlighting, jcfg,
                            shadow_target=target, backend="reference")
     _psnr_ok(fb_p, fb_j, st_p, st_j)
+
+
+@pytest.mark.parametrize("shadow_per_pixel", [True, False])
+def test_supersampled_frame_matches_jax_reference(shadow_per_pixel):
+    """``shading_per_pixel=False`` at 96x72 MSAA4 (K1, K3s, K7 twins, every
+    sample shaded, box resolve) against the JAX reference of the same
+    configuration, with the shadow test per pixel and per sample."""
+    w, h = 96, 72
+    kw = dict(width=w, height=h, msaa=4, shadow_map_size=128,
+              shading_per_pixel=False, shadow_per_pixel=shadow_per_pixel)
+    jcam = JCamera(radius=5.0, theta=2.5, phi=1.2, aspect=w / h)
+    fb_j, st_j = j_app.render_audio_app(displacement=0.02, camera=jcam,
+                                        backend="reference",
+                                        config=JConfig(**kw))
+    fb_p, st_p = audio_app.render_audio_app(
+        displacement=0.02, camera=convert.camera_from_jax(jcam),
+        config=RenderConfig(**kw), device="cpu")
+    assert fb_p.shape == (h, w, 4) and torch.isfinite(fb_p).all()
+    _psnr_ok(fb_p, fb_j, st_p, st_j)
+    assert set(st_p) == set(st_j)
+
+
+def test_per_pixel_noop_at_msaa1():
+    """With one sample per pixel, per-pixel and supersampled shading are
+    the same frame, bit for bit (tests/test_per_pixel_shading.py:43), and
+    the fused kernel's within 1e-6 of it."""
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=96 / 72)
+    base = RenderConfig(width=96, height=72, msaa=1, shadow_map_size=128)
+    fb_ss, st_ss = audio_app.render_audio_app(
+        camera=cam, config=base.replace(shading_per_pixel=False),
+        device="cpu")
+    fb_px, st_px = audio_app.render_audio_app(
+        camera=cam, config=base.replace(tile_h=16), device="cpu")
+    assert torch.equal(fb_px, fb_ss)
+    fb_f, st_f = audio_app.render_audio_app(camera=cam, config=base,
+                                            device="cpu")
+    assert float((fb_f - fb_ss).abs().max()) <= 1e-6
+    assert float(st_f["covered_fraction"]) == float(st_ss["covered_fraction"])
 
 
 def test_config4_matches_jax_reference():

@@ -1,6 +1,6 @@
-"""Port parity, the three raster kernels: the plain twins of
-``raster_depth`` (K1), ``render_fused`` (K2) and ``raster_gbuffer`` (K3)
-against the JAX Pallas kernels in interpret mode, fed the SAME converted JAX
+"""Port parity, the four raster kernels: the plain twins of
+``raster_depth`` (K1), ``render_fused`` (K2), ``raster_gbuffer`` (K3) and
+``raster_gbuffer_samples`` (K3s) against the JAX Pallas kernels in interpret mode, fed the SAME converted JAX
 triangle setup and field tables, so only the kernels are compared; and, on
 a CUDA device, each CUDA kernel against its twin.
 
@@ -19,7 +19,12 @@ Tolerances, with their reasons:
   * K3 gout: covered counts and per-sample winners equal; attribute rows
     within 1e-6 relative to their magnitude (the interpret-mode kernel's
     ``a*sx + b*sy + c`` is FMA-contracted, ROADMAP C6), bit-equal to a
-    numpy evaluation that rounds every step.
+    numpy evaluation that rounds every step;
+  * K3s gout (every sample's winner's rows at that sample, on 8x128 and
+    16x128 tiles, MSAA4 and MSAA1): winners equal, depth as K1's, the 15
+    attribute rows as K3's (bit-equal to the no-FMA numpy evaluation,
+    1e-6 relative to their magnitude of the interpret-mode kernel), row 15
+    bit-equal to the twin's own depth.
 """
 import functools
 
@@ -257,6 +262,78 @@ def test_raster_gbuffer_plain_matches_pallas(case):
     assert raster_cuda.LAUNCHES == before
 
 
+def _numpy_gout_samples(bins, winner, depth, sample_offsets):
+    """Per-sample gout in numpy f32, every multiply and add rounded on its
+    own: (a*sx + b*sy) + c of each sample's winner at that sample."""
+    f32 = np.float32
+    win, S = np.asarray(winner), len(sample_offsets)
+    _, H, W = win.shape
+    attr = np.asarray(bins.attr)
+    py, px = np.mgrid[0:H, 0:W]
+    out = np.zeros((S, 16, H, W), f32)
+    for s, (ox, oy) in enumerate(sample_offsets):
+        sx, sy = px.astype(f32) + f32(ox), py.astype(f32) + f32(oy)
+        A = attr[np.maximum(win[s], 0)]
+        for k in range(15):
+            out[s, k] = np.where(win[s] >= 0, (A[..., k] * sx
+                                               + A[..., 16 + k] * sy)
+                                 + A[..., 32 + k], f32(0))
+        out[s, 15] = np.asarray(depth)[s]
+    return out
+
+
+@pytest.mark.parametrize("case,tile_h,samples", [
+    ("flagship", 8, MSAA4), ("config4", 16, MSAA4), ("flagship", 8, CENTER)],
+    ids=["flagship_8x128_msaa4", "config4_16x128_msaa4",
+         "flagship_8x128_msaa1"])
+def test_raster_gbuffer_samples_plain_matches_pallas(case, tile_h, samples):
+    width, height = 96, 72
+    setup, pg = _gbuffer_inputs(case)
+    d_j, w_j, gout_j, _ = raster_pallas.rasterize_tiles(
+        setup, width, height, tile_h, 128, samples, with_attrs=True,
+        pass_geom=pg)
+    bins = _bins(setup, width, height, 128, tile_h, pg)
+    gout_p, d_p, w_p = raster_cuda.raster_gbuffer_samples_plain(
+        bins, width, height, samples)
+    gout_j, w_j = np.array(gout_j), np.array(w_j)
+    S = len(samples)
+    assert gout_p.shape == gout_j.shape == (S, 16, height, width)
+    assert d_p.shape == w_p.shape == (S, height, width)
+    np.testing.assert_array_equal(w_p.numpy(), w_j)
+    assert 0.3 < (w_j >= 0).mean() < 1.0
+    np.testing.assert_allclose(d_p.numpy(), np.asarray(d_j), rtol=0,
+                               atol=1e-6)
+    # Row 15 is the sample's depth, clear_depth where uncovered.
+    assert torch.equal(gout_p[:, binning.ROW_DEPTH], d_p)
+    assert bool((d_p[w_p < 0] == 1.0).all())
+    assert bool((gout_p[:, :15].permute(1, 0, 2, 3)[:, w_p < 0] == 0).all())
+    # Bit-equal to the no-FMA numpy evaluation, 1e-6 of the FMA'd kernel.
+    np.testing.assert_array_equal(
+        gout_p.numpy().view(np.int32),
+        _numpy_gout_samples(bins, w_p, d_p, samples).view(np.int32))
+    scale = np.maximum(np.abs(gout_j), 1.0)
+    assert float((np.abs(gout_p.numpy() - gout_j) / scale).max()) <= 1e-6
+    # channels_from_gout on the same gout and winners: the same channels,
+    # each a contiguous [S, H, W] plane (what K7 and K9 take).
+    ch_p = raster_cuda.channels_from_gout(torch.from_numpy(gout_j),
+                                          torch.from_numpy(w_j))
+    ch_j = raster_pallas.channels_from_gout(jnp.asarray(gout_j),
+                                            jnp.asarray(w_j))
+    assert set(ch_p) == set(ch_j)
+    for k, ref in ch_j.items():
+        np.testing.assert_array_equal(ch_p[k].numpy(), np.asarray(ref),
+                                      err_msg=k)
+        assert ch_p[k].is_contiguous() and ch_p[k].shape == (S, height, width)
+    # The CPU route of the wrapper is the twin, and launches nothing.
+    before = dict(raster_cuda.LAUNCHES)
+    out_w = raster_cuda.raster_gbuffer_samples(bins, width, height, samples)
+    assert all(torch.equal(a, b) for a, b in zip(out_w, (gout_p, d_p, w_p)))
+    assert raster_cuda.LAUNCHES == before
+    with pytest.raises(ValueError, match="attribute planes"):
+        raster_cuda.raster_gbuffer_samples(
+            _bins(setup, width, height, 128, tile_h), width, height, samples)
+
+
 @pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
 def test_sample_bilinear_matches(mode):
     """The twin's shadow lookup: same texels and weights as the JAX
@@ -314,6 +391,17 @@ def test_kernels_match_twins_on_card(cuda_device):
                                            with_samples=True)
         out_p = raster_cuda.raster_gbuffer_plain(bins, 96, 72, MSAA4,
                                                  with_samples=True)
+        torch.cuda.synchronize()
+        for k, p in zip(out_k, out_p):
+            assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    for case, tile_h, samples in (("flagship", 8, MSAA4),
+                                  ("config4", 16, MSAA4),
+                                  ("flagship", 8, CENTER)):
+        setup, pg = _gbuffer_inputs(case)
+        bins = _to(_bins(setup, 96, 72, 128, tile_h, pg), cuda_device)
+        out_k = raster_cuda.raster_gbuffer_samples(bins, 96, 72, samples)
+        out_p = raster_cuda.raster_gbuffer_samples_plain(bins, 96, 72,
+                                                         samples)
         torch.cuda.synchronize()
         for k, p in zip(out_k, out_p):
             assert torch.equal(k.view(torch.int32), p.view(torch.int32))
