@@ -5,12 +5,18 @@
 
 Phases (one line each; any failure exits non-zero and prints no result):
   0. environment: the card's name and power limit, torch/CUDA/nvcc versions;
-  1. build the kernels from metalrenderer_tpu_torch/csrc with nvcc;
+  1. build the kernels from metalrenderer_tpu_torch/csrc with nvcc: per
+     kernel its registers, shared memory and spills (-Xptxas -v) and its
+     SASS instruction count (cuobjdump -sass, where the toolkit has it);
   2. K1 raster_depth against its plain twin on the card: the flagship shadow
      pass (1024^2, the port's own prep) and a seeded soup of a few thousand
      triangles at 1024^2 — winners equal, depth bit-equal;
   3. K2 render_fused against its plain twin on the flagship main pass
-     (1920x1080, 4x MSAA) — covered fractions equal, rgba within 1e-5;
+     (1920x1080, 4x MSAA) and on seeded soups with attribute planes
+     (fused_soup_bins: tile lists, one tile's candidates outgrowing the
+     kernel's staging chunk, a big list near its cap, z-fighting coplanar
+     pairs) at 1920x1080 and at the ragged 1000x601 on 8x128 tiles, and at
+     1000x601 on 40x24 tiles — covered fractions equal, rgba within 1e-5;
   4. an 800x600 flagship frame against tests/goldens/audio_app_800x600.png,
      >= 40 dB PSNR;
   5. serve 16 flagship frames (1920x1080 MSAA4, 1024^2 shadow map,
@@ -45,8 +51,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
      seen from theta 2.2, near-clips heavily) — winners equal, depth
      bit-equal, and bit-equal to eight K1 launches on the same bins;
  13. K6 render_fused_batch against its twin on that batch's main passes
-     (1920x1080 MSAA4, K4's shadow maps) — covered fractions equal, rgba
-     within 1e-5, and bit-equal to eight K2 launches;
+     (1920x1080 MSAA4, K4's shadow maps) and on a 2-frame batch of two
+     such soups — covered fractions equal, rgba within 1e-5, and bit-equal
+     to per-frame K2 launches;
  14. K5 raster_gbuffer_batch against its twin on 8 config-4 frames (the
      camera orbiting by 0.01 rad a frame) — gout bit-equal, and bit-equal
      to eight K3 launches;
@@ -148,6 +155,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -180,6 +188,47 @@ def run(cmd):
                               timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e})"
+
+
+def ptxas_summary(log):
+    """Per kernel of an ``nvcc -Xptxas -v`` build log: {name: "R regs,
+    B B smem, spills S/L B"} (``name<N>`` for a template instance)."""
+    out, name, spill = {}, None, "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?([a-z][a-z_]*_kernel)"
+                      r"(?:ILi(\d+)EE)?", ln)
+        if m:
+            name = m[1] + (f"<{m[2]}>" if m[2] else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m[1]}/{m[2]}"
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name] = (f"{m[1]} regs, {smem[1] if smem else 0} B smem, "
+                         f"spills {spill} B")
+            name, spill = None, "?"
+    return out
+
+
+def sass_counts(lib):
+    """SASS instructions per kernel in the shared library ``lib``, from
+    ``cuobjdump -sass`` where the toolkit has it ({} where not)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = run([tool, "-sass", str(lib)])
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)(?:ILi(\d+)EE)?",
+                      ln)
+        if m:
+            name = m[1] + (f"<{m[2]}>" if m[2] else "")
+            out[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/", ln):
+            out[name] += 1
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -227,9 +276,8 @@ def raster_ops(bins, width, height, n_samples, covered_px=0):
     """FP32 operations the raster kernels need on these bins: 16 per
     (candidate, sample) of every pixel, 60 per covered pixel."""
     import torch
-    from metalrenderer_tpu_torch.raster import raster_cuda
     tiles = torch.arange(bins.ntx * bins.nty, device=bins.vis.device)
-    cand = (raster_cuda._candidates(bins, tiles) >= 0).sum(dim=1)
+    cand = candidate_counts(bins)
     x0 = (tiles % bins.ntx) * bins.tile_w
     y0 = (tiles // bins.ntx) * bins.tile_h
     npx = (torch.clamp(width - x0, max=bins.tile_w)
@@ -286,6 +334,84 @@ def soup_setup(n, size, seed, device):
     clip = np.concatenate([pts * w, z * w, np.broadcast_to(w, (n, 3, 1))], -1)
     return setup_triangles(torch.from_numpy(clip.astype(np.float32)).to(device),
                            size, size, cull_backfaces=False)
+
+
+def fused_soup_bins(width, height, seed, device, crowd=400, small=1200,
+                    big=240, tile_w=128, tile_h=8):
+    """A seeded main-pass soup with attribute planes, binned for K2 on
+    ``tile_w`` x ``tile_h`` tiles (span cap 8, big-list cap 256):
+    ``crowd`` triangles of a few pixels inside the tile at the image's
+    center, whose list outgrows one staging chunk; ``small`` such triangles
+    anywhere (the tile lists); ``big`` spanning 80-300 rows (the big list).
+    One triangle in four gets a partner in its plane: an exact duplicate
+    (ties go to the larger tid) or, every other time, a triangle made of
+    affine combinations of its clip-space vertices, whose depth planes
+    differ from the original's by rounding (z-fighting). Materials mix
+    Blinn-Phong, shadow-receiving and emissive. Returns TileBins."""
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch.passes.pipeline import PassGeometry
+    from metalrenderer_tpu_torch.raster import binning
+    from metalrenderer_tpu_torch.raster.geometry import setup_triangles
+    rng = np.random.default_rng(seed)
+    cx = (width // 2 // tile_w) * tile_w
+    cy = (height // 2 // tile_h) * tile_h
+    groups = [  # (count, center box x0, y0, x1, y1, half extent x, y)
+        (crowd, cx, cy, cx + tile_w, cy + tile_h, 10.0, 3.0),
+        (small, 0, 0, width, height, 20.0, 3.0),
+        (big, 0, 0, width, height, 150.0, 150.0)]
+    tris = []
+    for n, x0, y0, x1, y1, hx, hy in groups:
+        c = np.stack([rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)], -1)
+        ext = rng.uniform(0.3, 1.0, (n, 1, 2)) * np.array([hx, hy])
+        if n and hy > 100:      # big: at least 80 rows, >8 tiles of 8x128
+            ext[:, :, 1] = np.maximum(ext[:, :, 1], 40.0)
+        pts = c[:, None] + ext * rng.uniform(-1.0, 1.0, (n, 3, 2))
+        tris.append(pts)
+    pts = np.concatenate(tris)                                # [n, 3, 2] px
+    n = pts.shape[0]
+    ndc = np.stack([pts[..., 0] * (2.0 / width) - 1.0,
+                    1.0 - pts[..., 1] * (2.0 / height)], -1)
+    z = rng.uniform(0.02, 0.98, (n, 1)) + rng.uniform(-0.02, 0.02, (n, 3))
+    w = rng.uniform(0.5, 3.0, (n, 1)) * rng.uniform(0.9, 1.1, (n, 3))
+    clip = np.concatenate([ndc * w[..., None], (z * w)[..., None],
+                           w[..., None]], -1)                 # [n, 3, 4]
+    pick = np.arange(0, n, 4)
+    mix = np.array([[0.7, 0.2, 0.1], [0.1, 1.1, -0.2], [0.2, -0.1, 0.9]])
+    partner = clip[pick].copy()
+    partner[1::2] = np.einsum("ij,njk->nik", mix, clip[pick[1::2]])
+    clip = np.concatenate([clip, partner]).astype(np.float32)
+    t = clip.shape[0]
+    world = rng.uniform(-1.5, 1.5, (t, 3, 3))
+    world[..., 1] = np.abs(world[..., 1]) * 0.3 - 0.2
+    normal = rng.normal(size=(t, 1, 3)) + 0.2 * rng.normal(size=(t, 3, 3))
+    normal[..., 1] = np.abs(normal[..., 1]) + 0.5
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    vattrs = np.concatenate([world, rng.uniform(0, 1, (t, 3, 2)), normal], -1)
+
+    def f32(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+    kind = rng.choice([0, 1, 2], t, p=[0.3, 0.6, 0.1])
+    none = torch.full((t,), -1, dtype=torch.int32, device=device)
+    pg = PassGeometry(vattrs=f32(vattrs),
+                      mat_kind=torch.from_numpy(kind.astype(np.int32)).to(device),
+                      mat_color=f32(rng.uniform(0.2, 1.0, (t, 3))),
+                      tex_id=none, normal_map_id=none)
+    setup = setup_triangles(f32(clip), width, height, cull_backfaces=False)
+    return binning.bin_triangles(setup, binning.build_tri_fields(setup),
+                                 width, height, tile_w, tile_h,
+                                 attr_fields=binning.build_attr_fields(setup,
+                                                                       pg))
+
+
+def candidate_counts(bins):
+    """Candidates per tile (``raster_cuda._candidates``: the tile's list and
+    the gated big list, valid or not), i64[NT]."""
+    import torch
+    from metalrenderer_tpu_torch.raster import raster_cuda
+    tiles = torch.arange(bins.ntx * bins.nty, device=bins.vis.device)
+    return (raster_cuda._candidates(bins, tiles) >= 0).sum(dim=1)
 
 
 def audio_signal(chunks, seed, sample_rate=48000.0):
@@ -398,10 +524,9 @@ def main():
     mip_cuda._lib()
     build_s = time.perf_counter() - t0
     log = (_build.library_path().parent / "build.log").read_text()
-    regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-            if "Used" in ln]
     say("build", seconds=f"{build_s:.2f}", lib=_build.library_path().name,
-        ptxas=repr(regs))
+        ptxas=json.dumps(ptxas_summary(log)),
+        sass_instructions=json.dumps(sass_counts(_build.library_path())))
 
     # Flagship inputs, built by the port's own prep on the card.
     cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=W / H)
@@ -463,15 +588,55 @@ def main():
         rgba_max_abs_err=k2_err, tol=1e-5)
     if not covf_eq or not k2_err <= 1e-5:
         fail("K2 disagrees with its twin")
+    # Seeded soups: the flagship's tile lists are empty (all 15 candidates
+    # come from the big list), so here K2 walks lists, one longer than a
+    # staging chunk, a big list near its cap and z-fighting pairs; at a
+    # ragged size; and on a tile shape other than 8x128.
+    chunk = raster_cuda.FUSED_STAGING_CHUNK
+    for name, w, h, tw, th in ((f"soup_{W}x{H}_8x128", W, H, 128, 8),
+                               ("soup_1000x601_8x128", 1000, 601, 128, 8),
+                               ("soup_1000x601_40x24", 1000, 601, 40, 24)):
+        sbins = fused_soup_bins(w, h, seed=3, device=dev, tile_w=tw,
+                                tile_h=th)
+        cnt = candidate_counts(sbins)
+        lists = sbins.tile_offsets[1:] - sbins.tile_offsets[:-1]
+        r_k, c_k = raster_cuda.render_fused(sbins, uni, shadow_map, w, h,
+                                            samples)
+        r_p, c_p = raster_cuda.render_fused_plain(sbins, uni, shadow_map, w,
+                                                  h, samples)
+        torch.cuda.synchronize()
+        err = float((r_k - r_p).abs().max())
+        eq = torch.equal(c_k, c_p)
+        over = int((cnt > chunk).sum())
+        big_n, cap = int(sbins.big_n[0]), sbins.big_ids.shape[0]
+        say("k2", case=name, triangles=sbins.vis.shape[0],
+            tiles_with_list=int((lists > 0).sum()), max_list=int(lists.max()),
+            big_n=big_n, big_cap=cap, big_dropped=int(sbins.num_big_dropped),
+            max_candidates=int(cnt.max()), staging_chunk=chunk,
+            tiles_over_chunk=over, covered_px=int((c_k > 0).sum()),
+            covf_equal=eq, rgba_max_abs_err=err, tol=1e-5)
+        if not eq or not err <= 1e-5:
+            fail(f"K2 disagrees with its twin on {name}")
+        k2_err = max(k2_err, err)
+        if (tw, th) == (128, 8) and not (int(lists.max()) > 0 and over > 0):
+            fail(f"{name}: no tile list, or none longer than a chunk")
+        if (w, h) == (W, H) and not 7 * cap <= 8 * big_n <= 8 * cap:
+            fail(f"{name}: big list {big_n} not near its cap {cap}")
+        if (w, h, tw) == (W, H, 128):
+            soup_ms = cuda_ms(lambda: raster_cuda.render_fused(
+                sbins, uni, shadow_map, w, h, samples), 100)
+        del sbins, r_k, c_k, r_p, c_p
     k2_ms = cuda_ms(lambda: raster_cuda.render_fused(mb, uni, shadow_map, W, H,
                                                      samples), 100)
     k2_plain_ms = cuda_ms(lambda: raster_cuda.render_fused_plain(
         mb, uni, shadow_map, W, H, samples), 3)
+    k2_ops = raster_ops(mb, W, H, len(samples), int((covf_k > 0).sum()))
     k2_bound = bound(
-        bins_bytes(mb, True) + nbytes(uni, shadow_map, rgba_k, covf_k),
-        raster_ops(mb, W, H, len(samples), int((covf_k > 0).sum())))
+        bins_bytes(mb, True) + nbytes(uni, shadow_map, rgba_k, covf_k), k2_ops)
     say("k2", ms=f"{k2_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
-        bound_ms=f"{k2_bound[0]:.5f}", bound_by=k2_bound[1], card=repr(smi))
+        bound_ms=f"{k2_bound[0]:.5f}", bound_by=k2_bound[1],
+        ops_bound_ms=f"{k2_ops / FP32_OPS_PER_MS:.5f}",
+        soup_1920x1080_ms=f"{soup_ms:.4f}", card=repr(smi))
     stats["render_fused"] = (k2_err, k2_ms, k2_plain_ms, k2_bound, None)
 
     # 4. golden --------------------------------------------------------------
@@ -777,6 +942,32 @@ def main():
     if not (covf_eq and k6_err <= 1e-5 and k2_eq):
         fail("K6 disagrees with its twin or with K2")
     del r_p, c_p
+    # Two of phase 3's soups as one batch: lists longer than a chunk in
+    # both frames.
+    soups = [fused_soup_bins(W, H, seed=s, device=dev) for s in (11, 12)]
+    sb2 = raster_cuda.stack_bins(soups)
+    args2 = (sb2, uni8[:2].contiguous(), smaps8[:2].contiguous(), W, H,
+             samples)
+    r2k, c2k = raster_cuda.render_fused_batch(*args2)
+    r2p, c2p = raster_cuda.render_fused_batch_plain(*args2)
+    soup_k2_eq = True
+    for f, sbins in enumerate(soups):
+        r2, c2 = raster_cuda.render_fused(sbins, uni8[f], smaps8[f], W, H,
+                                          samples)
+        soup_k2_eq &= torch.equal(r2, r2k[f]) and torch.equal(c2, c2k[f])
+    torch.cuda.synchronize()
+    soup_err = float((r2k - r2p).abs().max())
+    soup_eq = torch.equal(c2k, c2p)
+    over = [int((candidate_counts(s) > raster_cuda.FUSED_STAGING_CHUNK).sum())
+            for s in soups]
+    say("k6", case="soup_2x1920x1080_8x128", big_n=sb2.big_n.tolist(),
+        tiles_over_chunk=over, covf_equal=soup_eq, rgba_max_abs_err=soup_err,
+        tol=1e-5, equal_to_k2=soup_k2_eq)
+    if not (soup_eq and soup_err <= 1e-5 and soup_k2_eq) or min(over) == 0:
+        fail("K6 disagrees with its twin or with K2 on the soups (or no "
+             "list outgrew a chunk)")
+    k6_err = max(k6_err, soup_err)
+    del soups, sb2, args2, r2k, c2k, r2p, c2p
     k6_ms = cuda_ms(lambda: raster_cuda.render_fused_batch(
         mb8, uni8, smaps8, W, H, samples), 50)
     k6_plain_ms = cuda_ms(lambda: raster_cuda.render_fused_batch_plain(

@@ -11,9 +11,10 @@
 //    REPEAT-bilinear shadow test and the coverage resolve: the main pass.
 // K3 raster_gbuffer_kernel replaces its per-pixel G-buffer specialization
 //    (_make_kernel(with_attrs=True, attr_px=True), launched by
-//    rasterize_tiles): K2's visibility and fragment selection, writing the
-//    first covered sample's raw attribute planes and the covered count
-//    instead of shading them: the split path's main pass.
+//    rasterize_tiles): K2's visibility and fragment selection (per pixel,
+//    through visibility() and first_covered()), writing the first covered
+//    sample's raw attribute planes and the covered count instead of
+//    shading them: the split path's main pass.
 // K3s raster_gbuffer_samples_kernel replaces its per-sample G-buffer
 //    specialization (_make_kernel(with_attrs=True, attr_px=False), launched
 //    by rasterize_tiles): the same visibility, then for every sample its own
@@ -30,21 +31,46 @@
 //    batch of one (gridDim.z == 1). Frame offsets are size_t: K5's output
 //    at 8 frames of 1080p is 1.06 GB.
 //
-// What bounds them on the H100: K1 and K2 do not move many bytes (K2
-// writes 20 B per pixel, ~41 MB at 1080p, and reads per-triangle tables
-// that stay in L1/L2; the 4 MB shadow map sits in the 50 MB L2); K3 writes
-// 64 B per pixel (16 planes, ~133 MB at 1080p), coalesced plane by plane,
-// which puts its byte bound near its candidate walk. Each thread walks its
-// tile's candidate list serially, so the cost is candidates x samples x
-// (4 plane evaluations + compares) of FP32 issue, plus the latency of the
-// dependent table loads. The design therefore keeps the walk uniform: a
-// 32x8 block lies inside one binning tile (tiles are 8x128 or 64x128), so
-// every thread of a warp loads the same triangle's fields (one broadcast
-// transaction), the per-sample depth/winner stay in registers, and nothing
-// is written until the pixel is final. No shared memory, no atomics.
-// K3s writes 64 B per SAMPLE (531 MB at 1080p x 4) and is bound by those
-// bytes: a thread stores its pixel's S x 16 values plane by plane, each
-// store coalesced across the warp's 32 consecutive pixels.
+// What bounds K1 and K3 on the H100: K1 does not move many bytes; K3
+// writes 64 B per pixel (16 planes, ~133 MB at 1080p), coalesced plane by
+// plane, which puts its byte bound near its candidate walk. Each thread
+// walks its tile's candidate list serially (visibility() below: the big
+// list's gate, then candidates x samples x 4 plane evaluations), so the
+// cost is FP32 and integer issue plus the latency of the dependent table
+// loads. A 32x8 block lies inside one binning tile (tiles are 8x128 or
+// 64x128), so every thread of a warp loads the same triangle's fields (one
+// broadcast transaction), the per-sample depth/winner stay in registers,
+// and nothing is written until the pixel is final. No shared memory, no
+// atomics. K3s writes 64 B per SAMPLE (531 MB at 1080p x 4) and is bound by
+// those bytes: a thread stores its pixel's S x 16 values plane by plane,
+// each store coalesced across the warp's 32 consecutive pixels.
+//
+// K2 and K6 (render_fused_kernel) replace raster_pallas.render_fused
+// (pallas_call raster_pallas.py:1106) and render_fused_batch (:1380). Their
+// least time is set by bytes: 20 B of rgba and covered fraction per pixel,
+// 41 MB or 0.0137 ms a 1080p frame at 3.35 TB/s; their FP32 operations
+// (16 per candidate and sample, 60 per covered pixel) take ~0.008 ms at
+// 67 TFLOP/s. What bounds them is issued instructions: in the per-pixel
+// form every thread repeated its tile's big-list gate (an integer division
+// per entry) and the tile-anchored plane constants, and tested every
+// candidate on every sample. So K2 and K6 run one 256-thread block per
+// binning tile and frame. The block splits the tile's list and the live
+// big list over its threads, gates each entry once, compacts the valid
+// candidates into shared memory with a warp ballot (stage_chunk), and
+// stores for each its three edges and its z plane as (a, b, c') with c'
+// anchored on the tile corner, the edge flags and the tid beside them:
+// 64 B a candidate, 256 candidates (16 KB) a chunk, longer lists in
+// several chunks. Every warp then reads the staged candidates by
+// broadcast and tests them on 4 pixels of one row per lane, with the
+// sample count a template parameter; a candidate that plane_max shows
+// outside the warp's row, or outside one lane column group of 32 pixels,
+// is skipped there exactly (test_staged). The fragment stage (attribute
+// planes, IEEE division and sqrt, powf, the shadow lookup) runs once per
+// pixel and stores rgba (float4) and the covered fraction coalesced
+// across the warp; on the H100 it takes about half of the kernel's time
+// at the flagship frame (PERF.md). No tensor core or TMA fits: there is
+// no matrix product, and the inputs are a gather of a few 68-byte rows by
+// triangle id.
 //
 // Visibility is order-free (see raster_cuda.py): the winner of a sample is
 // the lexicographic minimum of (z, -tid) over its candidates, so the tile
@@ -150,11 +176,6 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-__device__ __forceinline__ int pmod(int a, int m) {
-  const int r = a % m;
-  return r < 0 ? r + m : r;
-}
-
 // NaN-propagating max(x, 0), like jnp.maximum / torch.clamp_min.
 __device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
 
@@ -249,9 +270,11 @@ raster_depth_kernel(Bins B0, Samples S, float clear_depth, int width,
   }
 }
 
-// sampling.sample_bilinear with REPEAT addressing on a single channel.
-__device__ float bilinear_repeat(const float* __restrict__ tex, int h, int w,
-                                 float u, float v) {
+// sampling.sample_bilinear with REPEAT addressing on a single channel, for
+// u, v in [0, 1]: then x = u*w - 0.5 lies in [-0.5, w - 0.5], so the texel
+// indices xi, xi + 1 lie in [-1, w] and the wrap is one compare each.
+__device__ float bilinear_repeat_unit(const float* __restrict__ tex, int h,
+                                      int w, float u, float v) {
   const float x = u * (float)w - 0.5f;
   const float y = v * (float)h - 0.5f;
   const float x0 = floorf(x);
@@ -260,8 +283,10 @@ __device__ float bilinear_repeat(const float* __restrict__ tex, int h, int w,
   const float fy = y - y0;
   const int xi = (int)x0;
   const int yi = (int)y0;
-  const int xa = pmod(xi, w), xb = pmod(xi + 1, w);
-  const int ya = pmod(yi, h), yb = pmod(yi + 1, h);
+  const int xa = xi < 0 ? xi + w : xi;
+  const int xb = xi + 1 >= w ? xi + 1 - w : xi + 1;
+  const int ya = yi < 0 ? yi + h : yi;
+  const int yb = yi + 1 >= h ? yi + 1 - h : yi + 1;
   const float t00 = tex[(size_t)ya * w + xa];
   const float t10 = tex[(size_t)ya * w + xb];
   const float t01 = tex[(size_t)yb * w + xa];
@@ -392,34 +417,217 @@ raster_gbuffer_samples_kernel(Bins B, Samples S, float clear_depth,
   }
 }
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
-                    int width, int height, float4* __restrict__ rgba,
-                    float* __restrict__ covf) {
-  const int px = blockIdx.x * kBlockX + threadIdx.x;
-  const int py = blockIdx.y * kBlockY + threadIdx.y;
-  if (px >= width || py >= height) return;
-  const int fr = blockIdx.z;
-  const Bins B = frame_bins(B0, fr);
-  const Shading SH = frame_shading(SH0, B0.n_tris, fr);
-  PixelState p;
-  visibility(B, S, clear_depth, px, py, p);
+// ---- Tile staging: K2/K6 (render_fused_kernel). The other tile kernels
+// can take the same device functions. ------------------------------------
 
-  const Fragment f = first_covered(p, S, px, py);
-  const int cnt = f.cnt;
+constexpr int kTileThreads = 256;              // one block per binning tile
+constexpr int kTileMinBlocks = 2;              // per SM: <= 128 registers
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kChunk = kTileThreads;           // candidates staged per pass
+constexpr int kPixPerLane = 4;                 // pixels per lane in a segment
+constexpr int kSegW = 32 * kPixPerLane;        // a warp's row segment: 128 px
+
+// A staged candidate: for each edge and for z, (a, b, c') with c' = (c +
+// a*ox) + b*oy anchored on the tile corner (plane_at's first line); w holds
+// the edge's top-left flag, or for z the tid's bits. 64 B.
+struct StagedTri {
+  float4 e[3];
+  float4 z;
+};
+
+struct TileStage {
+  StagedTri tri[kChunk];                       // 16 KB
+  int warp_count[kTileWarps];
+};
+
+// Tile t of B: its corner, its list and the live big-list length.
+struct TileRef {
+  int tx, x0, y0;
+  int beg, n_list, n_big;
+};
+
+__device__ __forceinline__ TileRef tile_ref(const Bins& B, int t) {
+  TileRef T;
+  T.tx = t % B.ntx;
+  T.x0 = T.tx * B.tile_w;
+  T.y0 = (t / B.ntx) * B.tile_h;
+  T.beg = B.tile_off[t];
+  T.n_list = B.tile_off[t + 1] - T.beg;
+  T.n_big = B.big_n[0];
+  return T;
+}
+
+__device__ __forceinline__ int tile_chunks(const TileRef& T) {
+  return (T.n_list + T.n_big + kChunk - 1) / kChunk;
+}
+
+__device__ __forceinline__ float anchored(float a, float b, float c, float ox,
+                                          float oy) {
+  return __fadd_rn(__fadd_rn(c, __fmul_rn(a, ox)), __fmul_rn(b, oy));
+}
+
+// Stage chunk `chunk` of tile T's candidates into `st`: entries chunk *
+// kChunk + k of the tile list followed by the live big list, one per
+// thread, big entries behind the big list's AABB gate (raster_pallas.py:
+// 513-518, the expressions of visibility() above), invalid triangles
+// dropped, the rest compacted with a warp ballot and per-warp counts.
+// Visibility is order-free, so the order of the staged candidates does
+// not matter. Every thread of the block calls it; returns the count.
+__device__ int stage_chunk(const Bins& B, const TileRef& T, int chunk,
+                           TileStage& st) {
+  __syncthreads();                 // the previous chunk's readers are done
+  const int k = chunk * kChunk + threadIdx.x;
+  int tid = -1;
+  if (k < T.n_list) {
+    tid = B.tile_tris[T.beg + k];
+  } else if (k - T.n_list < T.n_big) {
+    const int kb = k - T.n_list;
+    const int* bb = B.big_aabb + 4 * kb;
+    if (bb[1] < T.y0 + B.tile_h && bb[3] > T.y0) {
+      const int sx0 = min(max(floor_div(bb[0], B.tile_w), 0), B.ntx - 1);
+      const int sx1 = min(max(floor_div(bb[2] - 1, B.tile_w), 0), B.ntx - 1);
+      if (T.tx >= sx0 && T.tx <= sx1) tid = B.big_ids[kb];
+    }
+  }
+  const float* __restrict__ f = B.vis + (size_t)max(tid, 0) * kVis;
+  const bool pass = tid >= 0 && f[15] > 0.0f;       // valid flag
+  const unsigned mask = __ballot_sync(0xffffffffu, pass);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) st.warp_count[warp] = __popc(mask);
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kTileWarps; ++w) {
+    const int c = st.warp_count[w];
+    base += w < warp ? c : 0;
+    total += c;
+  }
+  if (pass) {
+    StagedTri& s = st.tri[base + __popc(mask & ((1u << lane) - 1u))];
+    const float ox = (float)T.x0, oy = (float)T.y0;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      s.e[e] = make_float4(f[3 * e], f[3 * e + 1],
+                           anchored(f[3 * e], f[3 * e + 1], f[3 * e + 2], ox, oy),
+                           f[12 + e]);
+    }
+    s.z = make_float4(f[9], f[10], anchored(f[9], f[10], f[11], ox, oy),
+                      __int_as_float(tid));
+  }
+  __syncthreads();
+  return total;
+}
+
+// A lane's kPixPerLane pixels of one tile row (columns c, c + 32, ...):
+// tile-relative sample positions and per-sample depth and winner.
+template <int NS>
+struct SegmentState {
+  float xr[kPixPerLane][NS], yr[NS];
+  float zb[kPixPerLane][NS];
+  int wb[kPixPerLane][NS];
+  // The extremes of xr over the warp's pixels j (columns 32j .. 32j + 31
+  // of the segment) and of yr, every sample included.
+  float xlo[kPixPerLane], xhi[kPixPerLane], ylo, yhi;
+};
+
+// The largest value plane_at's second line, (a*xr + b*yr) + c', takes on
+// the samples of a box of positions [xlo, xhi] x [ylo, yhi]: each rounded
+// multiply and add is monotone in its operands, so it is the value at the
+// corner that the signs of a and b pick (NaN if any coefficient is NaN).
+__device__ __forceinline__ float plane_max(const float4& e, float xlo,
+                                           float xhi, float ylo, float yhi) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(e.x, e.x > 0.0f ? xhi : xlo),
+                             __fmul_rn(e.y, e.y > 0.0f ? yhi : ylo)),
+                   e.z);
+}
+
+// Test the n staged candidates on the lane's pixels: plane_at's second
+// line, (a*xr + b*yr) + c', with b*yr shared by the segment's pixels, and
+// take = ok && (z < zb || (z == zb && tid > wb)). A candidate is skipped
+// for the warp's segment, or for its pixels j, when an edge's plane_max
+// over them is not inside: then no sample of theirs is inside that edge
+// (inside() is monotone), so the skip changes no result. The tests are
+// warp-uniform.
+template <int NS>
+__device__ __forceinline__ void test_staged(const StagedTri* st, int n,
+                                            SegmentState<NS>& p) {
+  for (int i = 0; i < n; ++i) {
+    const float4 e0 = st[i].e[0], e1 = st[i].e[1], e2 = st[i].e[2];
+    const float4 zp = st[i].z;
+    const int tid = __float_as_int(zp.w);
+    float y0[NS], y1[NS], y2[NS], yz[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      y0[s] = __fmul_rn(e0.y, p.yr[s]);
+      y1[s] = __fmul_rn(e1.y, p.yr[s]);
+      y2[s] = __fmul_rn(e2.y, p.yr[s]);
+      yz[s] = __fmul_rn(zp.y, p.yr[s]);
+    }
+    const float sl = p.xlo[0], sh = p.xhi[kPixPerLane - 1];
+    if (kPixPerLane > 1 &&
+        !(inside(plane_max(e0, sl, sh, p.ylo, p.yhi), e0.w) &&
+          inside(plane_max(e1, sl, sh, p.ylo, p.yhi), e1.w) &&
+          inside(plane_max(e2, sl, sh, p.ylo, p.yhi), e2.w)))
+      continue;
+#pragma unroll
+    for (int j = 0; j < kPixPerLane; ++j) {
+      const float xl = p.xlo[j], xh = p.xhi[j];
+      if (!(inside(plane_max(e0, xl, xh, p.ylo, p.yhi), e0.w) &&
+            inside(plane_max(e1, xl, xh, p.ylo, p.yhi), e1.w) &&
+            inside(plane_max(e2, xl, xh, p.ylo, p.yhi), e2.w)))
+        continue;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float x = p.xr[j][s];
+        const float v0 = __fadd_rn(__fadd_rn(__fmul_rn(e0.x, x), y0[s]), e0.z);
+        const float v1 = __fadd_rn(__fadd_rn(__fmul_rn(e1.x, x), y1[s]), e1.z);
+        const float v2 = __fadd_rn(__fadd_rn(__fmul_rn(e2.x, x), y2[s]), e2.z);
+        const float z = __fadd_rn(__fadd_rn(__fmul_rn(zp.x, x), yz[s]), zp.z);
+        const bool ok = inside(v0, e0.w) && inside(v1, e1.w) &&
+                        inside(v2, e2.w) && z >= 0.0f && z <= 1.0f;
+        if (ok && (z < p.zb[j][s] || (z == p.zb[j][s] && tid > p.wb[j][s]))) {
+          p.zb[j][s] = z;
+          p.wb[j][s] = tid;
+        }
+      }
+    }
+  }
+}
+
+// The fused fragment stage of pixel (px, py) from its per-sample winners:
+// the first covered sample's winner's attribute/w planes, Blinn-Phong or
+// emissive, the shadow test, the coverage resolve. Returns rgba; *cf_out
+// the covered fraction.
+template <int NS>
+__device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
+                                              const Samples& S,
+                                              const Shading& SH, int px,
+                                              int py, float* cf_out) {
   const float* __restrict__ U = SH.uni;
-  const size_t o = (size_t)fr * width * height + (size_t)py * width + px;
+  int cnt = 0, tid = -1;
+  float offx = 0.0f, offy = 0.0f;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (wb[s] >= 0) {
+      if (cnt == 0) {
+        tid = wb[s];
+        offx = S.ox[s];
+        offy = S.oy[s];
+      }
+      ++cnt;
+    }
+  }
   if (cnt == 0) {
-    rgba[o] = make_float4(U[kFuClear], U[kFuClear + 1], U[kFuClear + 2],
-                          U[kFuClear + 3]);
-    covf[o] = 0.0f;
-    return;
+    *cf_out = 0.0f;
+    return make_float4(U[kFuClear], U[kFuClear + 1], U[kFuClear + 2],
+                       U[kFuClear + 3]);
   }
 
   // The winner's attribute/w planes at the absolute sample position.
-  const float sx = f.sx;
-  const float sy = f.sy;
-  const float* __restrict__ A = SH.attr + (size_t)f.tid * kAttr;
+  const float sx = __fadd_rn((float)px, offx);
+  const float sy = __fadd_rn((float)py, offy);
+  const float* __restrict__ A = SH.attr + (size_t)tid * kAttr;
   const float invw = attr_at(A, kRowInvW, sx, sy);
   const float inv = 1.0f / (invw > 0.0f ? invw : 1.0f);
   const float wx = attr_at(A, kRowWorld, sx, sy) * inv;
@@ -467,18 +675,87 @@ render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
     const float vv = (1.0f - lyp * ilw) * 0.5f;
     const float sd = lzp * ilw * 0.5f + 0.5f;
     if (uu >= 0.0f && uu <= 1.0f && vv >= 0.0f && vv <= 1.0f) {
-      const float d = bilinear_repeat(SH.smap, SH.tex_h, SH.tex_w, uu, vv);
+      const float d =
+          bilinear_repeat_unit(SH.smap, SH.tex_h, SH.tex_w, uu, vv);
       if ((sd - U[kFuBias]) > d) msk = U[kFuFactor];
     }
   }
   r = r * msk; g = g * msk; b = b * msk; a = a * msk;
 
-  const float cf = (float)cnt * (1.0f / (float)S.n);
+  const float cf = (float)cnt * (1.0f / (float)NS);
   const float keep = 1.0f - cf;
-  rgba[o] = make_float4(r * cf + U[kFuClear] * keep, g * cf + U[kFuClear + 1] * keep,
-                        b * cf + U[kFuClear + 2] * keep,
-                        a * cf + U[kFuClear + 3] * keep);
-  covf[o] = cf;
+  *cf_out = cf;
+  return make_float4(r * cf + U[kFuClear] * keep, g * cf + U[kFuClear + 1] * keep,
+                     b * cf + U[kFuClear + 2] * keep,
+                     a * cf + U[kFuClear + 3] * keep);
+}
+
+// K2/K6: one block per binning tile (blockIdx.x) and frame (blockIdx.z).
+// The tile's pixels are row segments of kSegW columns, one per warp and
+// pass; a tile of any shape takes ceil(tile_h * ceil(tile_w / kSegW) /
+// kTileWarps) passes (one for 8x128). Candidates are staged once when they
+// fit in one chunk, else chunk by chunk in every pass.
+template <int NS>
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
+                    int width, int height, float4* __restrict__ rgba,
+                    float* __restrict__ covf) {
+  __shared__ TileStage st;
+  const int fr = blockIdx.z;
+  const Bins B = frame_bins(B0, fr);
+  const Shading SH = frame_shading(SH0, B0.n_tris, fr);
+  const TileRef T = tile_ref(B, blockIdx.x);
+  const int n_chunks = tile_chunks(T);
+  const int segs_per_row = (B.tile_w + kSegW - 1) / kSegW;
+  const int n_segs = B.tile_h * segs_per_row;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t frame_o = (size_t)fr * width * height;
+  int n_staged = 0;
+  for (int g0 = 0; g0 < n_segs; g0 += kTileWarps) {
+    const int g = g0 + warp;
+    const int row = g / segs_per_row;
+    const int seg0 = (g - row * segs_per_row) * kSegW;
+    const int col = seg0 + lane;
+    SegmentState<NS> p;
+    float oxl = S.ox[0], oxh = S.ox[0], oyl = S.oy[0], oyh = S.oy[0];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      oxl = fminf(oxl, S.ox[s]); oxh = fmaxf(oxh, S.ox[s]);
+      oyl = fminf(oyl, S.oy[s]); oyh = fmaxf(oyh, S.oy[s]);
+      p.yr[s] = __fadd_rn((float)row, S.oy[s]);
+#pragma unroll
+      for (int j = 0; j < kPixPerLane; ++j) {
+        p.xr[j][s] = __fadd_rn((float)(col + 32 * j), S.ox[s]);
+        p.zb[j][s] = clear_depth;
+        p.wb[j][s] = -1;
+      }
+    }
+    p.ylo = __fadd_rn((float)row, oyl);
+    p.yhi = __fadd_rn((float)row, oyh);
+#pragma unroll
+    for (int j = 0; j < kPixPerLane; ++j) {
+      p.xlo[j] = __fadd_rn((float)(seg0 + 32 * j), oxl);
+      p.xhi[j] = __fadd_rn((float)(seg0 + 32 * j + 31), oxh);
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      if (n_chunks > 1 || g0 == 0) n_staged = stage_chunk(B, T, c, st);
+      test_staged<NS>(st.tri, n_staged, p);
+    }
+    const int py = T.y0 + row;
+#pragma unroll
+    for (int j = 0; j < kPixPerLane; ++j) {
+      const int cx = col + 32 * j;
+      const int px = T.x0 + cx;
+      if (g < n_segs && cx < B.tile_w && px < width && py < height) {
+        float cf;
+        const float4 c = shade_fused<NS>(p.wb[j], S, SH, px, py, &cf);
+        const size_t o = frame_o + (size_t)py * width + px;
+        rgba[o] = c;
+        covf[o] = cf;
+      }
+    }
+  }
 }
 
 Samples make_samples(int n, float ox0, float oy0, float ox1, float oy1,
@@ -505,6 +782,18 @@ Bins make_bins(const float* vis, const int* tile_off, const int* tile_tris,
   return Bins{vis,    tile_off, tile_tris, big_ids,  big_aabb,    big_n,
               tile_w, tile_h,   ntx,       ntx * nty, n_tris, n_tile_tris,
               big_cap};
+}
+
+// One block per binning tile and frame.
+template <int NS>
+int launch_fused(const Bins& B, const Samples& S, float clear_depth,
+                 const Shading& SH, int width, int height, int frames,
+                 float* rgba, float* covf, void* stream) {
+  render_fused_kernel<NS><<<dim3(B.n_tiles, 1, frames), kTileThreads, 0,
+                            (cudaStream_t)stream>>>(
+      B, S, clear_depth, SH, width, height, reinterpret_cast<float4*>(rgba),
+      covf);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -567,9 +856,15 @@ extern "C" int mr_render_fused(MR_BINS_PARAMS, const float* attr,
                                float* rgba, float* covf, void* stream) {
   MR_BINS_SETUP;
   const Shading SH{attr, uniforms, shadow_map, tex_h, tex_w};
-  render_fused_kernel<<<grid_for(width, height, frames),
-                        dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-      B, S, clear_depth, SH, width, height, reinterpret_cast<float4*>(rgba),
-      covf);
-  return (int)cudaGetLastError();
+  switch (n_samples) {
+    case 1: return launch_fused<1>(B, S, clear_depth, SH, width, height,
+                                   frames, rgba, covf, stream);
+    case 2: return launch_fused<2>(B, S, clear_depth, SH, width, height,
+                                   frames, rgba, covf, stream);
+    case 3: return launch_fused<3>(B, S, clear_depth, SH, width, height,
+                                   frames, rgba, covf, stream);
+    case 4: return launch_fused<4>(B, S, clear_depth, SH, width, height,
+                                   frames, rgba, covf, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

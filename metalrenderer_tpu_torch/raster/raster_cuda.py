@@ -69,13 +69,19 @@ What the kernels compute (and the twins, in the same operation order):
   triangle takes the sample (``where(take8, val, old)``), which leaves the
   final winner's values, the same thing.
 
-On the H100 K1 and K2 are not bound by memory traffic: a thread walks its
-tile's candidate list serially (FP32 issue plus dependent table loads), so
-the design keeps that walk warp-uniform — a 32x8 block lies inside one
-binning tile, every lane loads the same triangle's fields — and keeps the
+On the H100 K1 is not bound by memory traffic: a thread walks its tile's
+candidate list serially (FP32 issue plus dependent table loads), so the
+design keeps that walk warp-uniform — a 32x8 block lies inside one binning
+tile, every lane loads the same triangle's fields — and keeps the
 per-sample depth and winner in registers (``csrc/raster.cu`` header). K3
 adds 64 bytes of output per pixel, written plane by plane, coalesced; K3s
-64 bytes per sample (531 MB at 1920x1080x4), which bound it.
+64 bytes per sample (531 MB at 1920x1080x4), which bound it. K2 and K6 run
+one block per binning tile and frame: the block gates the tile's
+candidates once, stages them in shared memory ``FUSED_STAGING_CHUNK`` at a
+time with their planes anchored on the tile, and every warp tests them on
+its pixels by broadcast, skipping a candidate where a bound on its rounded
+edge values shows that no sample of the warp's pixels can be inside (a
+skip that changes no result); they take any tile shape.
 
 The twins work on pieces of tile rows at a time, so they run at 1080p MSAA4
 on the card as well as on the CPU.
@@ -107,6 +113,9 @@ FU_FACTOR = 32  # shadow factor
 FU_LEN = 33
 
 MAX_SAMPLES = 4
+# Candidates K2/K6 stage in shared memory per pass (csrc/raster.cu kChunk);
+# a tile with more is walked chunk by chunk.
+FUSED_STAGING_CHUNK = 256
 # Samples evaluated per step of a twin (bounds its temporaries).
 _PLAIN_PIECE_SAMPLES = 1 << 21
 

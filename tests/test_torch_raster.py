@@ -24,7 +24,10 @@ Tolerances, with their reasons:
     16x128 tiles, MSAA4 and MSAA1): winners equal, depth as K1's, the 15
     attribute rows as K3's (bit-equal to the no-FMA numpy evaluation,
     1e-6 relative to their magnitude of the interpret-mode kernel), row 15
-    bit-equal to the twin's own depth.
+    bit-equal to the twin's own depth;
+  * K2's twin with every tile's candidates permuted: bit-equal to itself
+    unpermuted (the order-free visibility that lets the kernel stage and
+    chunk candidates in any order).
 """
 import functools
 
@@ -46,9 +49,15 @@ from metalrenderer_tpu.scene.camera import OrbitCamera as JCamera
 from metalrenderer_tpu.scene.scene import bake, project
 
 from benchmarks import configs as j_configs
+from chip_smoke import candidate_counts, fused_soup_bins
 
 from metalrenderer_tpu_torch import convert
+from metalrenderer_tpu_torch.config import RenderConfig
+from metalrenderer_tpu_torch.engine import audio_app
+from metalrenderer_tpu_torch.passes import pipeline
 from metalrenderer_tpu_torch.raster import binning, raster_cuda, sampling
+from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
 
 torch.set_num_threads(2)
 CENTER = ((0.5, 0.5),)
@@ -334,6 +343,70 @@ def test_raster_gbuffer_samples_plain_matches_pallas(case, tile_h, samples):
             _bins(setup, width, height, 128, tile_h), width, height, samples)
 
 
+@functools.cache
+def _flagship_prep(width=96, height=72):
+    """The port's own flagship prep at ``width`` x ``height`` MSAA4 on the
+    CPU, and its 128^2 shadow map (K1's twin)."""
+    cfg = RenderConfig(width=width, height=height, msaa=4,
+                       shadow_map_size=128)
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=width / height)
+    prep = pipeline.prepare_frame(
+        audio_app.build_scene(device="cpu"), cam,
+        Lighting(light=PointLight(), ambient_intensity=0.1, shininess=32.0),
+        cfg, displacement=0.02,
+        shadow_target=(0.0, 0.0, -1.0), device="cpu")
+    smap = raster_cuda.raster_depth_plain(prep.shadow_bins, 128, 128,
+                                          CENTER)[0][0]
+    return prep, smap
+
+
+def _small_soup(tile_w=128, tile_h=8, width=256, height=64):
+    """A few hundred triangles crowded into one tile (its list outgrows a
+    staging chunk), a few scattered and big ones, exact duplicates and
+    coplanar partners (z-fights); seeded."""
+    return fused_soup_bins(width, height, 5, "cpu", crowd=300, small=60,
+                           big=30, tile_w=tile_w, tile_h=tile_h)
+
+
+@pytest.mark.parametrize("perm_seed", [0, 1])
+@pytest.mark.parametrize("case", ["soup_256x64", "flagship_96x72"])
+def test_render_fused_plain_is_order_free(case, perm_seed, monkeypatch):
+    """K2 stages a tile's candidates in shared memory in ballot order and,
+    past one chunk, chunk by chunk: the twin gives the same bits whatever
+    order each tile's candidates come in."""
+    prep, smap = _flagship_prep()
+    if case == "soup_256x64":
+        bins, width, height = _small_soup(), 256, 64
+        assert int(candidate_counts(bins).max()) > \
+            raster_cuda.FUSED_STAGING_CHUNK
+        # Exact duplicates tie on depth wherever they cover a sample.
+        rows = bins.vis[:, :15]
+        assert torch.unique(rows, dim=0).shape[0] < rows.shape[0]
+    else:
+        bins, width, height = prep.main_bins, 96, 72
+        assert int(candidate_counts(bins).max()) > 1
+    args = (bins, prep.uniforms, smap, width, height, MSAA4)
+    rgba, covf = raster_cuda.render_fused_plain(*args)
+    assert 0.3 < float((covf > 0).float().mean()) <= 1.0
+    rng = np.random.default_rng(perm_seed)
+    original = raster_cuda._candidates
+    moved = []
+
+    def shuffled(b, tiles):
+        cand = original(b, tiles)
+        perm = torch.from_numpy(np.argsort(rng.random(tuple(cand.shape)),
+                                           axis=1))
+        out = torch.gather(cand, 1, perm)
+        moved.append(not torch.equal(out, cand))
+        return out
+
+    monkeypatch.setattr(raster_cuda, "_candidates", shuffled)
+    rgba_s, covf_s = raster_cuda.render_fused_plain(*args)
+    assert any(moved)
+    assert torch.equal(covf_s, covf)
+    assert torch.equal(rgba_s.view(torch.int32), rgba.view(torch.int32))
+
+
 @pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
 def test_sample_bilinear_matches(mode):
     """The twin's shadow lookup: same texels and weights as the JAX
@@ -381,6 +454,19 @@ def test_kernels_match_twins_on_card(cuda_device):
                                                   MSAA4)
         rgba_p, covf_p = raster_cuda.render_fused_plain(bins, u, shadow_map,
                                                         96, 72, MSAA4)
+        torch.cuda.synchronize()
+        assert torch.equal(covf_k, covf_p)
+        assert float((rgba_k - rgba_p).abs().max()) <= 1e-5
+    # K2 on a list longer than one staging chunk, on 8x128 tiles and on a
+    # ragged size with another tile shape.
+    for tile_w, tile_h, width, height in ((128, 8, 256, 64), (40, 24, 200, 45)):
+        bins = _to(_small_soup(tile_w, tile_h, width, height), cuda_device)
+        assert int(candidate_counts(bins).max()) > \
+            raster_cuda.FUSED_STAGING_CHUNK
+        rgba_k, covf_k = raster_cuda.render_fused(bins, u, sm, width, height,
+                                                  MSAA4)
+        rgba_p, covf_p = raster_cuda.render_fused_plain(bins, u, sm, width,
+                                                        height, MSAA4)
         torch.cuda.synchronize()
         assert torch.equal(covf_k, covf_p)
         assert float((rgba_k - rgba_p).abs().max()) <= 1e-5
