@@ -26,7 +26,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
      the CPU run of the same frame within 1e-6;
   6. K3 raster_gbuffer against its twin on BASELINE config 4's main pass
      (1920x1080 MSAA4, the port's own prep) — per-sample winners equal,
-     depth and gout bit-equal;
+     depth and gout bit-equal — and on phase 3's soups (1920x1080 and
+     1000x601 on 8x128 tiles, 1000x601 on 40x24 tiles with the per-sample
+     depth and winner planes) — gout (and depth, winner) bit-equal;
   7. K7 sample_bilinear against its twin on that frame's shadow lookup
      (its 1024^2 shadow map) — max abs error 0; beside it, the time of one
      torch.nn.functional.grid_sample call on the map padded by one wrapped
@@ -55,8 +57,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      such soups — covered fractions equal, rgba within 1e-5, and bit-equal
      to per-frame K2 launches;
  14. K5 raster_gbuffer_batch against its twin on 8 config-4 frames (the
-     camera orbiting by 0.01 rad a frame) — gout bit-equal, and bit-equal
-     to eight K3 launches;
+     camera orbiting by 0.01 rad a frame) and on a 2-frame batch of phase
+     13's soups — gout bit-equal, and bit-equal to per-frame K3 launches;
  15. K8 sample_bilinear_batch against its twin on those frames' shadow
      lookups (their own 1024^2 maps) — max abs error 0, and bit-equal to
      eight K7 launches; beside it, the time of one grid_sample call on the
@@ -102,6 +104,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
      on the card against the CPU run.
 Then one JSON line with each kernel's numbers, the nvidia-smi line, and the
 result line {"ok": true, "device": {...}}.
+
+Every kernel, and each grid_sample yardstick, is timed two ways over many
+launches: back to back with CUDA events (``ms``; below ~0.06 ms a launch
+the Python wrapper's host cost paces it) and with the host ahead
+(``device_ms``: the launches queued behind a spinning kernel, so they run
+back to back on the device whatever the host costs).
 
 Tolerances: K1 and K3 run their twins' exact operation sequence (anchored
 planes, every multiply and add rounded on its own: nvcc -fmad=false, eager
@@ -244,6 +252,38 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device time of fn() over reps launches with the host ahead: the
+    launches are queued behind a spinning kernel, so they run back to back
+    whatever the wrapper's host cost (cuda_ms's back-to-back launches are
+    paced by the host once a launch takes less than its wrapper)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3e6 * (host_ms + 5.0)))   # >= 1.5x at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        fail("device_ms: the spin ended before the launches were queued")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timings(fn, reps):
+    """(cuda_ms, device_ms) of fn() over reps launches: back to back, and
+    with the host ahead."""
+    return cuda_ms(fn, reps), device_ms(fn, reps)
 
 
 def timed_frames(fn, args):
@@ -562,16 +602,17 @@ def main():
         if int((w_k >= 0).sum()) == 0:
             fail(f"K1 covered nothing on {name}")
     sb = prep.shadow_bins
-    k1_ms = cuda_ms(lambda: raster_cuda.raster_depth(sb, SHADOW, SHADOW,
-                                                     center), 200)
+    k1_ms, k1_dev = timings(lambda: raster_cuda.raster_depth(
+        sb, SHADOW, SHADOW, center), 200)
     k1_plain_ms = cuda_ms(lambda: raster_cuda.raster_depth_plain(
         sb, SHADOW, SHADOW, center), 5)
     k1_bound = bound(bins_bytes(sb, False) + nbytes(d_k, w_k),
                      raster_ops(sb, SHADOW, SHADOW, 1))
     say("k1", shape=f"{SHADOW}x{SHADOW}x1", ms=f"{k1_ms:.4f}",
-        plain_ms=f"{k1_plain_ms:.4f}", bound_ms=f"{k1_bound[0]:.5f}",
-        bound_by=k1_bound[1], card=repr(smi))
-    stats["raster_depth"] = (k1_err, k1_ms, k1_plain_ms, k1_bound, None)
+        device_ms=f"{k1_dev:.5f}", plain_ms=f"{k1_plain_ms:.4f}",
+        bound_ms=f"{k1_bound[0]:.5f}", bound_by=k1_bound[1], card=repr(smi))
+    stats["raster_depth"] = (k1_err, k1_ms, k1_dev, k1_plain_ms, k1_bound,
+                             None, None)
 
     # 3. K2 against its twin ------------------------------------------------
     shadow_map = raster_cuda.raster_depth(sb, SHADOW, SHADOW, center)[0][0]
@@ -623,21 +664,23 @@ def main():
         if (w, h) == (W, H) and not 7 * cap <= 8 * big_n <= 8 * cap:
             fail(f"{name}: big list {big_n} not near its cap {cap}")
         if (w, h, tw) == (W, H, 128):
-            soup_ms = cuda_ms(lambda: raster_cuda.render_fused(
+            soup_ms, soup_dev = timings(lambda: raster_cuda.render_fused(
                 sbins, uni, shadow_map, w, h, samples), 100)
         del sbins, r_k, c_k, r_p, c_p
-    k2_ms = cuda_ms(lambda: raster_cuda.render_fused(mb, uni, shadow_map, W, H,
-                                                     samples), 100)
+    k2_ms, k2_dev = timings(lambda: raster_cuda.render_fused(
+        mb, uni, shadow_map, W, H, samples), 100)
     k2_plain_ms = cuda_ms(lambda: raster_cuda.render_fused_plain(
         mb, uni, shadow_map, W, H, samples), 3)
     k2_ops = raster_ops(mb, W, H, len(samples), int((covf_k > 0).sum()))
     k2_bound = bound(
         bins_bytes(mb, True) + nbytes(uni, shadow_map, rgba_k, covf_k), k2_ops)
-    say("k2", ms=f"{k2_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
-        bound_ms=f"{k2_bound[0]:.5f}", bound_by=k2_bound[1],
-        ops_bound_ms=f"{k2_ops / FP32_OPS_PER_MS:.5f}",
-        soup_1920x1080_ms=f"{soup_ms:.4f}", card=repr(smi))
-    stats["render_fused"] = (k2_err, k2_ms, k2_plain_ms, k2_bound, None)
+    say("k2", ms=f"{k2_ms:.4f}", device_ms=f"{k2_dev:.5f}",
+        plain_ms=f"{k2_plain_ms:.4f}", bound_ms=f"{k2_bound[0]:.5f}",
+        bound_by=k2_bound[1], ops_bound_ms=f"{k2_ops / FP32_OPS_PER_MS:.5f}",
+        soup_1920x1080_ms=f"{soup_ms:.4f}",
+        soup_1920x1080_device_ms=f"{soup_dev:.5f}", card=repr(smi))
+    stats["render_fused"] = (k2_err, k2_ms, k2_dev, k2_plain_ms, k2_bound,
+                             None, None)
 
     # 4. golden --------------------------------------------------------------
     gcfg = RenderConfig(width=800, height=600, msaa=4, shadow_map_size=1024)
@@ -724,15 +767,59 @@ def main():
         fail("K3 disagrees with its twin")
     if covered4 == 0:
         fail("K3 covered nothing")
-    k3_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer(mb4, W, H, samples),
-                    100)
+    # Phase 3's seeded soups: config 4's tile lists are short, so here K3
+    # walks lists longer than a staging chunk, a big list near its cap and
+    # z-fighting pairs, at a ragged size and on 40x24 tiles; the per-sample
+    # planes on the last.
+    chunk = raster_cuda.FUSED_STAGING_CHUNK
+    for name, w, h, tw, th in ((f"soup_{W}x{H}_8x128", W, H, 128, 8),
+                               ("soup_1000x601_8x128", 1000, 601, 128, 8),
+                               ("soup_1000x601_40x24", 1000, 601, 40, 24)):
+        sbins = fused_soup_bins(w, h, seed=3, device=dev, tile_w=tw,
+                                tile_h=th)
+        with_s = th == 24
+        o_k = raster_cuda.raster_gbuffer(sbins, w, h, samples,
+                                         with_samples=with_s)
+        o_p = raster_cuda.raster_gbuffer_plain(sbins, w, h, samples,
+                                               with_samples=with_s)
+        torch.cuda.synchronize()
+        eq = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(o_k, o_p) if a is not None)
+        err = float((o_k[0] - o_p[0]).abs().max())
+        cnt = candidate_counts(sbins)
+        covered = int((o_k[0][binning.ROW_DEPTH] > 0).sum())
+        say("k3", case=name, triangles=sbins.vis.shape[0],
+            big_n=int(sbins.big_n[0]), max_candidates=int(cnt.max()),
+            staging_chunk=chunk, tiles_over_chunk=int((cnt > chunk).sum()),
+            covered_px=covered, with_samples=with_s, bit_equal=eq,
+            max_abs_err=err)
+        if not eq:
+            fail(f"K3 disagrees with its twin on {name}")
+        if covered == 0 or (th == 8 and int((cnt > chunk).sum()) == 0):
+            fail(f"{name}: K3 covered nothing, or no list outgrew a chunk")
+        k3_err = max(k3_err, err)
+        if (w, h) == (W, H):
+            k3_soup_ms, k3_soup_dev = timings(lambda: raster_cuda.raster_gbuffer(
+                sbins, w, h, samples), 100)
+            k3_soup_bound = bound(
+                bins_bytes(sbins, True) + nbytes(o_k[0]),
+                raster_ops(sbins, w, h, len(samples), covered))
+        del sbins, o_k, o_p
+    k3_ms, k3_dev = timings(lambda: raster_cuda.raster_gbuffer(
+        mb4, W, H, samples), 100)
     k3_plain_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_plain(
         mb4, W, H, samples), 3)
-    k3_bound = bound(bins_bytes(mb4, True) + nbytes(gout_k),
-                     raster_ops(mb4, W, H, len(samples), covered4))
-    say("k3", ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain_ms:.4f}",
-        bound_ms=f"{k3_bound[0]:.5f}", bound_by=k3_bound[1], card=repr(smi))
-    stats["raster_gbuffer"] = (k3_err, k3_ms, k3_plain_ms, k3_bound, None)
+    k3_ops = raster_ops(mb4, W, H, len(samples), covered4)
+    k3_bound = bound(bins_bytes(mb4, True) + nbytes(gout_k), k3_ops)
+    say("k3", ms=f"{k3_ms:.4f}", device_ms=f"{k3_dev:.5f}",
+        plain_ms=f"{k3_plain_ms:.4f}", bound_ms=f"{k3_bound[0]:.5f}",
+        bound_by=k3_bound[1], ops_bound_ms=f"{k3_ops / FP32_OPS_PER_MS:.5f}",
+        soup_1920x1080_ms=f"{k3_soup_ms:.4f}",
+        soup_1920x1080_device_ms=f"{k3_soup_dev:.5f}",
+        soup_1920x1080_bound_ms=f"{k3_soup_bound[0]:.5f}",
+        soup_1920x1080_bound_by=k3_soup_bound[1], card=repr(smi))
+    stats["raster_gbuffer"] = (k3_err, k3_ms, k3_dev, k3_plain_ms, k3_bound,
+                               None, None)
 
     # 7. K7 against its twin: the config-4 frame's shadow lookup -------------
     ch4 = raster_cuda.channels_from_gout_px(gout_k, len(samples))
@@ -751,21 +838,22 @@ def main():
         grid=f"{W}x{H}", sampled_px=sampled7, max_abs_err=k7_err, tol=0)
     if not k7_err == 0.0 or sampled7 == 0:
         fail("K7 disagrees with its twin (or sampled nothing)")
-    k7_ms = cuda_ms(lambda: sample_cuda.sample_bilinear(
+    k7_ms, k7_dev = timings(lambda: sample_cuda.sample_bilinear(
         smap4, su, sv, sampling.REPEAT, 1.0, smask), 200)
     k7_plain_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_plain(
         smap4, su, sv, sampling.REPEAT, 1.0, smask), 20)
     grid_sample = wrapped_grid_sample(smap4[None], su[None], sv[None])
     lib_err = float((grid_sample()[0, 0] - d_k).abs()[smask].max())
-    k7_lib_ms = cuda_ms(grid_sample, 200)
+    k7_lib_ms, k7_lib_dev = timings(grid_sample, 200)
     # u and v are read only where the mask is set: 8 bytes per sampled px.
     k7_bound = bound(nbytes(smap4, smask, d_k) + 8 * sampled7,
                      18 * sampled7)
-    say("k7", ms=f"{k7_ms:.4f}", plain_ms=f"{k7_plain_ms:.4f}",
-        library_ms=f"{k7_lib_ms:.4f}", library_max_abs_err=lib_err,
+    say("k7", ms=f"{k7_ms:.4f}", device_ms=f"{k7_dev:.5f}",
+        plain_ms=f"{k7_plain_ms:.4f}", library_ms=f"{k7_lib_ms:.4f}",
+        library_device_ms=f"{k7_lib_dev:.5f}", library_max_abs_err=lib_err,
         bound_ms=f"{k7_bound[0]:.5f}", bound_by=k7_bound[1], card=repr(smi))
-    stats["sample_bilinear"] = (k7_err, k7_ms, k7_plain_ms, k7_bound,
-                                k7_lib_ms)
+    stats["sample_bilinear"] = (k7_err, k7_ms, k7_dev, k7_plain_ms, k7_bound,
+                                k7_lib_ms, k7_lib_dev)
 
     # 8. K9 against its twin: config 4's normal map, the grass cube's color --
     gscene = audio_app.build_scene(textures=(audio_app.grass_texture(),),
@@ -797,17 +885,20 @@ def main():
         cases9.append((name, args, err, sampled, k))
     _, args9, _, sampled9, out9 = cases9[0]     # the config-4 path's launch
     k9_err = max(c[2] for c in cases9)
-    k9_ms = cuda_ms(lambda: mip_cuda.sample_pyramid(*args9), 200)
+    k9_ms, k9_dev = timings(lambda: mip_cuda.sample_pyramid(*args9), 200)
     k9_plain_ms = cuda_ms(lambda: mip_cuda.sample_pyramid_plain(*args9), 20)
     pyr9, mask9 = args9[0], args9[4]
     k9_bound = bound(nbytes(pyr9.texels, mask9, *out9) + 12 * sampled9,
                      94 * sampled9)
-    k9_grass_ms = cuda_ms(lambda: mip_cuda.sample_pyramid(*cases9[1][1]), 200)
+    k9_grass_ms, k9_grass_dev = timings(
+        lambda: mip_cuda.sample_pyramid(*cases9[1][1]), 200)
     say("k9", case="config4_normal_map", ms=f"{k9_ms:.4f}",
-        plain_ms=f"{k9_plain_ms:.4f}", bound_ms=f"{k9_bound[0]:.5f}",
-        bound_by=k9_bound[1], grass_cube_color_ms=f"{k9_grass_ms:.4f}",
-        card=repr(smi))
-    stats["sample_pyramid"] = (k9_err, k9_ms, k9_plain_ms, k9_bound, None)
+        device_ms=f"{k9_dev:.5f}", plain_ms=f"{k9_plain_ms:.4f}",
+        bound_ms=f"{k9_bound[0]:.5f}", bound_by=k9_bound[1],
+        grass_cube_color_ms=f"{k9_grass_ms:.4f}",
+        grass_cube_color_device_ms=f"{k9_grass_dev:.5f}", card=repr(smi))
+    stats["sample_pyramid"] = (k9_err, k9_ms, k9_dev, k9_plain_ms, k9_bound,
+                               None, None)
 
     # 9. grass-cube golden ---------------------------------------------------
     fb, _ = audio_app.render_audio_app(
@@ -905,7 +996,7 @@ def main():
         winners_equal=win_eq, depth_bit_equal=bits_eq, equal_to_k1=k1_eq)
     if not (win_eq and bits_eq and k1_eq):
         fail("K4 disagrees with its twin or with K1")
-    k4_ms = cuda_ms(lambda: raster_cuda.raster_depth_batch(
+    k4_ms, k4_dev = timings(lambda: raster_cuda.raster_depth_batch(
         sb8, SHADOW, SHADOW, center), 100)
     k4_plain_ms = cuda_ms(lambda: raster_cuda.raster_depth_batch_plain(
         sb8, SHADOW, SHADOW, center), 2)
@@ -913,10 +1004,11 @@ def main():
                      sum(raster_ops(raster_cuda.frame_bins(sb8, f), SHADOW,
                                     SHADOW, 1)
                          for f in range(BATCH)))
-    say("k4", ms=f"{k4_ms:.4f}", plain_ms=f"{k4_plain_ms:.4f}",
-        per_frame_ms=f"{k4_ms / BATCH:.4f}", bound_ms=f"{k4_bound[0]:.5f}",
-        bound_by=k4_bound[1], card=repr(smi))
-    stats["raster_depth_batch"] = (k4_err, k4_ms, k4_plain_ms, k4_bound, None)
+    say("k4", ms=f"{k4_ms:.4f}", device_ms=f"{k4_dev:.5f}",
+        plain_ms=f"{k4_plain_ms:.4f}", per_frame_ms=f"{k4_ms / BATCH:.4f}",
+        bound_ms=f"{k4_bound[0]:.5f}", bound_by=k4_bound[1], card=repr(smi))
+    stats["raster_depth_batch"] = (k4_err, k4_ms, k4_dev, k4_plain_ms,
+                                   k4_bound, None, None)
 
     # 13. K6 against its twin: that batch's main passes -----------------------
     mb8 = raster_cuda.stack_bins([p.main_bins for p in preps8])
@@ -968,19 +1060,20 @@ def main():
              "list outgrew a chunk)")
     k6_err = max(k6_err, soup_err)
     del soups, sb2, args2, r2k, c2k, r2p, c2p
-    k6_ms = cuda_ms(lambda: raster_cuda.render_fused_batch(
+    k6_ms, k6_dev = timings(lambda: raster_cuda.render_fused_batch(
         mb8, uni8, smaps8, W, H, samples), 50)
     k6_plain_ms = cuda_ms(lambda: raster_cuda.render_fused_batch_plain(
         mb8, uni8, smaps8, W, H, samples), 1)
+    k6_ops = sum(raster_ops(raster_cuda.frame_bins(mb8, f), W, H,
+                            len(samples), covered6[f]) for f in range(BATCH))
     k6_bound = bound(
-        bins_bytes(mb8, True) + nbytes(uni8, smaps8, r_k, c_k),
-        sum(raster_ops(raster_cuda.frame_bins(mb8, f), W, H, len(samples),
-                       covered6[f])
-            for f in range(BATCH)))
-    say("k6", ms=f"{k6_ms:.4f}", plain_ms=f"{k6_plain_ms:.4f}",
-        per_frame_ms=f"{k6_ms / BATCH:.4f}", bound_ms=f"{k6_bound[0]:.5f}",
-        bound_by=k6_bound[1], card=repr(smi))
-    stats["render_fused_batch"] = (k6_err, k6_ms, k6_plain_ms, k6_bound, None)
+        bins_bytes(mb8, True) + nbytes(uni8, smaps8, r_k, c_k), k6_ops)
+    say("k6", ms=f"{k6_ms:.4f}", device_ms=f"{k6_dev:.5f}",
+        plain_ms=f"{k6_plain_ms:.4f}", per_frame_ms=f"{k6_ms / BATCH:.4f}",
+        bound_ms=f"{k6_bound[0]:.5f}", bound_by=k6_bound[1],
+        ops_bound_ms=f"{k6_ops / FP32_OPS_PER_MS:.5f}", card=repr(smi))
+    stats["render_fused_batch"] = (k6_err, k6_ms, k6_dev, k6_plain_ms,
+                                   k6_bound, None, None)
     del r_k, c_k
 
     # 14. K5 against its twin: 8 config-4 frames ------------------------------
@@ -1007,19 +1100,46 @@ def main():
         fail("K5 disagrees with its twin or with K3")
     if min(covered5) == 0:
         fail("K5 covered nothing in a frame")
-    k5_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_batch(
+    # Phase 13's two soups as one batch: lists longer than a chunk in both
+    # frames.
+    soups = [fused_soup_bins(W, H, seed=s, device=dev) for s in (11, 12)]
+    sb2 = raster_cuda.stack_bins(soups)
+    g2k = raster_cuda.raster_gbuffer_batch(sb2, W, H, samples)
+    g2p = raster_cuda.raster_gbuffer_batch_plain(sb2, W, H, samples)
+    soup_k3_eq = True
+    for f, sbins in enumerate(soups):
+        g3 = raster_cuda.raster_gbuffer(sbins, W, H, samples)[0]
+        soup_k3_eq &= torch.equal(g3.view(torch.int32),
+                                  g2k[f].view(torch.int32))
+    torch.cuda.synchronize()
+    soup_eq = torch.equal(g2k.view(torch.int32), g2p.view(torch.int32))
+    soup_err = float((g2k - g2p).abs().max())
+    over = [int((candidate_counts(s) > raster_cuda.FUSED_STAGING_CHUNK).sum())
+            for s in soups]
+    say("k5", case="soup_2x1920x1080_8x128", big_n=sb2.big_n.tolist(),
+        tiles_over_chunk=over,
+        covered_px=[int((g2k[f, binning.ROW_DEPTH] > 0).sum())
+                    for f in range(2)],
+        gout_bit_equal=soup_eq, equal_to_k3=soup_k3_eq,
+        max_abs_err=soup_err)
+    if not (soup_eq and soup_k3_eq) or min(over) == 0:
+        fail("K5 disagrees with its twin or with K3 on the soups (or no "
+             "list outgrew a chunk)")
+    k5_err = max(k5_err, soup_err)
+    del soups, sb2, g2k, g2p, g3
+    k5_ms, k5_dev = timings(lambda: raster_cuda.raster_gbuffer_batch(
         mb48, W, H, samples), 50)
     k5_plain_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_batch_plain(
         mb48, W, H, samples), 1)
-    k5_bound = bound(bins_bytes(mb48, True) + nbytes(g_k),
-                     sum(raster_ops(raster_cuda.frame_bins(mb48, f), W, H,
-                                    len(samples), covered5[f])
-                         for f in range(BATCH)))
-    say("k5", ms=f"{k5_ms:.4f}", plain_ms=f"{k5_plain_ms:.4f}",
-        per_frame_ms=f"{k5_ms / BATCH:.4f}", bound_ms=f"{k5_bound[0]:.5f}",
-        bound_by=k5_bound[1], card=repr(smi))
-    stats["raster_gbuffer_batch"] = (k5_err, k5_ms, k5_plain_ms, k5_bound,
-                                     None)
+    k5_ops = sum(raster_ops(raster_cuda.frame_bins(mb48, f), W, H,
+                            len(samples), covered5[f]) for f in range(BATCH))
+    k5_bound = bound(bins_bytes(mb48, True) + nbytes(g_k), k5_ops)
+    say("k5", ms=f"{k5_ms:.4f}", device_ms=f"{k5_dev:.5f}",
+        plain_ms=f"{k5_plain_ms:.4f}", per_frame_ms=f"{k5_ms / BATCH:.4f}",
+        bound_ms=f"{k5_bound[0]:.5f}", bound_by=k5_bound[1],
+        ops_bound_ms=f"{k5_ops / FP32_OPS_PER_MS:.5f}", card=repr(smi))
+    stats["raster_gbuffer_batch"] = (k5_err, k5_ms, k5_dev, k5_plain_ms,
+                                     k5_bound, None, None)
 
     # 15. K8 against its twin: those frames' shadow lookups ------------------
     sb48 = raster_cuda.stack_bins([p.shadow_bins for p in preps48])
@@ -1049,21 +1169,23 @@ def main():
         tol=0, equal_to_k7=k7_eq)
     if not (k8_err == 0.0 and k7_eq) or sampled8 == 0:
         fail("K8 disagrees with its twin or with K7 (or sampled nothing)")
-    k8_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_batch(*s_args), 100)
+    k8_ms, k8_dev = timings(lambda: sample_cuda.sample_bilinear_batch(
+        *s_args), 100)
     k8_plain_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_batch_plain(
         *s_args), 5)
     grid_sample = wrapped_grid_sample(smaps48, su, sv)
     lib_err = float((grid_sample()[:, 0] - s_k).abs()[smask].max())
-    k8_lib_ms = cuda_ms(grid_sample, 100)
+    k8_lib_ms, k8_lib_dev = timings(grid_sample, 100)
     del grid_sample
     k8_bound = bound(nbytes(smaps48, smask, s_k) + 8 * sampled8,
                      18 * sampled8)
-    say("k8", ms=f"{k8_ms:.4f}", plain_ms=f"{k8_plain_ms:.4f}",
-        per_frame_ms=f"{k8_ms / BATCH:.4f}", library_ms=f"{k8_lib_ms:.4f}",
+    say("k8", ms=f"{k8_ms:.4f}", device_ms=f"{k8_dev:.5f}",
+        plain_ms=f"{k8_plain_ms:.4f}", per_frame_ms=f"{k8_ms / BATCH:.4f}",
+        library_ms=f"{k8_lib_ms:.4f}", library_device_ms=f"{k8_lib_dev:.5f}",
         library_max_abs_err=lib_err, bound_ms=f"{k8_bound[0]:.5f}",
         bound_by=k8_bound[1], card=repr(smi))
-    stats["sample_bilinear_batch"] = (k8_err, k8_ms, k8_plain_ms, k8_bound,
-                                      k8_lib_ms)
+    stats["sample_bilinear_batch"] = (k8_err, k8_ms, k8_dev, k8_plain_ms,
+                                      k8_bound, k8_lib_ms, k8_lib_dev)
     del s_args, s_k, s_p, su, sv, smask
 
     # 16. serve batches through render_batch ---------------------------------
@@ -1204,15 +1326,16 @@ def main():
             k3s_bound = bound(bins_bytes(bins, True) + nbytes(g_k, d_k, w_k),
                               raster_ops(bins, W, H, len(samples), covered_s))
         del out_k, out_p, g_k, g_p, d_k, d_p, w_k, w_p
-    k3s_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_samples(
+    k3s_ms, k3s_dev = timings(lambda: raster_cuda.raster_gbuffer_samples(
         mb, W, H, samples), 50)
     k3s_plain_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_samples_plain(
         mb, W, H, samples), 2)
     say("k3s", case="flagship_main_8x128", ms=f"{k3s_ms:.4f}",
-        plain_ms=f"{k3s_plain_ms:.4f}", bound_ms=f"{k3s_bound[0]:.5f}",
-        bound_by=k3s_bound[1], card=repr(smi))
-    stats["raster_gbuffer_samples"] = (k3s_err, k3s_ms, k3s_plain_ms,
-                                       k3s_bound, None)
+        device_ms=f"{k3s_dev:.5f}", plain_ms=f"{k3s_plain_ms:.4f}",
+        bound_ms=f"{k3s_bound[0]:.5f}", bound_by=k3s_bound[1],
+        card=repr(smi))
+    stats["raster_gbuffer_samples"] = (k3s_err, k3s_ms, k3s_dev, k3s_plain_ms,
+                                       k3s_bound, None, None)
 
     # 19. serve supersampled frames (the per-sample branch) -------------------
     cfg_ss = cfg.replace(shading_per_pixel=False)
@@ -1239,7 +1362,7 @@ def main():
     su, sv, _, inb = shade._shadow_coords(w0, uni[:16].reshape(4, 4))
     smask = inb & torch.any((ch["kind"] == BLINN_PHONG_SHADOW)
                             & ch["covered"], dim=0)
-    k7ss_ms = cuda_ms(lambda: sample_cuda.sample_bilinear(
+    k7ss_ms, k7ss_dev = timings(lambda: sample_cuda.sample_bilinear(
         shadow_map, su, sv, sampling.REPEAT, 1.0, smask), 200)
     del g_k, w_k, ch, w0, su, sv, inb, smask
     med = statistics.median(frame_ms)
@@ -1260,6 +1383,7 @@ def main():
         card=repr(smi))
     say("serve_ss", split="median ms", prep_ms=f"{med_prep:.4f}",
         k1_ms=f"{k1_ms:.4f}", k3s_ms=f"{k3s_ms:.4f}", k7_ms=f"{k7ss_ms:.4f}",
+        k7_device_ms=f"{k7ss_dev:.5f}",
         rest_ms=f"{med - med_prep - kernels_ms:.4f}")
     say("serve_ss", launches=json.dumps(launches), finite=finite,
         shapes_ok=shapes_ok, covered_fraction_gpu=covf_gpu,
@@ -1301,10 +1425,11 @@ def main():
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(k, p))
     sampled = int(args9s[4].sum())
-    k9s_ms = cuda_ms(lambda: mip_cuda.sample_pyramid(*args9s), 50)
+    k9s_ms, k9s_dev = timings(lambda: mip_cuda.sample_pyramid(*args9s), 50)
     say("k9", case="config4_normal_map_sample_planes",
         grid=f"{len(samples)}x{W}x{H}", sampled=sampled, max_abs_err=err,
-        tol=0, ms=f"{k9s_ms:.4f}", card=repr(smi))
+        tol=0, ms=f"{k9s_ms:.4f}", device_ms=f"{k9s_dev:.5f}",
+        card=repr(smi))
     if not err == 0.0 or sampled == 0:
         fail("K9 disagrees with its twin on config 4's sample planes (or "
              "sampled nothing)")
@@ -1498,13 +1623,15 @@ def main():
             "sample_bilinear_batch": (SAMPLE_SRC, "sample_pallas.py:587")}
     kernels = []
     for name, (src, tpu) in meta.items():
-        err, ms, plain_ms, (bound_ms, bound_by), lib_ms = stats[name]
+        err, ms, dev_ms, plain_ms, (bound_ms, bound_by), lib_ms, lib_dev = \
+            stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": f"metalrenderer_tpu/raster/{tpu}",
             "launches": path_launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms})
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time K2 (render_fused) and K6 (render_fused_batch) of the port under
-each ROOT, in turns, on one CUDA GPU:
+"""Time the port's tile kernels under each ROOT, in turns, on one CUDA GPU:
+K2 (render_fused), K6 (render_fused_batch), K3 (raster_gbuffer) and K5
+(raster_gbuffer_batch).
 
-    python3 compare_fused.py ROOT [ROOT ...]   # e.g. a parent's checkout, .
+    python3 compare_kernels.py ROOT [ROOT ...]   # e.g. a parent's checkout, .
 
 Each root runs in a process of its own, its kernels built from its own
-``metalrenderer_tpu_torch/csrc``, on the inputs of chip_smoke.py's phases 3
-and 13: the flagship main pass (1920x1080 MSAA4, displacement 0.05), phase
-3's seeded 1920x1080 soup, and the 8-frame flagship batch. Every time is
-taken two ways: back to back, as chip_smoke.cuda_ms (the host may pace
-it), and with the host ahead (``device_ms``: device time only).
-The roots run in the order given, then in reverse (A B B A). Prints the
-card's name and power limit, then one JSON line per root and turn; each
-kernel's output is checked against its plain twin (``ok``).
+``metalrenderer_tpu_torch/csrc``, on the inputs of chip_smoke.py's phases 3,
+6, 13 and 14: the flagship main pass (1920x1080 MSAA4, displacement 0.05),
+phase 3's seeded 1920x1080 soup, the 8-frame flagship batch, BASELINE
+config 4's main pass (1920x1080 MSAA4) and its 8-frame batch (the camera
+orbiting by 0.01 rad a frame). Every time is taken two ways (this
+checkout's chip_smoke.timings): back to back (the host may pace it), and
+with the host ahead (``device_ms``: device time only). The roots run in the
+order given, then in reverse (A B B A). Prints the card's name and power
+limit, then one JSON line per root and turn; each kernel's output is
+checked against its plain twin (``ok``: covered fractions equal and rgba
+within 1e-5 for K2/K6, gout bit-equal for K3/K5).
 """
 from __future__ import annotations
 
@@ -20,7 +24,6 @@ import importlib.util
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -36,31 +39,16 @@ def smoke():
     return mod
 
 
-def device_ms(fn, reps):
-    """Mean device time of fn() over reps launches with the host ahead: the
-    launches are queued behind a spinning kernel, so they run back to back
-    whatever the wrapper's host cost (cuda_ms's back-to-back launches are
-    paced by the host once a launch takes less than its wrapper)."""
+def fused_ok(k, p):
     import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(3e6 * (host_ms + 5.0)))   # >= 1.5x at <= 2 GHz
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    if start.query():
-        raise SystemExit("compare_fused: FAIL: the spin ended before "
-                         "the launches were queued")
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return torch.equal(k[1], p[1]) and float((k[0] - p[0]).abs().max()) <= 1e-5
+
+
+def gout_ok(k, p):
+    import torch
+    gk = k[0] if isinstance(k, tuple) else k
+    gp = p[0] if isinstance(p, tuple) else p
+    return torch.equal(gk.view(torch.int32), gp.view(torch.int32))
 
 
 def one(root):
@@ -69,7 +57,7 @@ def one(root):
     import torch
     cs = smoke()
     from metalrenderer_tpu_torch.config import RenderConfig
-    from metalrenderer_tpu_torch.engine import audio_app
+    from metalrenderer_tpu_torch.engine import audio_app, configs
     from metalrenderer_tpu_torch.passes import pipeline
     from metalrenderer_tpu_torch.raster import _build, raster_cuda
     from metalrenderer_tpu_torch.scene.camera import OrbitCamera
@@ -102,29 +90,40 @@ def one(root):
     mb8 = raster_cuda.stack_bins([p.main_bins for p in preps])
     uni8 = torch.stack([p.uniforms for p in preps])
     soup = cs.fused_soup_bins(W, H, seed=3, device=dev)
+    scene4, cam4, light4, cfg4 = configs.config4_shadow_normal_map(W, H,
+                                                                   device=dev)
+    cfg4 = cfg4.replace(shadow_map_size=SHADOW)
+    preps4 = [pipeline.prepare_frame(
+        scene4, OrbitCamera(radius=5.0, theta=2.5 + 0.01 * i, phi=1.2,
+                            aspect=W / H), light4, cfg4, device=dev)
+        for i in range(BATCH)]
+    mb4 = pipeline.prepare_frame(scene4, cam4, light4, cfg4,
+                                 device=dev).main_bins
+    mb48 = raster_cuda.stack_bins([p.main_bins for p in preps4])
+    fused = (raster_cuda.render_fused, raster_cuda.render_fused_plain)
+    gbuf = (raster_cuda.raster_gbuffer, raster_cuda.raster_gbuffer_plain)
     cases = {
-        "k2_flagship": (raster_cuda.render_fused, raster_cuda.render_fused_plain,
-                        (prep.main_bins, prep.uniforms, smap), 200),
-        "k2_soup": (raster_cuda.render_fused, raster_cuda.render_fused_plain,
-                    (soup, prep.uniforms, smap), 100),
+        "k2_flagship": (*fused, fused_ok, (prep.main_bins, prep.uniforms,
+                                           smap), 200),
+        "k2_soup": (*fused, fused_ok, (soup, prep.uniforms, smap), 100),
         "k6_flagship8": (raster_cuda.render_fused_batch,
-                         raster_cuda.render_fused_batch_plain,
-                         (mb8, uni8, smaps8), 50)}
+                         raster_cuda.render_fused_batch_plain, fused_ok,
+                         (mb8, uni8, smaps8), 50),
+        "k3_config4": (*gbuf, gout_ok, (mb4,), 200),
+        "k3_soup": (*gbuf, gout_ok, (soup,), 100),
+        "k5_config4x8": (raster_cuda.raster_gbuffer_batch,
+                         raster_cuda.raster_gbuffer_batch_plain, gout_ok,
+                         (mb48,), 50)}
     log = (_build.library_path().parent / "build.log").read_text()
     out = {"root": str(root),
            "ptxas": {k: v for k, v in cs.ptxas_summary(log).items()
-                     if "fused" in k}}
-    for name, (kernel, plain, args, reps) in cases.items():
+                     if k.startswith(("render_fused", "raster_gbuffer_kernel"))}}
+    for name, (kernel, plain, check, args, reps) in cases.items():
         full = args + (W, H, samples)
-        rk, ck = kernel(*full)
-        rp, cp = plain(*full)
+        ok = check(kernel(*full), plain(*full))
         torch.cuda.synchronize()
-        ok = torch.equal(ck, cp) and float((rk - rp).abs().max()) <= 1e-5
-        del rk, ck, rp, cp
-        out[name] = {"ok": ok,
-                     "ms": round(cs.cuda_ms(lambda: kernel(*full), reps), 5),
-                     "device_ms": round(device_ms(lambda: kernel(*full),
-                                                     reps), 5)}
+        ms, dev_ms = cs.timings(lambda: kernel(*full), reps)
+        out[name] = {"ok": ok, "ms": round(ms, 5), "device_ms": round(dev_ms, 5)}
     print(json.dumps(out), flush=True)
 
 

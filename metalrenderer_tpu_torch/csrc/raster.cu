@@ -11,10 +11,10 @@
 //    REPEAT-bilinear shadow test and the coverage resolve: the main pass.
 // K3 raster_gbuffer_kernel replaces its per-pixel G-buffer specialization
 //    (_make_kernel(with_attrs=True, attr_px=True), launched by
-//    rasterize_tiles): K2's visibility and fragment selection (per pixel,
-//    through visibility() and first_covered()), writing the first covered
-//    sample's raw attribute planes and the covered count instead of
-//    shading them: the split path's main pass.
+//    rasterize_tiles): K2's tile walk and fragment selection with another
+//    fragment stage, which writes the first covered sample's raw attribute
+//    planes and the covered count instead of shading them: the split
+//    path's main pass.
 // K3s raster_gbuffer_samples_kernel replaces its per-sample G-buffer
 //    specialization (_make_kernel(with_attrs=True, attr_px=False), launched
 //    by rasterize_tiles): the same visibility, then for every sample its own
@@ -31,11 +31,9 @@
 //    batch of one (gridDim.z == 1). Frame offsets are size_t: K5's output
 //    at 8 frames of 1080p is 1.06 GB.
 //
-// What bounds K1 and K3 on the H100: K1 does not move many bytes; K3
-// writes 64 B per pixel (16 planes, ~133 MB at 1080p), coalesced plane by
-// plane, which puts its byte bound near its candidate walk. Each thread
-// walks its tile's candidate list serially (visibility() below: the big
-// list's gate, then candidates x samples x 4 plane evaluations), so the
+// What bounds K1 and K3s on the H100: K1 does not move many bytes. Each
+// thread walks its tile's candidate list serially (visibility() below: the
+// big list's gate, then candidates x samples x 4 plane evaluations), so the
 // cost is FP32 and integer issue plus the latency of the dependent table
 // loads. A 32x8 block lies inside one binning tile (tiles are 8x128 or
 // 64x128), so every thread of a warp loads the same triangle's fields (one
@@ -54,9 +52,9 @@
 // form every thread repeated its tile's big-list gate (an integer division
 // per entry) and the tile-anchored plane constants, and tested every
 // candidate on every sample. So K2 and K6 run one 256-thread block per
-// binning tile and frame. The block splits the tile's list and the live
-// big list over its threads, gates each entry once, compacts the valid
-// candidates into shared memory with a warp ballot (stage_chunk), and
+// binning tile and frame (walk_tile). The block splits the tile's list and
+// the live big list over its threads, gates each entry once, compacts the
+// valid candidates into shared memory with a warp ballot (stage_chunk), and
 // stores for each its three edges and its z plane as (a, b, c') with c'
 // anchored on the tile corner, the edge flags and the tid beside them:
 // 64 B a candidate, 256 candidates (16 KB) a chunk, longer lists in
@@ -72,6 +70,20 @@
 // no matrix product, and the inputs are a gather of a few 68-byte rows by
 // triangle id.
 //
+// K3 and K5 (raster_gbuffer_kernel) replace rasterize_tiles(attr_px=True)
+// (pallas_call raster_pallas.py:951) and rasterize_tiles_batch (:1254) on
+// the same tile walk: only the fragment stage differs. Their least time is
+// set by bytes: gout is 64 B a pixel (16 planes), 133 MB or 0.040 ms a
+// 1080p frame at 3.35 TB/s, three times K2's output, and it does not fit
+// in the 50 MB L2. The per-pixel form that came before walked every
+// candidate and gated the whole big list in every thread, which left it at
+// 3.3x that bound. On the tile walk the visibility costs what it costs K2,
+// and the fragment stage is 12 float4 loads of the winner's attribute row
+// (a few KB a frame, served by L1) and 16 stores a pixel: each store is 32
+// consecutive floats of one plane across the warp (128 B), and uncovered
+// pixels store zeros in the same instructions, so every store of an
+// interior tile is a whole line.
+//
 // Visibility is order-free (see raster_cuda.py): the winner of a sample is
 // the lexicographic minimum of (z, -tid) over its candidates, so the tile
 // list and the big list are walked in one loop with
@@ -81,6 +93,8 @@
 // Built with -fmad=false and without fast math: every multiply and add
 // rounds on its own, divisions and sqrtf are IEEE, as in the torch twins.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -302,78 +316,6 @@ __device__ __forceinline__ float attr_at(const float* __restrict__ a, int g,
                    a[kAttrC + g]);
 }
 
-// The pixel's fragment: the first covered sample (in sample order), its
-// winner and absolute position, and the covered-sample count.
-struct Fragment {
-  int cnt, tid;
-  float sx, sy;
-};
-
-__device__ __forceinline__ Fragment first_covered(const PixelState& p,
-                                                  const Samples& S, int px,
-                                                  int py) {
-  Fragment f{0, -1, 0.0f, 0.0f};
-  float offx = 0.0f, offy = 0.0f;
-#pragma unroll
-  for (int s = 0; s < kMaxSamples; ++s) {
-    if (s < S.n && p.wb[s] >= 0) {
-      if (f.cnt == 0) {
-        f.tid = p.wb[s];
-        offx = S.ox[s];
-        offy = S.oy[s];
-      }
-      ++f.cnt;
-    }
-  }
-  f.sx = __fadd_rn((float)px, offx);
-  f.sy = __fadd_rn((float)py, offy);
-  return f;
-}
-
-// K3: the per-pixel G-buffer (raster_pallas.rasterize_tiles with
-// attr_px=True). gout rows 0-14 are the first covered sample's winner's
-// raw value/w planes (binning.py ROW_*), row 15 the covered-sample count;
-// an uncovered pixel is all zeros. Per-sample depth/winner only on request.
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-raster_gbuffer_kernel(Bins B0, Samples S, float clear_depth,
-                      const float* __restrict__ attr, int width, int height,
-                      float* __restrict__ gout, float* __restrict__ depth,
-                      int* __restrict__ winner) {
-  const int px = blockIdx.x * kBlockX + threadIdx.x;
-  const int py = blockIdx.y * kBlockY + threadIdx.y;
-  if (px >= width || py >= height) return;
-  const int fr = blockIdx.z;
-  const Bins B = frame_bins(B0, fr);
-  PixelState p;
-  visibility(B, S, clear_depth, px, py, p);
-  const size_t plane = (size_t)width * height;
-  const size_t o = (size_t)py * width + px;
-  if (depth != nullptr) {
-    const size_t os = (size_t)fr * S.n * plane + o;
-#pragma unroll
-    for (int s = 0; s < kMaxSamples; ++s) {
-      if (s < S.n) {
-        depth[s * plane + os] = p.zb[s];
-        winner[s * plane + os] = p.wb[s];
-      }
-    }
-  }
-  float* __restrict__ G = gout + (size_t)fr * kGoutRows * plane;
-  const Fragment f = first_covered(p, S, px, py);
-  if (f.cnt == 0) {
-#pragma unroll
-    for (int g = 0; g < kGoutRows; ++g) G[g * plane + o] = 0.0f;
-    return;
-  }
-  const float* __restrict__ A =
-      attr + ((size_t)fr * B0.n_tris + f.tid) * kAttr;
-#pragma unroll
-  for (int g = 0; g < kGoutRows - 1; ++g) {
-    G[g * plane + o] = attr_at(A, g, f.sx, f.sy);
-  }
-  G[(kGoutRows - 1) * plane + o] = (float)f.cnt;
-}
-
 // K3s: the per-sample G-buffer (raster_pallas.rasterize_tiles with
 // with_attrs=True, attr_px=False), one frame. gout[s] rows 0-14 are sample
 // s's winner's raw value/w planes at the sample's absolute position, row 15
@@ -417,8 +359,8 @@ raster_gbuffer_samples_kernel(Bins B, Samples S, float clear_depth,
   }
 }
 
-// ---- Tile staging: K2/K6 (render_fused_kernel). The other tile kernels
-// can take the same device functions. ------------------------------------
+// ---- The tile walk: K2/K6 (render_fused_kernel) and K3/K5
+// (raster_gbuffer_kernel). ----------------------------------------------
 
 constexpr int kTileThreads = 256;              // one block per binning tile
 constexpr int kTileMinBlocks = 2;              // per SM: <= 128 registers
@@ -595,6 +537,35 @@ __device__ __forceinline__ void test_staged(const StagedTri* st, int n,
   }
 }
 
+// The pixel's fragment: the first covered sample (in sample order), its
+// winner and absolute position, and the covered-sample count.
+struct Fragment {
+  int cnt, tid;
+  float sx, sy;
+};
+
+template <int NS>
+__device__ __forceinline__ Fragment first_covered(const int (&wb)[NS],
+                                                  const Samples& S, int px,
+                                                  int py) {
+  Fragment f{0, -1, 0.0f, 0.0f};
+  float offx = 0.0f, offy = 0.0f;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (wb[s] >= 0) {
+      if (f.cnt == 0) {
+        f.tid = wb[s];
+        offx = S.ox[s];
+        offy = S.oy[s];
+      }
+      ++f.cnt;
+    }
+  }
+  f.sx = __fadd_rn((float)px, offx);
+  f.sy = __fadd_rn((float)py, offy);
+  return f;
+}
+
 // The fused fragment stage of pixel (px, py) from its per-sample winners:
 // the first covered sample's winner's attribute/w planes, Blinn-Phong or
 // emissive, the shadow test, the coverage resolve. Returns rgba; *cf_out
@@ -605,29 +576,16 @@ __device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
                                               const Shading& SH, int px,
                                               int py, float* cf_out) {
   const float* __restrict__ U = SH.uni;
-  int cnt = 0, tid = -1;
-  float offx = 0.0f, offy = 0.0f;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    if (wb[s] >= 0) {
-      if (cnt == 0) {
-        tid = wb[s];
-        offx = S.ox[s];
-        offy = S.oy[s];
-      }
-      ++cnt;
-    }
-  }
-  if (cnt == 0) {
+  const Fragment f = first_covered<NS>(wb, S, px, py);
+  if (f.cnt == 0) {
     *cf_out = 0.0f;
     return make_float4(U[kFuClear], U[kFuClear + 1], U[kFuClear + 2],
                        U[kFuClear + 3]);
   }
 
   // The winner's attribute/w planes at the absolute sample position.
-  const float sx = __fadd_rn((float)px, offx);
-  const float sy = __fadd_rn((float)py, offy);
-  const float* __restrict__ A = SH.attr + (size_t)tid * kAttr;
+  const float sx = f.sx, sy = f.sy;
+  const float* __restrict__ A = SH.attr + (size_t)f.tid * kAttr;
   const float invw = attr_at(A, kRowInvW, sx, sy);
   const float inv = 1.0f / (invw > 0.0f ? invw : 1.0f);
   const float wx = attr_at(A, kRowWorld, sx, sy) * inv;
@@ -682,7 +640,7 @@ __device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
   }
   r = r * msk; g = g * msk; b = b * msk; a = a * msk;
 
-  const float cf = (float)cnt * (1.0f / (float)NS);
+  const float cf = (float)f.cnt * (1.0f / (float)NS);
   const float keep = 1.0f - cf;
   *cf_out = cf;
   return make_float4(r * cf + U[kFuClear] * keep, g * cf + U[kFuClear + 1] * keep,
@@ -690,27 +648,25 @@ __device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
                      a * cf + U[kFuClear + 3] * keep);
 }
 
-// K2/K6: one block per binning tile (blockIdx.x) and frame (blockIdx.z).
-// The tile's pixels are row segments of kSegW columns, one per warp and
-// pass; a tile of any shape takes ceil(tile_h * ceil(tile_w / kSegW) /
-// kTileWarps) passes (one for 8x128). Candidates are staged once when they
-// fit in one chunk, else chunk by chunk in every pass.
-template <int NS>
-__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
-render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
-                    int width, int height, float4* __restrict__ rgba,
-                    float* __restrict__ covf) {
-  __shared__ TileStage st;
-  const int fr = blockIdx.z;
-  const Bins B = frame_bins(B0, fr);
-  const Shading SH = frame_shading(SH0, B0.n_tris, fr);
+// The tile walk of K2/K3 and K5/K6: binning tile blockIdx.x of B. The
+// tile's pixels are row segments of kSegW columns, one per warp and pass; a
+// tile of any shape takes ceil(tile_h * ceil(tile_w / kSegW) / kTileWarps)
+// passes (one for 8x128). Candidates are staged once when they fit in one
+// chunk, else chunk by chunk in every pass; every thread of the block calls
+// stage_chunk, also in warps with no segment left. Then, on each of the
+// lane's pixels inside the tile and the image, frag(zb, wb, px, py) with
+// the pixel's per-sample depth and winner.
+template <int NS, class Frag>
+__device__ __forceinline__ void walk_tile(const Bins& B, const Samples& S,
+                                          float clear_depth, int width,
+                                          int height, TileStage& st,
+                                          Frag&& frag) {
   const TileRef T = tile_ref(B, blockIdx.x);
   const int n_chunks = tile_chunks(T);
   const int segs_per_row = (B.tile_w + kSegW - 1) / kSegW;
   const int n_segs = B.tile_h * segs_per_row;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t frame_o = (size_t)fr * width * height;
   int n_staged = 0;
   for (int g0 = 0; g0 < n_segs; g0 += kTileWarps) {
     const int g = g0 + warp;
@@ -748,14 +704,94 @@ render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
       const int cx = col + 32 * j;
       const int px = T.x0 + cx;
       if (g < n_segs && cx < B.tile_w && px < width && py < height) {
-        float cf;
-        const float4 c = shade_fused<NS>(p.wb[j], S, SH, px, py, &cf);
-        const size_t o = frame_o + (size_t)py * width + px;
-        rgba[o] = c;
-        covf[o] = cf;
+        frag(p.zb[j], p.wb[j], px, py);
       }
     }
   }
+}
+
+// K2/K6: one block per binning tile (blockIdx.x) and frame (blockIdx.z),
+// the fused fragment stage on the tile walk.
+template <int NS>
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
+                    int width, int height, float4* __restrict__ rgba,
+                    float* __restrict__ covf) {
+  __shared__ TileStage st;
+  const int fr = blockIdx.z;
+  const Shading SH = frame_shading(SH0, B0.n_tris, fr);
+  const size_t frame_o = (size_t)fr * width * height;
+  walk_tile<NS>(frame_bins(B0, fr), S, clear_depth, width, height, st,
+                [&](const float (&)[NS], const int (&wb)[NS], int px,
+                    int py) {
+                  float cf;
+                  const float4 c = shade_fused<NS>(wb, S, SH, px, py, &cf);
+                  const size_t o = frame_o + (size_t)py * width + px;
+                  rgba[o] = c;
+                  covf[o] = cf;
+                });
+}
+
+// K3/K5: the per-pixel G-buffer (raster_pallas.rasterize_tiles with
+// attr_px=True, and rasterize_tiles_batch) on the tile walk, one block per
+// binning tile (blockIdx.x) and frame (blockIdx.z). gout rows 0-14 are the
+// first covered sample's winner's raw value/w planes (binning.py ROW_*) at
+// that sample's absolute position, row 15 the covered-sample count; an
+// uncovered pixel is all zeros, stored by the same instructions. The
+// per-sample depth and winner planes only when depth is not null.
+template <int NS>
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+raster_gbuffer_kernel(Bins B0, Samples S, float clear_depth,
+                      const float* __restrict__ attr, int width, int height,
+                      float* __restrict__ gout, float* __restrict__ depth,
+                      int* __restrict__ winner) {
+  __shared__ TileStage st;
+  const int fr = blockIdx.z;
+  const size_t plane = (size_t)width * height;
+  const float* __restrict__ A0 = attr + (size_t)fr * B0.n_tris * kAttr;
+  float* __restrict__ G = gout + (size_t)fr * kGoutRows * plane;
+  walk_tile<NS>(frame_bins(B0, fr), S, clear_depth, width, height, st,
+                [&](const float (&zb)[NS], const int (&wb)[NS], int px,
+                    int py) {
+                  const size_t o = (size_t)py * width + px;
+                  if (depth != nullptr) {
+                    const size_t os = (size_t)fr * NS * plane + o;
+#pragma unroll
+                    for (int s = 0; s < NS; ++s) {
+                      depth[s * plane + os] = zb[s];
+                      winner[s * plane + os] = wb[s];
+                    }
+                  }
+                  const Fragment f = first_covered<NS>(wb, S, px, py);
+                  float v[kGoutRows - 1];
+#pragma unroll
+                  for (int g = 0; g < kGoutRows - 1; ++g) v[g] = 0.0f;
+                  if (f.cnt > 0) {
+                    // The winner's 192-byte attribute row in 12 float4
+                    // loads (the wrapper checks the 16-byte alignment).
+                    const float4* __restrict__ A4 =
+                        reinterpret_cast<const float4*>(A0 + (size_t)f.tid *
+                                                                 kAttr);
+                    float a[kAttr];
+#pragma unroll
+                    for (int q = 0; q < kAttr / 4; ++q) {
+                      const float4 t = A4[q];
+                      a[4 * q] = t.x;
+                      a[4 * q + 1] = t.y;
+                      a[4 * q + 2] = t.z;
+                      a[4 * q + 3] = t.w;
+                    }
+#pragma unroll
+                    for (int g = 0; g < kGoutRows - 1; ++g) {
+                      v[g] = attr_at(a, g, f.sx, f.sy);
+                    }
+                  }
+#pragma unroll
+                  for (int g = 0; g < kGoutRows - 1; ++g) {
+                    G[g * plane + o] = v[g];
+                  }
+                  G[(kGoutRows - 1) * plane + o] = (float)f.cnt;
+                });
 }
 
 Samples make_samples(int n, float ox0, float oy0, float ox1, float oy1,
@@ -784,17 +820,21 @@ Bins make_bins(const float* vis, const int* tile_off, const int* tile_tris,
               big_cap};
 }
 
-// One block per binning tile and frame.
-template <int NS>
-int launch_fused(const Bins& B, const Samples& S, float clear_depth,
-                 const Shading& SH, int width, int height, int frames,
-                 float* rgba, float* covf, void* stream) {
-  render_fused_kernel<NS><<<dim3(B.n_tiles, 1, frames), kTileThreads, 0,
-                            (cudaStream_t)stream>>>(
-      B, S, clear_depth, SH, width, height, reinterpret_cast<float4*>(rgba),
-      covf);
-  return (int)cudaGetLastError();
+// launch(std::integral_constant<int, NS>()) with NS = n (1..kMaxSamples):
+// the tile kernels take the sample count as a template parameter.
+template <class Launch>
+int with_sample_count(int n, Launch&& launch) {
+  switch (n) {
+    case 1: return launch(std::integral_constant<int, 1>());
+    case 2: return launch(std::integral_constant<int, 2>());
+    case 3: return launch(std::integral_constant<int, 3>());
+    case 4: return launch(std::integral_constant<int, 4>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
+
+// One block per binning tile and frame.
+dim3 tile_grid(const Bins& B, int frames) { return dim3(B.n_tiles, 1, frames); }
 
 }  // namespace
 
@@ -829,10 +869,12 @@ extern "C" int mr_raster_gbuffer(MR_BINS_PARAMS, const float* attr, int width,
                                  int height, float* gout, float* depth,
                                  int* winner, void* stream) {
   MR_BINS_SETUP;
-  raster_gbuffer_kernel<<<grid_for(width, height, frames),
-                          dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-      B, S, clear_depth, attr, width, height, gout, depth, winner);
-  return (int)cudaGetLastError();
+  return with_sample_count(n_samples, [&](auto ns) {
+    raster_gbuffer_kernel<decltype(ns)::value>
+        <<<tile_grid(B, frames), kTileThreads, 0, (cudaStream_t)stream>>>(
+            B, S, clear_depth, attr, width, height, gout, depth, winner);
+    return (int)cudaGetLastError();
+  });
 }
 
 // One frame (frames == 1): gout f32[S,16,H,W], depth f32[S,H,W], winner
@@ -856,15 +898,11 @@ extern "C" int mr_render_fused(MR_BINS_PARAMS, const float* attr,
                                float* rgba, float* covf, void* stream) {
   MR_BINS_SETUP;
   const Shading SH{attr, uniforms, shadow_map, tex_h, tex_w};
-  switch (n_samples) {
-    case 1: return launch_fused<1>(B, S, clear_depth, SH, width, height,
-                                   frames, rgba, covf, stream);
-    case 2: return launch_fused<2>(B, S, clear_depth, SH, width, height,
-                                   frames, rgba, covf, stream);
-    case 3: return launch_fused<3>(B, S, clear_depth, SH, width, height,
-                                   frames, rgba, covf, stream);
-    case 4: return launch_fused<4>(B, S, clear_depth, SH, width, height,
-                                   frames, rgba, covf, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_sample_count(n_samples, [&](auto ns) {
+    render_fused_kernel<decltype(ns)::value>
+        <<<tile_grid(B, frames), kTileThreads, 0, (cudaStream_t)stream>>>(
+            B, S, clear_depth, SH, width, height,
+            reinterpret_cast<float4*>(rgba), covf);
+    return (int)cudaGetLastError();
+  });
 }

@@ -73,15 +73,17 @@ On the H100 K1 is not bound by memory traffic: a thread walks its tile's
 candidate list serially (FP32 issue plus dependent table loads), so the
 design keeps that walk warp-uniform — a 32x8 block lies inside one binning
 tile, every lane loads the same triangle's fields — and keeps the
-per-sample depth and winner in registers (``csrc/raster.cu`` header). K3
-adds 64 bytes of output per pixel, written plane by plane, coalesced; K3s
-64 bytes per sample (531 MB at 1920x1080x4), which bound it. K2 and K6 run
-one block per binning tile and frame: the block gates the tile's
-candidates once, stages them in shared memory ``FUSED_STAGING_CHUNK`` at a
-time with their planes anchored on the tile, and every warp tests them on
-its pixels by broadcast, skipping a candidate where a bound on its rounded
-edge values shows that no sample of the warp's pixels can be inside (a
-skip that changes no result); they take any tile shape.
+per-sample depth and winner in registers (``csrc/raster.cu`` header). K3s
+writes 64 bytes per sample (531 MB at 1920x1080x4), which bound it. K2, K3
+and their batch forms K5, K6 share one tile walk, one block per binning
+tile and frame: the block gates the tile's candidates once, stages them in
+shared memory ``FUSED_STAGING_CHUNK`` at a time with their planes anchored
+on the tile, and every warp tests them on its pixels by broadcast,
+skipping a candidate where a bound on its rounded edge values shows that
+no sample of the warp's pixels can be inside (a skip that changes no
+result); they take any tile shape. Only the fragment stage differs: K2
+shades, K3 stores the 16 gout rows (64 bytes a pixel, which bound it),
+each row's store coalesced across the warp.
 
 The twins work on pieces of tile rows at a time, so they run at 1080p MSAA4
 on the card as well as on the CPU.
@@ -113,8 +115,8 @@ FU_FACTOR = 32  # shadow factor
 FU_LEN = 33
 
 MAX_SAMPLES = 4
-# Candidates K2/K6 stage in shared memory per pass (csrc/raster.cu kChunk);
-# a tile with more is walked chunk by chunk.
+# Candidates the tile kernels (K2, K3, K5, K6) stage in shared memory per
+# pass (csrc/raster.cu kChunk); a tile with more is walked chunk by chunk.
 FUSED_STAGING_CHUNK = 256
 # Samples evaluated per step of a twin (bounds its temporaries).
 _PLAIN_PIECE_SAMPLES = 1 << 21
@@ -673,6 +675,9 @@ def _launch_gbuffer(name, bins, width, height, sample_offsets, clear_depth,
     _need_attr(bins)
     args = (_bins_args(bins, device, lead)
             + _sample_args(sample_offsets, clear_depth))
+    if bins.attr.data_ptr() % 16:
+        raise ValueError("attr: K3/K5 load its rows as float4, need a "
+                         "16-byte aligned tensor")
     gout = torch.empty(lead + (GOUT_ROWS, height, width), dtype=torch.float32,
                        device=device)
     depth = winner = None

@@ -25,9 +25,9 @@ Tolerances, with their reasons:
     attribute rows as K3's (bit-equal to the no-FMA numpy evaluation,
     1e-6 relative to their magnitude of the interpret-mode kernel), row 15
     bit-equal to the twin's own depth;
-  * K2's twin with every tile's candidates permuted: bit-equal to itself
-    unpermuted (the order-free visibility that lets the kernel stage and
-    chunk candidates in any order).
+  * K2's and K3's twins with every tile's candidates permuted: bit-equal
+    to themselves unpermuted (the order-free visibility that lets the
+    kernels stage and chunk candidates in any order).
 """
 import functools
 
@@ -360,11 +360,11 @@ def _flagship_prep(width=96, height=72):
     return prep, smap
 
 
-def _small_soup(tile_w=128, tile_h=8, width=256, height=64):
+def _small_soup(tile_w=128, tile_h=8, width=256, height=64, seed=5):
     """A few hundred triangles crowded into one tile (its list outgrows a
     staging chunk), a few scattered and big ones, exact duplicates and
     coplanar partners (z-fights); seeded."""
-    return fused_soup_bins(width, height, 5, "cpu", crowd=300, small=60,
+    return fused_soup_bins(width, height, seed, "cpu", crowd=300, small=60,
                            big=30, tile_w=tile_w, tile_h=tile_h)
 
 
@@ -388,7 +388,18 @@ def test_render_fused_plain_is_order_free(case, perm_seed, monkeypatch):
     args = (bins, prep.uniforms, smap, width, height, MSAA4)
     rgba, covf = raster_cuda.render_fused_plain(*args)
     assert 0.3 < float((covf > 0).float().mean()) <= 1.0
-    rng = np.random.default_rng(perm_seed)
+    moved = _shuffle_candidates(monkeypatch, perm_seed)
+    rgba_s, covf_s = raster_cuda.render_fused_plain(*args)
+    assert any(moved)
+    assert torch.equal(covf_s, covf)
+    assert torch.equal(rgba_s.view(torch.int32), rgba.view(torch.int32))
+
+
+def _shuffle_candidates(monkeypatch, seed):
+    """Permute every tile's candidates (``raster_cuda._candidates``) with a
+    seeded generator; returns a list that records, per call, whether the
+    permutation moved anything."""
+    rng = np.random.default_rng(seed)
     original = raster_cuda._candidates
     moved = []
 
@@ -401,10 +412,34 @@ def test_render_fused_plain_is_order_free(case, perm_seed, monkeypatch):
         return out
 
     monkeypatch.setattr(raster_cuda, "_candidates", shuffled)
-    rgba_s, covf_s = raster_cuda.render_fused_plain(*args)
+    return moved
+
+
+@pytest.mark.parametrize("perm_seed", [0, 1])
+@pytest.mark.parametrize("case", ["soup_256x64", "config4_96x72"])
+def test_raster_gbuffer_plain_is_order_free(case, perm_seed, monkeypatch):
+    """K3 and K5 stage a tile's candidates as K2 does (ballot order, chunk
+    by chunk past one chunk): the twin's gout, depth and winner keep their
+    bits whatever order each tile's candidates come in."""
+    if case == "soup_256x64":
+        bins, width, height = _small_soup(), 256, 64
+        assert int(candidate_counts(bins).max()) > \
+            raster_cuda.FUSED_STAGING_CHUNK
+        rows = bins.vis[:, :15]
+        assert torch.unique(rows, dim=0).shape[0] < rows.shape[0]
+    else:
+        setup, pg = _gbuffer_inputs("config4")
+        bins, width, height = _bins(setup, 96, 72, 128, 8, pg), 96, 72
+        assert int(candidate_counts(bins).max()) > 1
+    out = raster_cuda.raster_gbuffer_plain(bins, width, height, MSAA4,
+                                           with_samples=True)
+    assert 0.3 < float((out[0][binning.ROW_DEPTH] > 0).float().mean()) <= 1.0
+    moved = _shuffle_candidates(monkeypatch, perm_seed)
+    out_s = raster_cuda.raster_gbuffer_plain(bins, width, height, MSAA4,
+                                             with_samples=True)
     assert any(moved)
-    assert torch.equal(covf_s, covf)
-    assert torch.equal(rgba_s.view(torch.int32), rgba.view(torch.int32))
+    for a, b in zip(out_s, out):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
@@ -480,6 +515,26 @@ def test_kernels_match_twins_on_card(cuda_device):
         torch.cuda.synchronize()
         for k, p in zip(out_k, out_p):
             assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    # K3 on lists longer than one staging chunk, on 8x128 tiles and on a
+    # ragged size with another tile shape; K5 on two soups as one batch.
+    for tile_w, tile_h, width, height in ((128, 8, 256, 64), (40, 24, 200, 45)):
+        bins = _to(_small_soup(tile_w, tile_h, width, height), cuda_device)
+        out_k = raster_cuda.raster_gbuffer(bins, width, height, MSAA4,
+                                           with_samples=True)
+        out_p = raster_cuda.raster_gbuffer_plain(bins, width, height, MSAA4,
+                                                 with_samples=True)
+        torch.cuda.synchronize()
+        for k, p in zip(out_k, out_p):
+            assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    soups = [_to(_small_soup(seed=seed), cuda_device) for seed in (11, 12)]
+    batch = raster_cuda.stack_bins(soups)
+    g_k = raster_cuda.raster_gbuffer_batch(batch, 256, 64, MSAA4)
+    g_p = raster_cuda.raster_gbuffer_batch_plain(batch, 256, 64, MSAA4)
+    g_3 = torch.stack([raster_cuda.raster_gbuffer(b, 256, 64, MSAA4)[0]
+                       for b in soups])
+    torch.cuda.synchronize()
+    assert torch.equal(g_k.view(torch.int32), g_p.view(torch.int32))
+    assert torch.equal(g_k.view(torch.int32), g_3.view(torch.int32))
     for case, tile_h, samples in (("flagship", 8, MSAA4),
                                   ("config4", 16, MSAA4),
                                   ("flagship", 8, CENTER)):
