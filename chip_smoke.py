@@ -8,9 +8,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
   1. build the kernels from metalrenderer_tpu_torch/csrc with nvcc: per
      kernel its registers, shared memory and spills (-Xptxas -v) and its
      SASS instruction count (cuobjdump -sass, where the toolkit has it);
-  2. K1 raster_depth against its plain twin on the card: the flagship shadow
-     pass (1024^2, the port's own prep) and a seeded soup of a few thousand
-     triangles at 1024^2 — winners equal, depth bit-equal;
+  2. K1 raster_depth against its plain twin on the card, with and without
+     the winner plane: the flagship shadow pass (1024^2, the port's own
+     prep), a seeded soup of 4,000 triangles at 1024^2, and crowded soups
+     (fused_soup_bins: a tile list longer than a staging chunk) at 1024^2
+     on 64x128 tiles with a big list near its cap and at 1000x601 on 40x24
+     tiles, there also with 4 samples — winners equal, depth bit-equal;
+     timed in the shadow path's depth-only form, the winner-carrying form
+     beside it;
   3. K2 render_fused against its plain twin on the flagship main pass
      (1920x1080, 4x MSAA) and on seeded soups with attribute planes
      (fused_soup_bins: tile lists, one tile's candidates outgrowing the
@@ -50,8 +55,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
      its share of the frame's wall time under the profiler;
  12. K4 raster_depth_batch against its twin on 8 flagship shadow passes at
      1024^2 (displacements linspace(0, 0.05, 7) and 5.0; the last frame,
-     seen from theta 2.2, near-clips heavily) — winners equal, depth
-     bit-equal, and bit-equal to eight K1 launches on the same bins;
+     seen from theta 2.2, near-clips heavily) and on a 2-frame batch of
+     phase 2's two crowded 1024^2 soups, with and without the winner plane
+     — winners equal, depth bit-equal, and bit-equal to K1 launches on the
+     same bins; timed as K1 is;
  13. K6 render_fused_batch against its twin on that batch's main passes
      (1920x1080 MSAA4, K4's shadow maps) and on a 2-frame batch of two
      such soups — covered fractions equal, rgba within 1e-5, and bit-equal
@@ -155,7 +162,8 @@ gout plus the per-sample depth and winner planes); the samplers' per
 sampled pixel: 18 (K7), 94 (K9). The
 samplers read u, v (and K9 its LOD) only where the mask is set, so their
 bytes count 8 (K7, K8) or 12 (K9) per sampled pixel, plus the whole
-texture, mask and output. A batch kernel's bound counts every frame's
+texture, mask and output. K1 and K4 write 4 B of depth a sample, 8 B with
+the winner plane: each form has its own bound. A batch kernel's bound counts every frame's
 bytes and operations (K4, K5, K6 as K1, K3, K2 summed over the frames;
 K8 as K7).
 """
@@ -377,12 +385,14 @@ def soup_setup(n, size, seed, device):
 
 
 def fused_soup_bins(width, height, seed, device, crowd=400, small=1200,
-                    big=240, tile_w=128, tile_h=8):
+                    big=240, tile_w=128, tile_h=8, big_extent=150.0):
     """A seeded main-pass soup with attribute planes, binned for K2 on
     ``tile_w`` x ``tile_h`` tiles (span cap 8, big-list cap 256):
     ``crowd`` triangles of a few pixels inside the tile at the image's
     center, whose list outgrows one staging chunk; ``small`` such triangles
-    anywhere (the tile lists); ``big`` spanning 80-300 rows (the big list).
+    anywhere (the tile lists); ``big`` of half extent 0.3-1 x
+    ``big_extent`` pixels and at least 80 rows (the big list: on 8x128
+    tiles the default reaches it; 64x128 tiles need ~500).
     One triangle in four gets a partner in its plane: an exact duplicate
     (ties go to the larger tid) or, every other time, a triangle made of
     affine combinations of its clip-space vertices, whose depth planes
@@ -399,7 +409,7 @@ def fused_soup_bins(width, height, seed, device, crowd=400, small=1200,
     groups = [  # (count, center box x0, y0, x1, y1, half extent x, y)
         (crowd, cx, cy, cx + tile_w, cy + tile_h, 10.0, 3.0),
         (small, 0, 0, width, height, 20.0, 3.0),
-        (big, 0, 0, width, height, 150.0, 150.0)]
+        (big, 0, 0, width, height, big_extent, big_extent)]
     tris = []
     for n, x0, y0, x1, y1, hx, hy in groups:
         c = np.stack([rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)], -1)
@@ -582,35 +592,87 @@ def main():
     stats = {}      # per kernel: max_abs_err, ms, plain_ms, bound, library_ms
 
     # 2. K1 against its twin ------------------------------------------------
+    # The flagship's shadow bins (short lists), a 4,000-triangle soup, and
+    # crowded soups whose longest tile list outgrows a staging chunk: at
+    # 1024^2 on the shadow pass's 64x128 tiles with a big list near its cap,
+    # and at the ragged 1000x601 on 40x24 tiles, there also with 4 samples.
+    # Each with and without the winner plane.
     k1_err = 0.0
+    chunk = raster_cuda.FUSED_STAGING_CHUNK
     soup = soup_setup(4000, SHADOW, seed=7, device=dev)
     soup_bins = binning.bin_triangles(soup, binning.build_tri_fields(soup),
                                       SHADOW, SHADOW, 128, 64)
-    for name, bins in (("flagship_shadow", prep.shadow_bins),
-                       ("soup4000", soup_bins)):
-        d_k, w_k = raster_cuda.raster_depth(bins, SHADOW, SHADOW, center)
-        d_p, w_p = raster_cuda.raster_depth_plain(bins, SHADOW, SHADOW, center)
+    crowd_bins = [fused_soup_bins(SHADOW, SHADOW, seed=sd, device=dev,
+                                  big=280, tile_w=128, tile_h=64,
+                                  big_extent=500.0) for sd in (3, 4)]
+    ragged_bins = fused_soup_bins(1000, 601, seed=3, device=dev, tile_w=40,
+                                  tile_h=24)
+    for name, bins, w, h, smp in (
+            ("flagship_shadow", prep.shadow_bins, SHADOW, SHADOW, center),
+            ("soup4000", soup_bins, SHADOW, SHADOW, center),
+            (f"crowd_{SHADOW}x{SHADOW}_64x128", crowd_bins[0], SHADOW,
+             SHADOW, center),
+            ("crowd_1000x601_40x24", ragged_bins, 1000, 601, center),
+            ("crowd_1000x601_40x24_s4", ragged_bins, 1000, 601, samples)):
+        d_k, w_k = raster_cuda.raster_depth(bins, w, h, smp)
+        d_n, w_n = raster_cuda.raster_depth(bins, w, h, smp,
+                                            with_winner=False)
+        d_p, w_p = raster_cuda.raster_depth_plain(bins, w, h, smp)
         torch.cuda.synchronize()
-        win_eq = torch.equal(w_k, w_p)
-        bits_eq = torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
-        k1_err = max(k1_err, float((d_k - d_p).abs().max()))
-        say("k1", case=name, covered=int((w_k >= 0).sum()),
-            big_n=int(bins.big_n[0]), big_dropped=int(bins.num_big_dropped),
-            winners_equal=win_eq, depth_bit_equal=bits_eq)
+        cnt = candidate_counts(bins)
+        win_eq = torch.equal(w_k, w_p) and w_n is None
+        bits_eq = all(torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+                      for d in (d_k, d_n))
+        k1_err = max(k1_err, float((d_k - d_p).abs().max()),
+                     float((d_n - d_p).abs().max()))
+        covered = int((w_k >= 0).sum())
+        over = int((cnt > chunk).sum())
+        big_n, cap = int(bins.big_n[0]), bins.big_ids.shape[0]
+        say("k1", case=name, samples=len(smp), covered=covered, big_n=big_n,
+            big_cap=cap, big_dropped=int(bins.num_big_dropped),
+            max_candidates=int(cnt.max()), staging_chunk=chunk,
+            tiles_over_chunk=over, winners_equal=win_eq,
+            depth_bit_equal=bits_eq)
         if not (win_eq and bits_eq):
             fail(f"K1 disagrees with its twin on {name}")
-        if int((w_k >= 0).sum()) == 0:
+        if covered == 0:
             fail(f"K1 covered nothing on {name}")
+        if name.startswith("crowd") and over == 0:
+            fail(f"{name}: no tile list longer than a chunk")
+        if name.startswith(f"crowd_{SHADOW}") and \
+                not 7 * cap <= 8 * big_n <= 8 * cap:
+            fail(f"{name}: big list {big_n} not near its cap {cap}")
+        del d_k, w_k, d_n, d_p, w_p
+    # The shadow path asks for depth alone: that form is K1's row, the
+    # winner-carrying form beside it, each with its own byte bound.
     sb = prep.shadow_bins
     k1_ms, k1_dev = timings(lambda: raster_cuda.raster_depth(
+        sb, SHADOW, SHADOW, center, with_winner=False), 200)
+    k1w_ms, k1w_dev = timings(lambda: raster_cuda.raster_depth(
         sb, SHADOW, SHADOW, center), 200)
+    _, k1_soup_dev = timings(lambda: raster_cuda.raster_depth(
+        soup_bins, SHADOW, SHADOW, center, with_winner=False), 100)
+    # The floor under K1's time: the same map with no candidate in any tile
+    # (stores of the clear depth, the launch and the blocks' setup).
+    empty = dataclasses.replace(sb, tile_offsets=torch.zeros_like(
+        sb.tile_offsets), big_n=torch.zeros_like(sb.big_n))
+    _, k1_empty_dev = timings(lambda: raster_cuda.raster_depth(
+        empty, SHADOW, SHADOW, center, with_winner=False), 200)
     k1_plain_ms = cuda_ms(lambda: raster_cuda.raster_depth_plain(
-        sb, SHADOW, SHADOW, center), 5)
-    k1_bound = bound(bins_bytes(sb, False) + nbytes(d_k, w_k),
-                     raster_ops(sb, SHADOW, SHADOW, 1))
-    say("k1", shape=f"{SHADOW}x{SHADOW}x1", ms=f"{k1_ms:.4f}",
-        device_ms=f"{k1_dev:.5f}", plain_ms=f"{k1_plain_ms:.4f}",
-        bound_ms=f"{k1_bound[0]:.5f}", bound_by=k1_bound[1], card=repr(smi))
+        sb, SHADOW, SHADOW, center, with_winner=False), 5)
+    plane_bytes = SHADOW * SHADOW * 4
+    k1_ops = raster_ops(sb, SHADOW, SHADOW, 1)
+    k1_bound = bound(bins_bytes(sb, False) + plane_bytes, k1_ops)
+    k1w_bound = bound(bins_bytes(sb, False) + 2 * plane_bytes, k1_ops)
+    say("k1", shape=f"{SHADOW}x{SHADOW}x1", form="depth_only",
+        ms=f"{k1_ms:.4f}", device_ms=f"{k1_dev:.5f}",
+        plain_ms=f"{k1_plain_ms:.4f}", bound_ms=f"{k1_bound[0]:.5f}",
+        bound_by=k1_bound[1], with_winner_ms=f"{k1w_ms:.4f}",
+        with_winner_device_ms=f"{k1w_dev:.5f}",
+        with_winner_bound_ms=f"{k1w_bound[0]:.5f}",
+        soup4000_device_ms=f"{k1_soup_dev:.5f}",
+        empty_map_device_ms=f"{k1_empty_dev:.5f}",
+        parts=raster_cuda._depth_parts(sb, 1), card=repr(smi))
     stats["raster_depth"] = (k1_err, k1_ms, k1_dev, k1_plain_ms, k1_bound,
                              None, None)
 
@@ -978,42 +1040,68 @@ def main():
                                      device=dev)
               for d, c in zip(disps8, cams_k)]
     sb8 = raster_cuda.stack_bins([p.shadow_bins for p in preps8])
-    d_k, w_k = raster_cuda.raster_depth_batch(sb8, SHADOW, SHADOW, center)
-    d_p, w_p = raster_cuda.raster_depth_batch_plain(sb8, SHADOW, SHADOW,
-                                                    center)
-    k1_eq = True
-    for f, p in enumerate(preps8):
-        d1, w1 = raster_cuda.raster_depth(p.shadow_bins, SHADOW, SHADOW,
-                                          center)
-        k1_eq &= (torch.equal(d1.view(torch.int32), d_k[f].view(torch.int32))
-                  and torch.equal(w1, w_k[f]))
-    torch.cuda.synchronize()
-    win_eq = torch.equal(w_k, w_p)
-    bits_eq = torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
-    k4_err = float((d_k - d_p).abs().max())
-    say("k4", frames=BATCH, shape=f"{BATCH}x{SHADOW}x{SHADOW}x1",
-        covered=int((w_k >= 0).sum()), big_n=sb8.big_n.tolist(),
-        winners_equal=win_eq, depth_bit_equal=bits_eq, equal_to_k1=k1_eq)
-    if not (win_eq and bits_eq and k1_eq):
-        fail("K4 disagrees with its twin or with K1")
+    # And a 2-frame batch of phase 2's crowded soups (lists past a chunk,
+    # big lists near their cap). Each batch with and without the winner
+    # plane, against its twin and against per-frame K1 launches.
+    cb2 = raster_cuda.stack_bins(crowd_bins)
+    k4_err = 0.0
+    for name, bins, per_frame in (("flagship_shadow8", sb8,
+                                   [p.shadow_bins for p in preps8]),
+                                  ("crowd2", cb2, crowd_bins)):
+        d_k, w_k = raster_cuda.raster_depth_batch(bins, SHADOW, SHADOW,
+                                                  center)
+        d_n, w_n = raster_cuda.raster_depth_batch(bins, SHADOW, SHADOW,
+                                                  center, with_winner=False)
+        d_p, w_p = raster_cuda.raster_depth_batch_plain(bins, SHADOW, SHADOW,
+                                                        center)
+        k1_eq = True
+        for f, b in enumerate(per_frame):
+            d1, w1 = raster_cuda.raster_depth(b, SHADOW, SHADOW, center)
+            k1_eq &= (torch.equal(d1.view(torch.int32),
+                                  d_k[f].view(torch.int32))
+                      and torch.equal(w1, w_k[f]))
+        torch.cuda.synchronize()
+        win_eq = torch.equal(w_k, w_p) and w_n is None
+        bits_eq = all(torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+                      for d in (d_k, d_n))
+        k4_err = max(k4_err, float((d_k - d_p).abs().max()),
+                     float((d_n - d_p).abs().max()))
+        say("k4", case=name, frames=len(per_frame),
+            shape=f"{len(per_frame)}x{SHADOW}x{SHADOW}x1",
+            covered=int((w_k >= 0).sum()), big_n=bins.big_n.tolist(),
+            winners_equal=win_eq, depth_bit_equal=bits_eq,
+            equal_to_k1=k1_eq)
+        if not (win_eq and bits_eq and k1_eq):
+            fail(f"K4 disagrees with its twin or with K1 on {name}")
+    del d_k, w_k, d_n, d_p, w_p
+    # The shadow path's form (depth alone) is K4's row; the winner-carrying
+    # form beside it, each with its own byte bound.
     k4_ms, k4_dev = timings(lambda: raster_cuda.raster_depth_batch(
+        sb8, SHADOW, SHADOW, center, with_winner=False), 100)
+    k4w_ms, k4w_dev = timings(lambda: raster_cuda.raster_depth_batch(
         sb8, SHADOW, SHADOW, center), 100)
     k4_plain_ms = cuda_ms(lambda: raster_cuda.raster_depth_batch_plain(
-        sb8, SHADOW, SHADOW, center), 2)
-    k4_bound = bound(bins_bytes(sb8, False) + nbytes(d_k, w_k),
-                     sum(raster_ops(raster_cuda.frame_bins(sb8, f), SHADOW,
-                                    SHADOW, 1)
-                         for f in range(BATCH)))
-    say("k4", ms=f"{k4_ms:.4f}", device_ms=f"{k4_dev:.5f}",
-        plain_ms=f"{k4_plain_ms:.4f}", per_frame_ms=f"{k4_ms / BATCH:.4f}",
-        bound_ms=f"{k4_bound[0]:.5f}", bound_by=k4_bound[1], card=repr(smi))
+        sb8, SHADOW, SHADOW, center, with_winner=False), 2)
+    k4_ops = sum(raster_ops(raster_cuda.frame_bins(sb8, f), SHADOW, SHADOW, 1)
+                 for f in range(BATCH))
+    k4_bound = bound(bins_bytes(sb8, False) + BATCH * plane_bytes, k4_ops)
+    k4w_bound = bound(bins_bytes(sb8, False) + 2 * BATCH * plane_bytes,
+                      k4_ops)
+    say("k4", form="depth_only", ms=f"{k4_ms:.4f}",
+        device_ms=f"{k4_dev:.5f}", plain_ms=f"{k4_plain_ms:.4f}",
+        per_frame_ms=f"{k4_ms / BATCH:.4f}", bound_ms=f"{k4_bound[0]:.5f}",
+        bound_by=k4_bound[1], with_winner_ms=f"{k4w_ms:.4f}",
+        with_winner_device_ms=f"{k4w_dev:.5f}",
+        with_winner_bound_ms=f"{k4w_bound[0]:.5f}",
+        parts=raster_cuda._depth_parts(sb8, BATCH), card=repr(smi))
     stats["raster_depth_batch"] = (k4_err, k4_ms, k4_dev, k4_plain_ms,
                                    k4_bound, None, None)
 
     # 13. K6 against its twin: that batch's main passes -----------------------
     mb8 = raster_cuda.stack_bins([p.main_bins for p in preps8])
     uni8 = torch.stack([p.uniforms for p in preps8])
-    smaps8 = d_k[:, 0]
+    smaps8 = raster_cuda.raster_depth_batch(sb8, SHADOW, SHADOW, center,
+                                            with_winner=False)[0][:, 0]
     r_k, c_k = raster_cuda.render_fused_batch(mb8, uni8, smaps8, W, H,
                                               samples)
     r_p, c_p = raster_cuda.render_fused_batch_plain(mb8, uni8, smaps8, W, H,

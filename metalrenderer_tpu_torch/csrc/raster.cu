@@ -1,10 +1,11 @@
 // Tile-list rasterizer kernels for Hopper (sm_90a), bound with a plain C
 // interface and loaded with ctypes (metalrenderer_tpu_torch/raster/_build.py).
 //
-// K1 raster_depth_kernel replaces the depth-only specialization of the
-//    Pallas band kernel (metalrenderer_tpu/raster/raster_pallas.py,
+// K1 raster_depth_kernel<NS> replaces the depth-only specialization of
+//    the Pallas band kernel (metalrenderer_tpu/raster/raster_pallas.py,
 //    _make_kernel(with_attrs=False), launched by rasterize_tiles): the
-//    shadow pass.
+//    shadow pass, on the tile walk of K2 and K3 with a fragment stage that
+//    stores the per-sample depth and, where the caller asks, the winner.
 // K2 render_fused_kernel replaces its fused-shade specialization (launched
 //    by raster_pallas.render_fused): 4x MSAA visibility, the first covered
 //    sample's attribute planes, Blinn-Phong/emissive shading, the exact
@@ -31,17 +32,13 @@
 //    batch of one (gridDim.z == 1). Frame offsets are size_t: K5's output
 //    at 8 frames of 1080p is 1.06 GB.
 //
-// What bounds K1 and K3s on the H100: K1 does not move many bytes. Each
-// thread walks its tile's candidate list serially (visibility() below: the
-// big list's gate, then candidates x samples x 4 plane evaluations), so the
-// cost is FP32 and integer issue plus the latency of the dependent table
-// loads. A 32x8 block lies inside one binning tile (tiles are 8x128 or
-// 64x128), so every thread of a warp loads the same triangle's fields (one
-// broadcast transaction), the per-sample depth/winner stay in registers,
-// and nothing is written until the pixel is final. No shared memory, no
-// atomics. K3s writes 64 B per SAMPLE (531 MB at 1080p x 4) and is bound by
-// those bytes: a thread stores its pixel's S x 16 values plane by plane,
-// each store coalesced across the warp's 32 consecutive pixels.
+// What bounds K3s on the H100: it writes 64 B per SAMPLE (531 MB at 1080p
+// x 4) and is bound by those bytes. One thread per pixel, 32x8 blocks that
+// lie inside one binning tile (tiles are 8x128 or 16x128 there): each
+// thread walks its tile's list and the gated big list (visibility()
+// below), keeps the per-sample depth and winner in registers, then stores
+// its pixel's S x 16 values plane by plane, each store coalesced across
+// the warp's 32 consecutive pixels.
 //
 // K2 and K6 (render_fused_kernel) replace raster_pallas.render_fused
 // (pallas_call raster_pallas.py:1106) and render_fused_batch (:1380). Their
@@ -83,6 +80,23 @@
 // consecutive floats of one plane across the warp (128 B), and uncovered
 // pixels store zeros in the same instructions, so every store of an
 // interior tile is a whole line.
+//
+// K1 and K4 (raster_depth_kernel) replace rasterize_tiles(with_attrs=
+// False) (pallas_call raster_pallas.py:951) and rasterize_depth_batch
+// (:1184) on the same tile walk, with a fragment stage that stores the
+// per-sample depth, and the winner only where the caller keeps it (the
+// shadow pass does not; the JAX rasterize_depth_batch returns depth only).
+// Their least time is set by bytes: 4 B of depth a sample (4.2 MB a 1024^2
+// shadow map), 8 B with the winner; their operations, 16 per candidate and
+// sample, are few on the shadow pass's short lists. The per-pixel form
+// that came before walked every candidate and gated the whole big list in
+// every thread, which left it at 4x the byte bound. The shadow pass bins
+// on 64x128 tiles: 128 tiles of a 1024^2 map, fewer than the H100's 132
+// SMs, and 8 passes of 8 warps each. So a launch may split every tile's
+// passes over blockIdx.y (gridDim.y parts, each staging the tile's
+// candidates itself) to keep more warps in flight; the wrapper picks the
+// split (raster_cuda._depth_parts: 8 parts for one such map, 4 for eight).
+// The stores are coalesced across the warp's 32 consecutive pixels.
 //
 // Visibility is order-free (see raster_cuda.py): the winner of a sample is
 // the lexicographic minimum of (z, -tid) over its candidates, so the tile
@@ -226,8 +240,9 @@ __device__ __forceinline__ void test_triangle(const float* __restrict__ f,
   }
 }
 
-// Per-sample depth and winner of pixel (px, py): its tile's list, then the
-// live big list behind the big list's AABB gate (raster_pallas.py:513-518).
+// K3s's per-sample depth and winner of pixel (px, py): its tile's list,
+// then the live big list behind the big list's AABB gate (raster_pallas.py:
+// 513-518).
 __device__ void visibility(const Bins& B, const Samples& S, float clear_depth,
                            int px, int py, PixelState& p) {
   p.tx = px / B.tile_w;
@@ -259,28 +274,6 @@ __device__ void visibility(const Bins& B, const Samples& S, float clear_depth,
     if (p.tx < sx0 || p.tx > sx1) continue;
     const int tid = B.big_ids[k];
     test_triangle(B.vis + (size_t)tid * kVis, tid, S.n, p);
-  }
-}
-
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-raster_depth_kernel(Bins B0, Samples S, float clear_depth, int width,
-                    int height, float* __restrict__ depth,
-                    int* __restrict__ winner) {
-  const int px = blockIdx.x * kBlockX + threadIdx.x;
-  const int py = blockIdx.y * kBlockY + threadIdx.y;
-  if (px >= width || py >= height) return;
-  const int f = blockIdx.z;
-  const Bins B = frame_bins(B0, f);
-  PixelState p;
-  visibility(B, S, clear_depth, px, py, p);
-  const size_t plane = (size_t)width * height;
-  const size_t o = (size_t)f * S.n * plane + (size_t)py * width + px;
-#pragma unroll
-  for (int s = 0; s < kMaxSamples; ++s) {
-    if (s < S.n) {
-      depth[s * plane + o] = p.zb[s];
-      winner[s * plane + o] = p.wb[s];
-    }
   }
 }
 
@@ -359,8 +352,8 @@ raster_gbuffer_samples_kernel(Bins B, Samples S, float clear_depth,
   }
 }
 
-// ---- The tile walk: K2/K6 (render_fused_kernel) and K3/K5
-// (raster_gbuffer_kernel). ----------------------------------------------
+// ---- The tile walk: K2/K6 (render_fused_kernel), K3/K5
+// (raster_gbuffer_kernel) and K1/K4 (raster_depth_kernel). --------------
 
 constexpr int kTileThreads = 256;              // one block per binning tile
 constexpr int kTileMinBlocks = 2;              // per SM: <= 128 registers
@@ -648,27 +641,34 @@ __device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
                      a * cf + U[kFuClear + 3] * keep);
 }
 
-// The tile walk of K2/K3 and K5/K6: binning tile blockIdx.x of B. The
-// tile's pixels are row segments of kSegW columns, one per warp and pass; a
-// tile of any shape takes ceil(tile_h * ceil(tile_w / kSegW) / kTileWarps)
-// passes (one for 8x128). Candidates are staged once when they fit in one
-// chunk, else chunk by chunk in every pass; every thread of the block calls
-// stage_chunk, also in warps with no segment left. Then, on each of the
-// lane's pixels inside the tile and the image, frag(zb, wb, px, py) with
-// the pixel's per-sample depth and winner.
+// The tile walk of K1-K6: binning tile blockIdx.x of B. The tile's pixels
+// are row segments of kSegW columns, one per warp and pass; a tile of any
+// shape takes ceil(tile_h * ceil(tile_w / kSegW) / kTileWarps) passes (one
+// for 8x128, eight for 64x128). The block walks part `part` of `n_parts`
+// contiguous ranges of those passes (by default all of them). Candidates
+// are staged at its first pass when they fit in one chunk, else chunk by
+// chunk in every pass; every thread of the block calls stage_chunk, also
+// in warps with no segment left. Then, on each of the lane's pixels inside
+// the tile and the image, frag(zb, wb, px, py) with the pixel's per-sample
+// depth and winner.
 template <int NS, class Frag>
 __device__ __forceinline__ void walk_tile(const Bins& B, const Samples& S,
                                           float clear_depth, int width,
                                           int height, TileStage& st,
-                                          Frag&& frag) {
+                                          Frag&& frag, int part = 0,
+                                          int n_parts = 1) {
   const TileRef T = tile_ref(B, blockIdx.x);
   const int n_chunks = tile_chunks(T);
   const int segs_per_row = (B.tile_w + kSegW - 1) / kSegW;
   const int n_segs = B.tile_h * segs_per_row;
+  const int n_passes = (n_segs + kTileWarps - 1) / kTileWarps;
+  const int per_part = (n_passes + n_parts - 1) / n_parts * kTileWarps;
+  const int g_begin = part * per_part;
+  const int g_end = n_parts == 1 ? n_segs : min(n_segs, g_begin + per_part);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int n_staged = 0;
-  for (int g0 = 0; g0 < n_segs; g0 += kTileWarps) {
+  for (int g0 = g_begin; g0 < g_end; g0 += kTileWarps) {
     const int g = g0 + warp;
     const int row = g / segs_per_row;
     const int seg0 = (g - row * segs_per_row) * kSegW;
@@ -695,7 +695,7 @@ __device__ __forceinline__ void walk_tile(const Bins& B, const Samples& S,
       p.xhi[j] = __fadd_rn((float)(seg0 + 32 * j + 31), oxh);
     }
     for (int c = 0; c < n_chunks; ++c) {
-      if (n_chunks > 1 || g0 == 0) n_staged = stage_chunk(B, T, c, st);
+      if (n_chunks > 1 || g0 == g_begin) n_staged = stage_chunk(B, T, c, st);
       test_staged<NS>(st.tri, n_staged, p);
     }
     const int py = T.y0 + row;
@@ -703,7 +703,7 @@ __device__ __forceinline__ void walk_tile(const Bins& B, const Samples& S,
     for (int j = 0; j < kPixPerLane; ++j) {
       const int cx = col + 32 * j;
       const int px = T.x0 + cx;
-      if (g < n_segs && cx < B.tile_w && px < width && py < height) {
+      if (g < g_end && cx < B.tile_w && px < width && py < height) {
         frag(p.zb[j], p.wb[j], px, py);
       }
     }
@@ -794,6 +794,39 @@ raster_gbuffer_kernel(Bins B0, Samples S, float clear_depth,
                 });
 }
 
+// K1/K4 with one sample hold a small SegmentState, so their instance asks
+// for more blocks an SM than the others' 128-register cap allows.
+constexpr int kDepthMinBlocks1 = 4;
+
+// K1/K4: the depth-only raster (raster_pallas.rasterize_tiles with
+// with_attrs=False, and rasterize_depth_batch) on the tile walk, one block
+// per binning tile (blockIdx.x), part of its passes (blockIdx.y of
+// gridDim.y) and frame (blockIdx.z). depth f32[F,S,H,W]; winner i32[F,S,H,W]
+// only when not null.
+template <int NS>
+__global__ void __launch_bounds__(kTileThreads,
+                                  NS == 1 ? kDepthMinBlocks1 : kTileMinBlocks)
+raster_depth_kernel(Bins B0, Samples S, float clear_depth, int width,
+                    int height, float* __restrict__ depth,
+                    int* __restrict__ winner) {
+  __shared__ TileStage st;
+  const int fr = blockIdx.z;
+  const size_t plane = (size_t)width * height;
+  const size_t frame_o = (size_t)fr * NS * plane;
+  walk_tile<NS>(frame_bins(B0, fr), S, clear_depth, width, height, st,
+                [&](const float (&zb)[NS], const int (&wb)[NS], int px,
+                    int py) {
+                  const size_t o = frame_o + (size_t)py * width + px;
+#pragma unroll
+                  for (int s = 0; s < NS; ++s) depth[s * plane + o] = zb[s];
+                  if (winner != nullptr) {
+#pragma unroll
+                    for (int s = 0; s < NS; ++s) winner[s * plane + o] = wb[s];
+                  }
+                },
+                blockIdx.y, gridDim.y);
+}
+
 Samples make_samples(int n, float ox0, float oy0, float ox1, float oy1,
                      float ox2, float oy2, float ox3, float oy3) {
   Samples S;
@@ -855,13 +888,20 @@ dim3 tile_grid(const Bins& B, int frames) { return dim3(B.n_tiles, 1, frames); }
   const Samples S =                                                        \
       make_samples(n_samples, ox0, oy0, ox1, oy1, ox2, oy2, ox3, oy3)
 
+// parts: each tile's passes split over that many blocks (gridDim.y);
+// winner: nullptr for depth alone.
 extern "C" int mr_raster_depth(MR_BINS_PARAMS, int width, int height,
-                               float* depth, int* winner, void* stream) {
+                               int parts, float* depth, int* winner,
+                               void* stream) {
+  if (parts < 1 || parts > 65535) return (int)cudaErrorInvalidValue;
   MR_BINS_SETUP;
-  raster_depth_kernel<<<grid_for(width, height, frames),
-                        dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-      B, S, clear_depth, width, height, depth, winner);
-  return (int)cudaGetLastError();
+  return with_sample_count(n_samples, [&](auto ns) {
+    raster_depth_kernel<decltype(ns)::value>
+        <<<dim3(B.n_tiles, parts, frames), kTileThreads, 0,
+           (cudaStream_t)stream>>>(B, S, clear_depth, width, height, depth,
+                                   winner);
+    return (int)cudaGetLastError();
+  });
 }
 
 // depth/winner: nullptr unless the per-sample planes are wanted.

@@ -234,18 +234,21 @@ def prepare_frame(scene: Scene, camera, lighting,
 
 
 def _shadow_pass(shadow_bins, config, stats):
-    """K1 on one frame's shadow bins, or K4 on a batch's: the shadow map
-    f32[S, S] or f32[F, S, S] (None without shadow bins)."""
+    """K1 on one frame's shadow bins, or K4 on a batch's, depth alone (no
+    winner plane, as the JAX ``rasterize_depth_batch`` returns): the shadow
+    map f32[S, S] or f32[F, S, S] (None without shadow bins)."""
     if shadow_bins is None:
         return None
     size = config.shadow_map_size
     if raster_cuda.is_batch(shadow_bins):
         depth, _ = raster_cuda.raster_depth_batch(
-            shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0)
+            shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0,
+            with_winner=False)
         shadow_map = depth[:, 0]
     else:
         depth, _ = raster_cuda.raster_depth(shadow_bins, size, size,
-                                            ((0.5, 0.5),), clear_depth=1.0)
+                                            ((0.5, 0.5),), clear_depth=1.0,
+                                            with_winner=False)
         shadow_map = depth[0]
     stats["shadow_min_depth"] = torch.amin(shadow_map, dim=(-2, -1))
     return shadow_map

@@ -7,7 +7,9 @@ specializations of one Pallas band-kernel factory
 first three with a frame-batch wrapper that launches them once over F frames:
 
 ``raster_depth`` (K1) — the depth-only specialization (``with_attrs=False``,
-launched by ``rasterize_tiles``). The shadow pass.
+launched by ``rasterize_tiles``): per-sample depth and winner, or depth
+alone (``with_winner=False``, what the shadow pass asks for). The shadow
+pass.
 
 ``render_fused`` (K2) — the fused-shade specialization (launched by
 ``raster_pallas.render_fused``): MSAA visibility, the first covered sample's
@@ -69,21 +71,21 @@ What the kernels compute (and the twins, in the same operation order):
   triangle takes the sample (``where(take8, val, old)``), which leaves the
   final winner's values, the same thing.
 
-On the H100 K1 is not bound by memory traffic: a thread walks its tile's
-candidate list serially (FP32 issue plus dependent table loads), so the
-design keeps that walk warp-uniform — a 32x8 block lies inside one binning
-tile, every lane loads the same triangle's fields — and keeps the
-per-sample depth and winner in registers (``csrc/raster.cu`` header). K3s
-writes 64 bytes per sample (531 MB at 1920x1080x4), which bound it. K2, K3
-and their batch forms K5, K6 share one tile walk, one block per binning
-tile and frame: the block gates the tile's candidates once, stages them in
-shared memory ``FUSED_STAGING_CHUNK`` at a time with their planes anchored
-on the tile, and every warp tests them on its pixels by broadcast,
-skipping a candidate where a bound on its rounded edge values shows that
-no sample of the warp's pixels can be inside (a skip that changes no
-result); they take any tile shape. Only the fragment stage differs: K2
-shades, K3 stores the 16 gout rows (64 bytes a pixel, which bound it),
-each row's store coalesced across the warp.
+On the H100 K3s writes 64 bytes per sample (531 MB at 1920x1080x4), which
+bound it; a thread per pixel walks its tile's candidate list serially
+(``csrc/raster.cu`` header). K1, K2, K3 and their batch forms K4, K5, K6
+share one tile walk, one block per binning tile and frame: the block gates
+the tile's candidates once, stages them in shared memory
+``FUSED_STAGING_CHUNK`` at a time with their planes anchored on the tile,
+and every warp tests them on its pixels by broadcast, skipping a candidate
+where a bound on its rounded edge values shows that no sample of the
+warp's pixels can be inside (a skip that changes no result); they take any
+tile shape. Only the fragment stage differs: K1 stores the depth (and the
+winner if asked: 4 or 8 bytes a sample, its byte bound), K2 shades, K3
+stores the 16 gout rows (64 bytes a pixel, which bound it), each store
+coalesced across the warp. K1 and K4 may split a tile's passes over
+several blocks (``_depth_parts``): the shadow pass's 1024^2 map has only
+128 tiles of 64x128.
 
 The twins work on pieces of tile rows at a time, so they run at 1080p MSAA4
 on the card as well as on the CPU.
@@ -284,9 +286,10 @@ def _place(x, bins: TileBins, tiles, out):
 
 
 def raster_depth_plain(bins: TileBins, width, height, sample_offsets,
-                       clear_depth=1.0):
+                       clear_depth=1.0, with_winner=True):
     """Plain PyTorch twin of the ``raster_depth`` kernel (same inputs, same
-    arithmetic). Returns (depth f32[S,H,W], winner i32[S,H,W])."""
+    arithmetic). Returns (depth f32[S,H,W], winner i32[S,H,W], or None
+    without ``with_winner``)."""
     dev = bins.vis.device
     S = len(sample_offsets)
     xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
@@ -298,7 +301,7 @@ def raster_depth_plain(bins: TileBins, width, height, sample_offsets,
         _place(zb, bins, tiles, depth)
         _place(wb.to(torch.int32), bins, tiles, winner)
     return (depth[:, :height, :width].contiguous(),
-            winner[:, :height, :width].contiguous())
+            winner[:, :height, :width].contiguous() if with_winner else None)
 
 
 def _first_covered(bins: TileBins, tiles, wb, sample_offsets):
@@ -469,14 +472,16 @@ def _frames(bins: TileBins):
 
 
 def raster_depth_batch_plain(bins: TileBins, width, height,
-                             sample_offsets, clear_depth=1.0):
+                             sample_offsets, clear_depth=1.0,
+                             with_winner=True):
     """Plain twin of ``raster_depth_batch``: ``raster_depth_plain`` frame by
-    frame. Returns (depth f32[F,S,H,W], winner i32[F,S,H,W])."""
+    frame. Returns (depth f32[F,S,H,W], winner i32[F,S,H,W], or None
+    without ``with_winner``)."""
     outs = [raster_depth_plain(frame_bins(bins, f), width, height,
-                               sample_offsets, clear_depth)
+                               sample_offsets, clear_depth, with_winner)
             for f in range(_frames(bins))]
     return (torch.stack([d for d, _ in outs]),
-            torch.stack([w for _, w in outs]))
+            torch.stack([w for _, w in outs]) if with_winner else None)
 
 
 def raster_gbuffer_batch_plain(bins: TileBins, width, height,
@@ -562,7 +567,7 @@ _SAMPLE_ARGS = [_I] + [_F] * (2 * MAX_SAMPLES) + [_F]   # n, offsets, clear
 def _lib():
     lib = _build.load_library()
     lib.mr_raster_depth.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
-                                    + [_I, _I, _P, _P, _P])
+                                    + [_I, _I, _I, _P, _P, _P])
     lib.mr_raster_depth.restype = _I
     lib.mr_render_fused.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
                                     + [_P, _P, _P, _I, _I]
@@ -627,46 +632,72 @@ def _sample_args(sample_offsets, clear_depth):
     return [len(sample_offsets)] + flat + [float(clear_depth)]
 
 
+# K1/K4 split every tile's passes over blockIdx.y until the grid holds at
+# least this many blocks (about four times the 132 x 8 blocks an H100 holds
+# at once), or every pass has a block of its own. Measured on the H100
+# (PERF.md): one 1024^2 shadow map runs fastest at 8 parts (1,024 blocks),
+# eight of them at 4 parts (4,096 blocks).
+_DEPTH_GRID_BLOCKS = 4096
+
+
+def _depth_parts(bins: TileBins, frames):
+    """Blocks each tile's passes are split over in K1/K4 (gridDim.y). A
+    pass is kTileWarps = 8 row segments of kSegW = 128 columns
+    (``csrc/raster.cu`` walk_tile)."""
+    segs = bins.tile_h * -(-bins.tile_w // 128)
+    passes = -(-segs // 8)
+    blocks = bins.ntx * bins.nty * frames
+    parts = 1
+    while parts < passes and blocks * parts < _DEPTH_GRID_BLOCKS:
+        parts *= 2
+    return min(parts, passes)
+
+
 def _launch_depth(name, bins, width, height, sample_offsets, clear_depth,
-                  lead):
+                  lead, with_winner):
     device = bins.vis.device
     args = (_bins_args(bins, device, lead)
             + _sample_args(sample_offsets, clear_depth))
     shape = lead + (len(sample_offsets), height, width)
     depth = torch.empty(shape, dtype=torch.float32, device=device)
-    winner = torch.empty(shape, dtype=torch.int32, device=device)
-    err = _lib().mr_raster_depth(*args, width, height, _build.ptr(depth),
-                                 _build.ptr(winner), _build.stream(device))
+    winner = (torch.empty(shape, dtype=torch.int32, device=device)
+              if with_winner else None)
+    parts = _depth_parts(bins, lead[0] if lead else 1)
+    err = _lib().mr_raster_depth(*args, width, height, parts,
+                                 _build.ptr(depth), _build.ptr(winner),
+                                 _build.stream(device))
     _build.raise_on(err, name)
     LAUNCHES[name] += 1
     return depth, winner
 
 
 def raster_depth(bins: TileBins, width, height, sample_offsets,
-                 clear_depth=1.0):
+                 clear_depth=1.0, with_winner=True):
     """Depth-only raster (kernel K1). Returns (depth f32[S,H,W], winner
-    i32[S,H,W]; -1 = no triangle). CPU tensors go to the plain twin; CUDA
-    tensors launch the kernel, and a failed launch raises."""
+    i32[S,H,W]; -1 = no triangle); without ``with_winner`` no winner plane
+    is written and None comes in its place. CPU tensors go to the plain
+    twin; CUDA tensors launch the kernel, and a failed launch raises."""
     _check_grid(bins, width, height)
     if bins.vis.device.type == "cpu":
         return raster_depth_plain(bins, width, height, sample_offsets,
-                                  clear_depth)
+                                  clear_depth, with_winner)
     return _launch_depth("raster_depth", bins, width, height, sample_offsets,
-                         clear_depth, ())
+                         clear_depth, (), with_winner)
 
 
 def raster_depth_batch(bins: TileBins, width, height, sample_offsets,
-                       clear_depth=1.0):
+                       clear_depth=1.0, with_winner=True):
     """K1 over a ``stack_bins`` frame batch in one launch (kernel K4).
-    Returns (depth f32[F,S,H,W], winner i32[F,S,H,W]). CPU tensors go to
-    the plain twin; CUDA tensors launch the kernel, and a failed launch
-    raises."""
+    Returns (depth f32[F,S,H,W], winner i32[F,S,H,W], or None without
+    ``with_winner``). CPU tensors go to the plain twin; CUDA tensors launch
+    the kernel, and a failed launch raises."""
     _check_grid(bins, width, height)
     if bins.vis.device.type == "cpu":
         return raster_depth_batch_plain(bins, width, height, sample_offsets,
-                                        clear_depth)
+                                        clear_depth, with_winner)
     return _launch_depth("raster_depth_batch", bins, width, height,
-                         sample_offsets, clear_depth, (_frames(bins),))
+                         sample_offsets, clear_depth, (_frames(bins),),
+                         with_winner)
 
 
 def _launch_gbuffer(name, bins, width, height, sample_offsets, clear_depth,

@@ -28,7 +28,9 @@ Tolerances, with their reasons:
     frame: the batch kernels run the per-frame kernels' code on each
     frame's bins;
   * K4 depth bit-equal to a numpy evaluation that rounds every step, within
-    1e-6 of the interpret-mode kernel (C6); winners equal.
+    1e-6 of the interpret-mode kernel (C6); winners equal;
+  * the shadow pass asks K1/K4 for depth alone: its shadow maps bit-equal
+    to the winner-carrying form's depth.
 """
 import dataclasses
 import functools
@@ -50,7 +52,7 @@ from metalrenderer_tpu.scene import lights as j_lights
 from metalrenderer_tpu.scene.camera import OrbitCamera as JCamera
 from metalrenderer_tpu.scene.scene import bake, project
 
-from test_torch_raster import _numpy_anchored_depth
+from test_torch_raster import _numpy_anchored_depth, _small_soup, _to
 
 from metalrenderer_tpu_torch import convert, render_batch
 from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
@@ -443,6 +445,39 @@ def test_render_fused_batch_plain_matches_pallas():
     assert float(covf_p[2].mean()) == 1.0 and float(covf_p[0].mean()) < 1.0
 
 
+@pytest.mark.parametrize("batch", [False, True], ids=["frame", "batch"])
+def test_shadow_pass_asks_for_depth_alone(batch, monkeypatch):
+    """``_shadow_pass`` launches K1 (one frame) or K4 (a batch) with no
+    winner plane, and its shadow map and ``shadow_min_depth`` are those of
+    the winner-carrying form: bit-equal."""
+    preps = [pipeline.prepare_frame(_scene(), dataclasses.replace(
+        CAM, theta=t), Lighting.default(), CFG, displacement=d,
+        shadow_target=TARGET, device="cpu") for d, t in zip(DISPS, THETAS)]
+    if batch:
+        bins = raster_cuda.stack_bins([p.shadow_bins for p in preps])
+        ref = raster_cuda.raster_depth_batch_plain(
+            bins, 64, 64, ((0.5, 0.5),))[0][:, 0]
+    else:
+        bins = preps[0].shadow_bins
+        ref = raster_cuda.raster_depth_plain(bins, 64, 64,
+                                             ((0.5, 0.5),))[0][0]
+    asked = []
+    for name in ("raster_depth", "raster_depth_batch"):
+        def spy(*args, _fn=getattr(raster_cuda, name), _name=name, **kw):
+            asked.append((_name, kw.get("with_winner", True)))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(raster_cuda, name, spy)
+    stats = {}
+    smap = pipeline._shadow_pass(bins, CFG, stats)
+    assert asked == [("raster_depth_batch" if batch else "raster_depth",
+                      False)]
+    assert bool((ref < 1.0).any())
+    assert smap.shape == ref.shape
+    assert torch.equal(smap.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(stats["shadow_min_depth"],
+                       torch.amin(ref, dim=(-2, -1)))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -479,3 +514,19 @@ def test_batch_kernels_match_twins_on_card(cuda_device):
         r2, _ = raster_cuda.render_fused(p.main_bins, p.uniforms, d1[0], W,
                                          H, samples)
         assert torch.equal(d1, d_k[f]) and torch.equal(r2, r_k[f])
+    # K4 on a 2-frame batch of crowded soups (tile lists longer than one
+    # staging chunk) on the shadow pass's 64x128 tiles, with and without the
+    # winner plane: bit-equal to its twin and to per-frame K1 launches.
+    soups = [_to(_small_soup(128, 64, 320, 240, seed=seed), cuda_device)
+             for seed in (11, 12)]
+    sb2 = raster_cuda.stack_bins(soups)
+    d_k, w_k = raster_cuda.raster_depth_batch(sb2, 320, 240, center)
+    d_n, w_n = raster_cuda.raster_depth_batch(sb2, 320, 240, center,
+                                              with_winner=False)
+    d_p, w_p = raster_cuda.raster_depth_batch_plain(sb2, 320, 240, center)
+    per_frame = [raster_cuda.raster_depth(b, 320, 240, center) for b in soups]
+    torch.cuda.synchronize()
+    assert torch.equal(w_k, w_p) and w_n is None
+    for d in (d_n, d_p, torch.stack([d1 for d1, _ in per_frame])):
+        assert torch.equal(d_k.view(torch.int32), d.view(torch.int32))
+    assert torch.equal(w_k, torch.stack([w1 for _, w1 in per_frame]))

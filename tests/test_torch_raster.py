@@ -25,9 +25,12 @@ Tolerances, with their reasons:
     attribute rows as K3's (bit-equal to the no-FMA numpy evaluation,
     1e-6 relative to their magnitude of the interpret-mode kernel), row 15
     bit-equal to the twin's own depth;
-  * K2's and K3's twins with every tile's candidates permuted: bit-equal
-    to themselves unpermuted (the order-free visibility that lets the
-    kernels stage and chunk candidates in any order).
+  * K1's, K2's and K3's twins with every tile's candidates permuted:
+    bit-equal to themselves unpermuted (the order-free visibility that lets
+    the kernels stage and chunk candidates in any order);
+  * K1 and K4 without the winner plane (``with_winner=False``, the shadow
+    pass's form): depth bit-equal to the winner-carrying form, and None in
+    the winner's place.
 """
 import functools
 
@@ -442,6 +445,67 @@ def test_raster_gbuffer_plain_is_order_free(case, perm_seed, monkeypatch):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def _depth_case(case):
+    """Bins, width and height of a K1 case: a crowded soup (a tile list
+    longer than a staging chunk) on the shadow pass's 64x128 tiles or on
+    8x128 tiles, or the flagship's 128^2 shadow pass."""
+    if case == "soup_320x240_64x128":
+        return _small_soup(128, 64, 320, 240), 320, 240
+    if case == "soup_256x64_8x128":
+        return _small_soup(), 256, 64
+    return _flagship_prep()[0].shadow_bins, 128, 128
+
+
+@pytest.mark.parametrize("perm_seed", [0, 1])
+@pytest.mark.parametrize("case", ["soup_320x240_64x128", "soup_256x64_8x128",
+                                  "flagship_shadow_128"])
+def test_raster_depth_plain_is_order_free(case, perm_seed, monkeypatch):
+    """K1 and K4 stage a tile's candidates as K2 does (ballot order, chunk
+    by chunk past one chunk): the twin's depth and winner keep their bits
+    whatever order each tile's candidates come in."""
+    bins, width, height = _depth_case(case)
+    if case.startswith("soup"):
+        assert int(candidate_counts(bins).max()) > \
+            raster_cuda.FUSED_STAGING_CHUNK
+        rows = bins.vis[:, :15]
+        assert torch.unique(rows, dim=0).shape[0] < rows.shape[0]
+    else:
+        assert int(candidate_counts(bins).max()) > 1
+    d, w = raster_cuda.raster_depth_plain(bins, width, height, CENTER)
+    assert 0.0 < float((w >= 0).float().mean()) < 1.0
+    moved = _shuffle_candidates(monkeypatch, perm_seed)
+    d_s, w_s = raster_cuda.raster_depth_plain(bins, width, height, CENTER)
+    assert any(moved)
+    assert torch.equal(w_s, w)
+    assert torch.equal(d_s.view(torch.int32), d.view(torch.int32))
+
+
+@pytest.mark.parametrize("batch,samples", [(False, CENTER), (True, MSAA4)],
+                         ids=["frame_msaa1", "batch_msaa4"])
+def test_raster_depth_without_winner(batch, samples):
+    """``with_winner=False`` (the shadow pass's form) returns the twin's
+    depth bits and None for the winner, from the wrapper and from the twin,
+    on one frame (K1) and on a 2-frame batch (K4); on the CPU it launches
+    nothing."""
+    soups = [_small_soup(128, 64, seed=sd) for sd in (11, 12)]
+    if batch:
+        bins = raster_cuda.stack_bins(soups)
+        wrapper = raster_cuda.raster_depth_batch
+        plain = raster_cuda.raster_depth_batch_plain
+    else:
+        bins = soups[0]
+        wrapper, plain = raster_cuda.raster_depth, raster_cuda.raster_depth_plain
+    d, w = plain(bins, 256, 64, samples)
+    assert d.shape == w.shape == (2,) * batch + (len(samples), 64, 256)
+    assert bool((w >= 0).any())
+    before = dict(raster_cuda.LAUNCHES)
+    for fn in (wrapper, plain):
+        d_n, w_n = fn(bins, 256, 64, samples, with_winner=False)
+        assert w_n is None
+        assert torch.equal(d_n.view(torch.int32), d.view(torch.int32))
+    assert raster_cuda.LAUNCHES == before
+
+
 @pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
 def test_sample_bilinear_matches(mode):
     """The twin's shadow lookup: same texels and weights as the JAX
@@ -476,10 +540,31 @@ def test_kernels_match_twins_on_card(cuda_device):
         setup_j, width, height, tile_h, tile_w = case()
         bins = _to(_bins(setup_j, width, height, tile_w, tile_h), cuda_device)
         d_k, w_k = raster_cuda.raster_depth(bins, width, height, CENTER)
+        d_n, w_n = raster_cuda.raster_depth(bins, width, height, CENTER,
+                                            with_winner=False)
         d_p, w_p = raster_cuda.raster_depth_plain(bins, width, height, CENTER)
         torch.cuda.synchronize()
-        assert torch.equal(w_k, w_p)
+        assert torch.equal(w_k, w_p) and w_n is None
         assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+        assert torch.equal(d_n.view(torch.int32), d_p.view(torch.int32))
+    # K1 on lists longer than one staging chunk (two chunks), on the shadow
+    # pass's 64x128 tiles and on a ragged size with another tile shape, at
+    # 1 and 4 samples, with and without the winner plane.
+    for tile_w, tile_h, width, height in ((128, 64, 320, 240),
+                                          (40, 24, 200, 45)):
+        bins = _to(_small_soup(tile_w, tile_h, width, height), cuda_device)
+        assert int(candidate_counts(bins).max()) > \
+            raster_cuda.FUSED_STAGING_CHUNK
+        for samples in (CENTER, MSAA4):
+            d_k, w_k = raster_cuda.raster_depth(bins, width, height, samples)
+            d_n, w_n = raster_cuda.raster_depth(bins, width, height, samples,
+                                                with_winner=False)
+            d_p, w_p = raster_cuda.raster_depth_plain(bins, width, height,
+                                                      samples)
+            torch.cuda.synchronize()
+            assert torch.equal(w_k, w_p) and w_n is None
+            assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
+            assert torch.equal(d_n.view(torch.int32), d_p.view(torch.int32))
     setup, pg, funi, smap = _fused_inputs()
     bins = _to(_bins(setup, 96, 72, 128, 8, pg), cuda_device)
     u = convert.tensor(funi, cuda_device)
