@@ -35,7 +35,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      1000x601 on 8x128 tiles, 1000x601 on 40x24 tiles with the per-sample
      depth and winner planes) — gout (and depth, winner) bit-equal;
   7. K7 sample_bilinear against its twin on that frame's shadow lookup
-     (its 1024^2 shadow map) — max abs error 0; beside it, the time of one
+     (its 1024^2 shadow map) — max abs error 0 — and, bit-equal, on the
+     same planes with no pixel sampled (timed: the launch's fixed cost,
+     beside its bound) and on views of them that start 4, 8 and 12 bytes
+     past a 16-byte boundary (out of phase with the output: the kernel's
+     scalar path); K7's ptxas line; beside it, the time of one
      torch.nn.functional.grid_sample call on the map padded by one wrapped
      texel (a yardstick only: the port never calls it);
   8. K9 sample_pyramid against its twin on that frame's normal-map lookup
@@ -68,8 +72,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      13's soups — gout bit-equal, and bit-equal to per-frame K3 launches;
  15. K8 sample_bilinear_batch against its twin on those frames' shadow
      lookups (their own 1024^2 maps) — max abs error 0, and bit-equal to
-     eight K7 launches; beside it, the time of one grid_sample call on the
-     eight padded maps at the eight frames' coordinates (as in phase 7);
+     eight K7 launches — and on those lookups cut to 1919x1079 a frame
+     (an odd H*W: each frame's planes start at another vector phase),
+     bit-equal to the twin and to K7; beside it, the time of one
+     grid_sample call on the eight padded maps at the eight frames'
+     coordinates (as in phase 7);
  16. serve batches of 8 frames through render_batch(device="cuda"): the
      flagship (displacements linspace(0, 0.05, 8)) and config 4 (phase
      10's cameras): median/min/max ms per batch and per frame, Mpixel/s;
@@ -159,13 +166,13 @@ raster kernels' operations are counted from this run's bins: 16 per
 and two adds — plus 60 per covered pixel for the 15 attribute planes
 (K2, K3), 60 per covered sample (K3s, whose bytes are 64 per sample of
 gout plus the per-sample depth and winner planes); the samplers' per
-sampled pixel: 18 (K7), 94 (K9). The
-samplers read u, v (and K9 its LOD) only where the mask is set, so their
-bytes count 8 (K7, K8) or 12 (K9) per sampled pixel, plus the whole
-texture, mask and output. K1 and K4 write 4 B of depth a sample, 8 B with
-the winner plane: each form has its own bound. A batch kernel's bound counts every frame's
-bytes and operations (K4, K5, K6 as K1, K3, K2 summed over the frames;
-K8 as K7).
+sampled pixel: 18 (K7), 94 (K9). The samplers read u, v (and K9 its
+LOD) only where the mask is set, so their bytes count 8 (K7, K8) or 12
+(K9) per sampled pixel, plus the whole texture, mask and output (K7 with
+no pixel sampled: mask and output). K1 and K4 write 4 B of depth a
+sample, 8 B with the winner plane: each form has its own bound. A batch
+kernel's bound counts every frame's bytes and operations (K4, K5, K6 as
+K1, K3, K2 summed over the frames; K8 as K7).
 """
 from __future__ import annotations
 
@@ -574,8 +581,9 @@ def main():
     mip_cuda._lib()
     build_s = time.perf_counter() - t0
     log = (_build.library_path().parent / "build.log").read_text()
+    ptxas = ptxas_summary(log)
     say("build", seconds=f"{build_s:.2f}", lib=_build.library_path().name,
-        ptxas=json.dumps(ptxas_summary(log)),
+        ptxas=json.dumps(ptxas),
         sass_instructions=json.dumps(sass_counts(_build.library_path())))
 
     # Flagship inputs, built by the port's own prep on the card.
@@ -897,11 +905,36 @@ def main():
     k7_err = float((d_k - d_p).abs().max())
     sampled7 = int(smask.sum())
     say("k7", case="config4_shadow_lookup", map=f"{SHADOW}x{SHADOW}",
-        grid=f"{W}x{H}", sampled_px=sampled7, max_abs_err=k7_err, tol=0)
+        grid=f"{W}x{H}", sampled_px=sampled7, max_abs_err=k7_err, tol=0,
+        ptxas=repr(ptxas.get("sample_bilinear_kernel")))
     if not k7_err == 0.0 or sampled7 == 0:
         fail("K7 disagrees with its twin (or sampled nothing)")
+    # The same lookup with no pixel sampled (the launch's fixed cost), and
+    # on views of its planes that start 4, 8 and 12 bytes past a 16-byte
+    # boundary (out of phase with the output: the kernel's scalar path),
+    # each bit-equal to the twin.
+    none7 = torch.zeros_like(smask)
+    flat = [torch.cat([a.new_zeros(3), a.reshape(-1)])
+            for a in (su, sv, smask)]
+    views7 = [("no_pixel_sampled", (su, sv, none7))] + [
+        (f"view_at_{4 * k}_bytes", tuple(a[k:k + su.numel()] for a in flat))
+        for k in (1, 2, 3)]
+    for name, (uu, vv, mm) in views7:
+        o_k = sample_cuda.sample_bilinear(smap4, uu, vv, sampling.REPEAT,
+                                          1.0, mm)
+        o_p = sample_cuda.sample_bilinear_plain(smap4, uu, vv,
+                                                sampling.REPEAT, 1.0, mm)
+        torch.cuda.synchronize()
+        eq = torch.equal(o_k.view(torch.int32), o_p.view(torch.int32))
+        say("k7", case=name, u_offset_mod_16=uu.data_ptr() % 16,
+            sampled_px=int(mm.sum()), bit_equal=eq)
+        if not eq:
+            fail(f"K7 disagrees with its twin on {name}")
+    del flat, views7, o_k, o_p
     k7_ms, k7_dev = timings(lambda: sample_cuda.sample_bilinear(
         smap4, su, sv, sampling.REPEAT, 1.0, smask), 200)
+    _, k7_none_dev = timings(lambda: sample_cuda.sample_bilinear(
+        smap4, su, sv, sampling.REPEAT, 1.0, none7), 200)
     k7_plain_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_plain(
         smap4, su, sv, sampling.REPEAT, 1.0, smask), 20)
     grid_sample = wrapped_grid_sample(smap4[None], su[None], sv[None])
@@ -910,12 +943,17 @@ def main():
     # u and v are read only where the mask is set: 8 bytes per sampled px.
     k7_bound = bound(nbytes(smap4, smask, d_k) + 8 * sampled7,
                      18 * sampled7)
+    # With no pixel sampled the launch reads the mask and writes out.
+    k7_none_bound = bound(nbytes(smask, d_k), 0)
     say("k7", ms=f"{k7_ms:.4f}", device_ms=f"{k7_dev:.5f}",
         plain_ms=f"{k7_plain_ms:.4f}", library_ms=f"{k7_lib_ms:.4f}",
         library_device_ms=f"{k7_lib_dev:.5f}", library_max_abs_err=lib_err,
-        bound_ms=f"{k7_bound[0]:.5f}", bound_by=k7_bound[1], card=repr(smi))
+        bound_ms=f"{k7_bound[0]:.5f}", bound_by=k7_bound[1],
+        no_pixel_sampled_device_ms=f"{k7_none_dev:.5f}",
+        no_pixel_sampled_bound_ms=f"{k7_none_bound[0]:.5f}", card=repr(smi))
     stats["sample_bilinear"] = (k7_err, k7_ms, k7_dev, k7_plain_ms, k7_bound,
                                 k7_lib_ms, k7_lib_dev)
+    del none7
 
     # 8. K9 against its twin: config 4's normal map, the grass cube's color --
     gscene = audio_app.build_scene(textures=(audio_app.grass_texture(),),
@@ -1254,9 +1292,28 @@ def main():
     sampled8 = int(smask.sum())
     say("k8", frames=BATCH, maps=f"{BATCH}x{SHADOW}x{SHADOW}",
         grid=f"{BATCH}x{W}x{H}", sampled_px=sampled8, max_abs_err=k8_err,
-        tol=0, equal_to_k7=k7_eq)
+        tol=0, equal_to_k7=k7_eq,
+        ptxas=repr(ptxas.get("sample_bilinear_kernel")))
     if not (k8_err == 0.0 and k7_eq) or sampled8 == 0:
         fail("K8 disagrees with its twin or with K7 (or sampled nothing)")
+    # Frames of (H-1) x (W-1) pixels, an odd count: each frame's planes
+    # start at another phase of the kernel's 8-pixel vectors.
+    r_args = (smaps48, *(a[:, :H - 1, :W - 1].contiguous()
+                         for a in (su, sv)), sampling.REPEAT, 1.0,
+              smask[:, :H - 1, :W - 1].contiguous())
+    r_k = sample_cuda.sample_bilinear_batch(*r_args)
+    r_p = sample_cuda.sample_bilinear_batch_plain(*r_args)
+    r_eq = torch.equal(r_k.view(torch.int32), r_p.view(torch.int32))
+    r7_eq = all(torch.equal(sample_cuda.sample_bilinear(
+        smaps48[f], r_args[1][f], r_args[2][f], sampling.REPEAT, 1.0,
+        r_args[5][f]), r_k[f]) for f in range(BATCH))
+    torch.cuda.synchronize()
+    say("k8", case="ragged_frames", grid=f"{BATCH}x{W - 1}x{H - 1}",
+        hw_mod_8=(H - 1) * (W - 1) % 8, sampled_px=int(r_args[5].sum()),
+        bit_equal=r_eq, equal_to_k7=r7_eq)
+    if not (r_eq and r7_eq):
+        fail("K8 disagrees with its twin or with K7 on ragged frames")
+    del r_args, r_k, r_p
     k8_ms, k8_dev = timings(lambda: sample_cuda.sample_bilinear_batch(
         *s_args), 100)
     k8_plain_ms = cuda_ms(lambda: sample_cuda.sample_bilinear_batch_plain(

@@ -6,19 +6,26 @@ f32[TH, TW] sampled at f32 ``u, v`` grids with ``sampling.sample_bilinear``
 semantics (half-texel centres, REPEAT or CLAMP addressing); pixels outside
 ``mask`` read ``oob_value``. The split path's shadow test is its caller.
 The grids may have any shape: [S, H, W] sample planes against the one
-texture are sampled in one launch over the flattened planes (threads index
-pixels linearly), where the JAX package launches its kernel once per
-sample plane.
+texture are sampled in one launch over the flattened planes, as one frame
+of S*H*W pixels, where the JAX package launches its kernel once per sample
+plane.
 ``sample_bilinear_batch`` (K8) replaces ``sample_bilinear_tiled_batch``
 (-> ``_sample_padded_frames``): one texture per frame, f32[F, TH, TW] at
 f32[F, H, W] grids in one launch of the same kernel (the batched shadow
-test); each frame is bit-equal to K7 on that frame.
+test), the frame the grid's z index; each frame is bit-equal to K7 on that
+frame.
 
 The Pallas kernel DMAs a window of the texture per 8x128 tile and sweeps
 segments for footprints beyond it; the CUDA kernel (``csrc/sample.cu``)
 reads the four taps of each pixel straight from the whole texture, which
-stays in L2. It is bound by the bytes of its per-pixel planes; see the
-source's header.
+stays in L2. A thread takes two quads of 4 consecutive pixels, a warp's
+width apart: per quad the mask as one 4-byte word, u and v as float4
+loads where a pixel of the quad is sampled, its 16 taps in flight with
+the other quad's, out as float4 stores, so a pixel's three dependent
+memory round trips are paid once per 8 pixels. Each frame's pixels before
+its first aligned quad and after its last take scalar accesses, as does a
+frame whose ``u``, ``v`` and output are not aligned alike (a view). See
+the source's header for the design and what bounds it.
 """
 from __future__ import annotations
 
@@ -78,22 +85,23 @@ def _check_args(u, v, address_mode, mask):
         raise ValueError(f"unknown address mode {address_mode!r}")
 
 
-def _launch(name, tex, u, v, address_mode, oob_value, mask, hw):
+def _launch(name, tex, u, v, address_mode, oob_value, mask, frames):
     device = tex.device
     _build.check("tex", tex, torch.float32, device)
     _build.check("u", u, torch.float32, device)
     _build.check("v", v, torch.float32, device)
     if mask is not None:
         _build.check("mask", mask, torch.bool, device)
-    if u.numel() >= 2 ** 31:
-        raise ValueError(f"{u.numel()} pixels: the kernel indexes them "
-                         "with 32-bit ints")
-    out = torch.empty_like(u)
     th, tw = tex.shape[-2:]
+    if u.numel() >= 2 ** 31 or th * tw >= 2 ** 31:
+        raise ValueError(f"{u.numel()} pixels, {th}x{tw} texels: the kernel "
+                         "indexes them with 32-bit ints")
+    out = torch.empty_like(u)
     err = _lib().mr_sample_bilinear(
         _build.ptr(tex), th, tw, _build.ptr(u), _build.ptr(v),
         _build.ptr(mask), float(oob_value), int(address_mode == REPEAT),
-        u.numel(), hw, _build.ptr(out), _build.stream(device))
+        frames, u.numel() // max(frames, 1), _build.ptr(out),
+        _build.stream(device))
     _build.raise_on(err, name)
     LAUNCHES[name] += 1
     return out
@@ -111,7 +119,7 @@ def sample_bilinear(tex, u, v, address_mode=REPEAT, oob_value=0.0,
     if tex.device.type == "cpu":
         return sample_bilinear_plain(tex, u, v, address_mode, oob_value, mask)
     return _launch("sample_bilinear", tex, u, v, address_mode, oob_value,
-                   mask, max(u.numel(), 1))
+                   mask, 1)
 
 
 def sample_bilinear_batch(tex, u, v, address_mode=REPEAT, oob_value=0.0,
@@ -128,4 +136,4 @@ def sample_bilinear_batch(tex, u, v, address_mode=REPEAT, oob_value=0.0,
         return sample_bilinear_batch_plain(tex, u, v, address_mode,
                                            oob_value, mask)
     return _launch("sample_bilinear_batch", tex, u, v, address_mode,
-                   oob_value, mask, max(u[0].numel(), 1))
+                   oob_value, mask, tex.shape[0])

@@ -287,6 +287,53 @@ def test_sample_bilinear_batch_plain_matches_pallas(mode):
         sample_cuda.sample_bilinear_batch(t[0][0], *t[1:3], mode)
 
 
+# Frame batches whose H*W is not a multiple of K8's 8-pixel units, so that
+# frames start at every phase: (frames, H, W, coordinates).
+K8_RAGGED = {"3x5x13_random": (3, 5, 13, "random"),
+             "5x7x9_far": (5, 7, 9, "far"),
+             "4x1x1_random": (4, 1, 1, "random")}
+
+
+def k8_ragged_case(name, size=32, seed=9):
+    """(tex f32[F, size, size], u, v f32[F, H, W], mask bool[F, H, W]),
+    numpy, from a seed; ``far``: coordinates around +-37.25."""
+    F, h, w, coords = K8_RAGGED[name]
+    rng = np.random.default_rng(seed)
+    tex = rng.uniform(size=(F, size, size)).astype(np.float32)
+    u, v = rng.uniform(-0.5, 1.5, (2, F, h, w))
+    if coords == "far":
+        u, v = (rng.choice([-37.25, 37.25], (F, h, w)) + c for c in (u, v))
+    mask = rng.uniform(size=(F, h, w)) > 0.3
+    return tex, u.astype(np.float32), v.astype(np.float32), mask
+
+
+@pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
+@pytest.mark.parametrize("case", list(K8_RAGGED))
+def test_sample_bilinear_batch_plain_matches_pallas_on_ragged_frames(case,
+                                                                     mode):
+    """K8's twin on frames whose H*W % 8 != 0 (also far outside [0, 1])
+    against ``sample_bilinear_tiled_batch`` in interpret mode (one ulp of
+    the texture width), exact bilinear sampling frame by frame (1e-6), and
+    K7's twin frame by frame (bit-equal)."""
+    tex, u, v, mask = k8_ragged_case(case)
+    t = [torch.from_numpy(x) for x in (tex, u, v, mask)]
+    out = sample_cuda.sample_bilinear_batch(*t[:3], mode, 1.0, t[3]).numpy()
+    tiled = np.asarray(sample_pallas.sample_bilinear_tiled_batch(
+        jnp.asarray(tex), jnp.asarray(u), jnp.asarray(v), mode,
+        oob_value=1.0, mask=jnp.asarray(mask)))
+    np.testing.assert_allclose(out, tiled, rtol=0,
+                               atol=float(np.spacing(np.float32(32))))
+    for f in range(tex.shape[0]):
+        ref = np.asarray(j_sampling.sample_bilinear(
+            jnp.asarray(tex[f])[..., None], jnp.asarray(u[f]),
+            jnp.asarray(v[f]), mode)[..., 0])
+        np.testing.assert_allclose(out[f], np.where(mask[f], ref, 1.0),
+                                   rtol=0, atol=1e-6)
+        k7 = sample_cuda.sample_bilinear(t[0][f], t[1][f], t[2][f], mode,
+                                         1.0, t[3][f])
+        assert torch.equal(torch.from_numpy(out[f]), k7)
+
+
 def test_shadow_pass_bins_with_the_default_span_cap():
     """The shadow pass bins with span cap 8, as every JAX shadow pass does,
     whatever ``config.span_cap`` says (the main pass keeps it): at
@@ -355,3 +402,24 @@ def test_px_kernels_match_twins_on_card(cuda_device):
         s7 = sample_cuda.sample_bilinear(tex[f], u[f], v[f], sampling.REPEAT,
                                          1.0, mask[f].contiguous())
         assert torch.equal(g3, g_k[f]) and torch.equal(s7, s_k[f])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [sampling.REPEAT, sampling.CLAMP])
+@pytest.mark.parametrize("case", list(K8_RAGGED))
+def test_sample_bilinear_batch_on_ragged_frames_on_card(cuda_device, case,
+                                                        mode):
+    """K8 bit-equal to its twin and, frame by frame, to K7 on frames whose
+    H*W % 8 != 0 (each frame's planes start at another phase), with and
+    without a mask."""
+    tex, u, v, mask = (torch.from_numpy(x).to(cuda_device)
+                       for x in k8_ragged_case(case))
+    for m in (mask, None):
+        k = sample_cuda.sample_bilinear_batch(tex, u, v, mode, 1.0, m)
+        p = sample_cuda.sample_bilinear_batch_plain(tex, u, v, mode, 1.0, m)
+        torch.cuda.synchronize()
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+        for f in range(tex.shape[0]):
+            k7 = sample_cuda.sample_bilinear(tex[f], u[f], v[f], mode, 1.0,
+                                             None if m is None else m[f])
+            assert torch.equal(k7.view(torch.int32), k[f].view(torch.int32))

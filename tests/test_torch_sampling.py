@@ -84,6 +84,69 @@ def test_sample_bilinear_twin_matches_jax(mode, masked):
     assert torch.equal(w, out) and sample_cuda.LAUNCHES == before
 
 
+# Inputs the K7 kernel must handle: pixel counts around its 8-pixel units
+# (1, 3, 4k+1, 8k+7), coordinates at exact texel centres and edges and far
+# outside [0, 1], masks all false, all true and None.
+K7_CASES = {
+    "n1_random": ((1, 1), "random", None),
+    "n3_centres_all_true": ((1, 3), "centres", "all"),
+    "n37_edges_random_mask": ((1, 37), "edges", "random"),
+    "n63_far_all_false": ((1, 63), "far", "none"),
+    "n63_far_random_mask": ((1, 63), "far", "random"),
+    "grid40x136_mixed": ((40, 136), "mixed", None),
+}
+
+
+def k7_case(name, th=48, tw=64, seed=11):
+    """A K7 case of ``K7_CASES``: (tex f32[th, tw], u, v f32[shape], mask
+    bool[shape] or None), numpy, from a seed."""
+    shape, coords, mask_kind = K7_CASES[name]
+    rng = np.random.default_rng(seed)
+    tex = rng.uniform(0, 1, (th, tw)).astype(np.float32)
+    ix = rng.integers(-2, tw + 2, shape)
+    iy = rng.integers(-2, th + 2, shape)
+    centres = ((ix + 0.5) / tw, (iy + 0.5) / th)        # fx = fy = 0
+    edges = (ix / tw, iy / th)                          # halfway, 0 and 1
+    far = (rng.choice([-37.25, 37.25], shape) + rng.uniform(-1, 1, shape),
+           rng.choice([-37.25, 37.25], shape) + rng.uniform(-1, 1, shape))
+    rand = rng.uniform(-0.5, 1.5, (2,) + shape)
+    pick = {"random": rand, "centres": centres, "edges": edges,
+            "far": far}.get(coords)
+    if pick is None:                                    # mixed, per pixel
+        which = rng.integers(0, 4, shape)
+        pick = [np.choose(which, [c[a] for c in (rand, centres, edges, far)])
+                for a in (0, 1)]
+    u, v = (np.asarray(c, np.float32) for c in pick)
+    mask = {None: None, "all": np.ones(shape, bool),
+            "none": np.zeros(shape, bool),
+            "random": rng.uniform(0, 1, shape) < 0.5}[mask_kind]
+    return tex, u, v, mask
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_sample_bilinear_twin_matches_jax_on_edge_cases(case, mode):
+    """K7's twin vs ``sampling.sample_bilinear`` (1e-6) and vs the
+    interpret-mode kernel (one ulp of the texture width) on the inputs of
+    ``K7_CASES``; masked-out pixels read ``oob_value``."""
+    tex, u, v, mask = k7_case(case)
+    out = sample_cuda.sample_bilinear_plain(
+        _t(tex), _t(u), _t(v), mode, 7.0, None if mask is None else _t(mask))
+    ref = np.asarray(j_sampling.sample_bilinear(
+        jnp.asarray(tex)[..., None], jnp.asarray(u), jnp.asarray(v),
+        mode)[..., 0])
+    tiled = np.asarray(sample_pallas.sample_bilinear_tiled(
+        jnp.asarray(tex), jnp.asarray(u), jnp.asarray(v), mode,
+        oob_value=None if mask is None else 7.0,
+        mask=None if mask is None else jnp.asarray(mask)))
+    if mask is not None:
+        ref = np.where(mask, ref, np.float32(7.0))
+        assert (out.numpy()[~mask] == 7.0).all()
+    assert out.shape == u.shape
+    _close(out, ref)
+    _close(out, tiled, atol=float(np.spacing(np.float32(tex.shape[1]))))
+
+
 def _mips(seed, size=64):
     rng = np.random.default_rng(seed)
     base = rng.uniform(0, 1, (size, size, 4)).astype(np.float32)
@@ -278,6 +341,34 @@ def test_samplers_match_twins_on_card(cuda_device):
             torch.cuda.synchronize()
             for a, b in zip(k, p):
                 assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_sample_bilinear_kernel_on_edge_cases_on_card(cuda_device, case,
+                                                      mode):
+    """K7 bit-equal to its twin on ``K7_CASES``, and on views of the
+    inputs that start 1, 2 and 3 floats past a 16-byte boundary (u, v and
+    mask shifted together, or v alone)."""
+    tex, u, v, mask = (None if a is None else _t(a).to(cuda_device)
+                       for a in k7_case(case))
+
+    def check(uu, vv, mm):
+        k = sample_cuda.sample_bilinear(tex, uu, vv, mode, 7.0, mm)
+        p = sample_cuda.sample_bilinear_plain(tex, uu, vv, mode, 7.0, mm)
+        torch.cuda.synchronize()
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+    check(u, v, mask)
+    n = u.numel()
+    pad = [None if a is None else torch.cat([a.new_zeros(3), a.reshape(-1)])
+           for a in (u, v, mask)]
+    for s in (1, 2, 3):
+        uu, vv, mm = (None if a is None else a[s:s + n] for a in pad)
+        assert uu.data_ptr() % 16 != 0
+        check(uu, vv, mm)
+        check(u.reshape(-1), vv, None if mask is None else mask.reshape(-1))
 
 
 if __name__ == "__main__":
