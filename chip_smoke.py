@@ -116,8 +116,35 @@ Phases (one line each; any failure exits non-zero and prints no result):
      branch (one K1 + K3s + K7 per frame), each frame equal to
      render_frame of the same parameters; and a 96x72 sequence of 6 chunks
      on the card against the CPU run.
-Then one JSON line with each kernel's numbers, the nvidia-smi line, and the
-result line {"ok": true, "device": {...}}.
+ 21. BASELINE configs 2, 3 and 5 at full size, built by the port's own
+     engine/configs.py on the card: config 2 (24 cubes and UV spheres,
+     1920x1080 MSAA4, no shadow map), config 3 (a 100k-triangle sphere
+     written to an OBJ file and loaded back by the native parser, which
+     must build; a 512^2 checkerboard; 1920x1080, one sample) and config 5
+     (1M triangles, 3840x2160, one sample). Per config: triangles, slots,
+     list entries, the big list (no triangle dropped), tiles with a list,
+     the longest list, the most candidates of a tile against the staging
+     chunk; then on the config's own bins K2 with no shadow map at 4
+     samples (config 2) and at 1 (config 5) — covered fractions equal, rgba
+     within 1e-5 —, K3 at 1 sample (config 3) — gout, depth and winners
+     bit-equal —, K9 on config 3's color lookup — bit-equal —, and K6 on a
+     2-frame config-5 batch — within 1e-5 of its twin and bit-equal to
+     render_frame; each timed beside its bound, K2 and K3 also on the
+     same bins with every list emptied but the longest (what one tile's
+     walk costs) and with none (the fixed cost). Then 8 frames each of
+     configs 2 and 3 (the camera orbiting by 0.01 rad a frame) and 4
+     config-5 frames (displacement linspace(0, 0.05)) through
+     render_frame(device="cuda"): median/min/max ms, the prep alone, peak
+     device memory, torch.profiler over 4 (config 5: 2) frames, the launch
+     counts (config 2: one K2 a frame; config 3: one K3 and two K9, the
+     normal-map pass's with nothing to sample; config 5: one K2), finite
+     frames, covered_fraction equal to the CPU run of the last frame within
+     1e-6 (config 5 at 960x540 with 100k triangles, the card's frame of
+     that size) and the rgba difference; one render_batch of 2 config-5
+     frames: one K6, frames bit-equal to render_frame's.
+Then the run's seconds, one JSON line with each kernel's numbers (and a row
+for each of phase 21's cases, ``name<samples>@config``), the nvidia-smi
+line, and the result line {"ok": true, "device": {...}}.
 
 Every kernel, and each grid_sample yardstick, is timed two ways over many
 launches: back to back with CUDA events (``ms``; below ~0.06 ms a launch
@@ -194,6 +221,13 @@ SAMPLE_SRC = "metalrenderer_tpu_torch/csrc/sample.cu"
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 FP32_OPS_PER_MS = 67e9        # 67 TFLOP/s outside the tensor cores
 SS_RGBA_TOL = 2e-4            # card vs CPU frames of the per-sample branch
+# Phase 21, BASELINE configs 2, 3 and 5 at full size: 24 objects and 100k
+# triangles at CW x CH, 1M at C5_W x C5_H; served CFG_FRAMES (2, 3) and
+# C5_FRAMES (5) frames; config 5's CPU comparison at C5_CPU (w, h, triangles).
+C2_OBJECTS, C3_TRIS, C5_TRIS = 24, 100_000, 1_000_000
+CW, CH, C5_W, C5_H = 1920, 1080, 3840, 2160
+CFG_FRAMES, C5_FRAMES = 8, 4
+C5_CPU = (960, 540, 100_000)
 
 
 def fail(msg):
@@ -299,6 +333,13 @@ def timings(fn, reps):
     """(cuda_ms, device_ms) of fn() over reps launches: back to back, and
     with the host ahead."""
     return cuda_ms(fn, reps), device_ms(fn, reps)
+
+
+def timed_once(fn):
+    """fn() once, timed with CUDA events: (output, ms). For the twins whose
+    one call takes seconds on real lists."""
+    ms, outs = timed_frames(lambda _: fn(), [None])
+    return outs[0], ms[0]
 
 
 def timed_frames(fn, args):
@@ -541,8 +582,371 @@ def read_counts():
             **mip_cuda.LAUNCHES}
 
 
+def kernel_row(name, source, replaces, launches, err, ms, dev_ms, plain_ms,
+               bound_ms_by, lib_ms=None, lib_dev=None):
+    """One entry of the final ``kernels`` line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": f"metalrenderer_tpu/raster/{replaces}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
+            "library_ms": lib_ms, "library_device_ms": lib_dev}
+
+
+def list_stats(name, prep):
+    """Print a main pass's tile lists (triangles, slots after clipping,
+    list entries, big list, tiles with a list, the longest list and the
+    most candidates of a tile against the staging chunk) and fail on a
+    dropped big-list triangle; returns them."""
+    from metalrenderer_tpu_torch.raster import raster_cuda
+    mb = prep.main_bins
+    cnt = candidate_counts(mb)
+    per_tile = mb.tile_offsets[1:] - mb.tile_offsets[:-1]
+    chunk = raster_cuda.FUSED_STAGING_CHUNK
+    info = dict(triangles=int(prep.stats["num_triangles"]),
+                slots=mb.vis.shape[0],
+                culled=int(prep.stats["culled_triangles"]),
+                list_entries=int(mb.tile_offsets[-1]),
+                big_n=int(mb.big_n[0]), big_cap=mb.big_ids.shape[0],
+                big_dropped=int(mb.num_big_dropped),
+                tiles=mb.ntx * mb.nty,
+                tiles_with_list=int((per_tile > 0).sum()),
+                max_list=int(per_tile.max()),
+                max_candidates=int(cnt.max()), staging_chunk=chunk,
+                tiles_over_chunk=int((cnt > chunk).sum()))
+    say("configs", config=name, **info)
+    # The JAX binning drops big-list triangles past the cap by the same
+    # rule; at these sizes it drops none (the port's CPU prep: 0 in each).
+    if info["big_dropped"]:
+        fail(f"{name}: {info['big_dropped']} big-list triangles dropped")
+    return info
+
+
+def tile_walk_split(name, bins, launch):
+    """How much of a tile kernel's time one tile's list sets: host-ahead ms
+    of ``launch(bins)`` on the bins, on the bins with every list emptied but
+    the longest (and no big list: that one block's walk, plus the empty
+    tiles), and with every list emptied (the fixed cost)."""
+    import torch
+    off = bins.tile_offsets.to(torch.int64)
+    per = off[1:] - off[:-1]
+    i = int(torch.argmax(per))
+    n = int(per[i])
+    idx = torch.arange(off.numel(), device=off.device)
+    no_big = torch.zeros_like(bins.big_n)
+    longest = dataclasses.replace(
+        bins, tile_offsets=torch.where(idx <= i, 0, n).to(torch.int32),
+        tile_tris=bins.tile_tris[int(off[i]):int(off[i]) + n].contiguous(),
+        big_n=no_big)
+    empty = dataclasses.replace(bins, tile_offsets=torch.zeros_like(
+        bins.tile_offsets), big_n=no_big)
+    _, full_ms = timings(lambda: launch(bins), 20)
+    _, longest_ms = timings(lambda: launch(longest), 20)
+    _, empty_ms = timings(lambda: launch(empty), 20)
+    say("tile_walk", case=name, longest_list=n, device_ms=f"{full_ms:.5f}",
+        longest_tile_only_device_ms=f"{longest_ms:.5f}",
+        no_list_device_ms=f"{empty_ms:.5f}")
+
+
+def serve_config(name, frame_fn, prep_fn, args, want, smi, n_profile):
+    """Serve ``frame_fn`` over ``args`` after a warm-up: per-frame ms, the
+    prep alone, the launch counts (which must be ``want``), peak device
+    memory of one frame and torch.profiler over ``n_profile`` frames.
+    Returns (outputs, launches)."""
+    import torch
+    frame_fn(args[0])                                 # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    frame_ms, outs = timed_frames(frame_fn, args)
+    launches = read_counts()
+    prep_ms, _ = timed_frames(prep_fn, args)
+    _, mem = peak_mb(lambda: frame_fn(args[-1]))
+    med = statistics.median(frame_ms)
+    w, h = outs[0][0].shape[1], outs[0][0].shape[0]
+    say("serve_cfg", config=name, frames=len(args), size=f"{w}x{h}",
+        median_ms=f"{med:.4f}", min_ms=f"{min(frame_ms):.4f}",
+        max_ms=f"{max(frame_ms):.4f}", mpix_s=f"{w * h / med / 1e3:.3f}",
+        prep_ms=f"{statistics.median(prep_ms):.4f}",
+        peak_mem_mb=f"{mem:.1f}", card=repr(smi))
+    prof = profile_frames(frame_fn, args[:n_profile])
+    say("serve_cfg", config=name, profiled_frames=len(args[:n_profile]),
+        **{k: f"{v:.4f}" for k, v in prof.items()},
+        launches=json.dumps(launches))
+    full = {k: 0 for k in launches}
+    full.update(want)
+    if launches != full:
+        fail(f"{name}: launch counts {launches} != {full}")
+    if not all(bool(torch.isfinite(fb).all()) for fb, _ in outs):
+        fail(f"{name}: non-finite frames")
+    return outs, launches
+
+
+def configs_phase(dev, smi, path_launches):
+    """Phase 21: BASELINE configs 2, 3 and 5 at full size on the card: the
+    tile lists, the kernels against their twins on each config's own bins,
+    and the frames served. Adds the serving runs' launches to
+    ``path_launches``; returns the kernel rows of the new cases."""
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch import render_batch
+    from metalrenderer_tpu_torch.engine import configs
+    from metalrenderer_tpu_torch.io import native, obj
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.raster import (binning, mip_cuda,
+                                                raster_cuda, sampling, shade)
+    rows = []
+
+    def add(launches):
+        for k, n in launches.items():
+            path_launches[k] += n
+
+    def orbit(cam, n):
+        return [dataclasses.replace(cam, theta=cam.theta + 0.01 * i)
+                for i in range(n)]
+
+    def covf_vs_cpu(name, fb, st, fb_cpu, st_cpu, extra=None):
+        gpu, cpu = float(st["covered_fraction"]), float(st_cpu["covered_fraction"])
+        err = float((fb.cpu() - fb_cpu).abs().max())
+        say("serve_cfg", config=name, check="card vs CPU", **(extra or {}),
+            covered_fraction_gpu=gpu, covered_fraction_cpu=cpu,
+            rgba_max_abs_err_vs_cpu=err)
+        if not abs(gpu - cpu) <= 1e-6:
+            fail(f"{name}: covered_fraction {gpu} (GPU) vs {cpu} (CPU)")
+
+    def fused_twin(name, prep, w, h, samples):
+        """K2 against its twin on one prepared frame (no shadow map)."""
+        mb, uni = prep.main_bins, prep.uniforms
+        r_k, c_k = raster_cuda.render_fused(mb, uni, None, w, h, samples)
+        (r_p, c_p), plain_ms = timed_once(lambda: raster_cuda.render_fused_plain(
+            mb, uni, None, w, h, samples))
+        err = float((r_k - r_p).abs().max())
+        eq = torch.equal(c_k, c_p)
+        covered = int((c_k > 0).sum())
+        say("k2", case=name, shape=f"{w}x{h}xS{len(samples)}",
+            shadow_map=None, covered_px=covered, covf_equal=eq,
+            rgba_max_abs_err=err, tol=1e-5)
+        if not eq or not err <= 1e-5 or covered == 0:
+            fail(f"K2 disagrees with its twin on {name} (or covered nothing)")
+        ms, dev_ms = timings(lambda: raster_cuda.render_fused(
+            mb, uni, None, w, h, samples), 50)
+        b = bound(bins_bytes(mb, True) + nbytes(uni, r_k, c_k),
+                  raster_ops(mb, w, h, len(samples), covered))
+        say("k2", case=name, ms=f"{ms:.4f}", device_ms=f"{dev_ms:.5f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b[0]:.5f}",
+            bound_by=b[1], card=repr(smi))
+        tile_walk_split(f"k2_{name}", mb, lambda bb: raster_cuda.render_fused(
+            bb, uni, None, w, h, samples))
+        return err, ms, dev_ms, plain_ms, b
+
+    # Config 2: 24 cubes and spheres, the fused path with no shadow map.
+    scene2, cam2, light2, cfg2 = configs.config2_multi_mesh(
+        n_objects=C2_OBJECTS, width=CW, height=CH, device=dev)
+    prep2 = pipeline.prepare_frame(scene2, cam2, light2, cfg2, device=dev)
+    if not prep2.fused or prep2.shadow_bins is not None:
+        fail("config 2 did not take the fused path without a shadow map")
+    list_stats("config2", prep2)
+    k2c2 = fused_twin("config2", prep2, CW, CH, tuple(cfg2.sample_positions))
+    cams2 = orbit(cam2, CFG_FRAMES)
+    outs, launches = serve_config(
+        "config2", lambda c: pipeline.render_frame(scene2, c, light2, cfg2,
+                                                   device=dev),
+        lambda c: pipeline.prepare_frame(scene2, c, light2, cfg2, device=dev),
+        cams2, {"render_fused": CFG_FRAMES}, smi, 4)
+    add(launches)
+    rows.append(kernel_row("render_fused<4>@config2_no_shadow_map",
+                           RASTER_SRC, "raster_pallas.py:997",
+                           launches["render_fused"], *k2c2))
+    fb_cpu, st_cpu = pipeline.render_frame(scene2.to("cpu"), cams2[-1],
+                                           light2, cfg2, device="cpu")
+    covf_vs_cpu("config2", *outs[-1], fb_cpu, st_cpu)
+    del prep2, outs, fb_cpu
+
+    # Config 3: the 100k-triangle asset through the OBJ file, the split
+    # path at one sample (K3 and K9).
+    t0 = time.perf_counter()
+    path = configs.obj_asset_path(C3_TRIS)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parser = "native" if native.native_available() else "python"
+    mesh3 = obj.load_obj(path)
+    load_s = time.perf_counter() - t0
+    say("configs", config="config3", obj=path.name,
+        obj_mb=f"{path.stat().st_size / 1e6:.1f}", write_s=f"{write_s:.3f}",
+        load_s=f"{load_s:.3f}", parser=parser,
+        build_error=repr(native.build_error()),
+        triangles=mesh3.num_triangles)
+    if parser != "native":
+        fail("the native OBJ parser did not build: "
+             f"{native.build_error()}")
+    scene3, cam3, light3, cfg3 = configs.config3_high_poly(
+        target_tris=C3_TRIS, width=CW, height=CH, device=dev)
+    prep3 = pipeline.prepare_frame(scene3, cam3, light3, cfg3, device=dev)
+    if prep3.fused or prep3.shadow_bins is not None:
+        fail("config 3 did not take the split path without a shadow map")
+    list_stats("config3", prep3)
+    mb3 = prep3.main_bins
+    s1 = tuple(cfg3.sample_positions)
+    o_k = raster_cuda.raster_gbuffer(mb3, CW, CH, s1, with_samples=True)
+    o_p, k3_plain = timed_once(lambda: raster_cuda.raster_gbuffer_plain(
+        mb3, CW, CH, s1, with_samples=True))
+    eq = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+             for a, b in zip(o_k, o_p))
+    k3_err = float((o_k[0] - o_p[0]).abs().max())
+    gout3 = o_k[0]
+    covered3 = int((gout3[binning.ROW_DEPTH] > 0).sum())
+    say("k3", case="config3", shape=f"{CW}x{CH}xS1", covered_px=covered3,
+        gout_depth_winner_bit_equal=eq, max_abs_err=k3_err)
+    if not eq or covered3 == 0:
+        fail("K3 disagrees with its twin on config 3 (or covered nothing)")
+    del o_k, o_p
+    k3_ms, k3_dev = timings(lambda: raster_cuda.raster_gbuffer(
+        mb3, CW, CH, s1), 50)
+    k3_bound = bound(bins_bytes(mb3, True) + nbytes(gout3),
+                     raster_ops(mb3, CW, CH, 1, covered3))
+    say("k3", case="config3", ms=f"{k3_ms:.4f}", device_ms=f"{k3_dev:.5f}",
+        plain_ms=f"{k3_plain:.4f}", bound_ms=f"{k3_bound[0]:.5f}",
+        bound_by=k3_bound[1], card=repr(smi))
+    tile_walk_split("k3_config3", mb3, lambda bb: raster_cuda.raster_gbuffer(
+        bb, CW, CH, s1))
+    # K9 on config 3's color lookup (the checkerboard's 10 levels).
+    ch3 = raster_cuda.channels_from_gout_px(gout3, 1)
+    mips3 = scene3.textures[0]
+    args9 = (mip_cuda.build_pyramid(mips3), ch3["u"], ch3["v"],
+             shade._texture_lod(ch3["u"], ch3["v"], mips3[0].shape[1],
+                                mips3[0].shape[0]),
+             (ch3["texid"] == 0) & ch3["covered"], sampling.REPEAT)
+    k9_k = mip_cuda.sample_pyramid(*args9)
+    k9_p = mip_cuda.sample_pyramid_plain(*args9)
+    torch.cuda.synchronize()
+    k9_err = max(float((a - b).abs().max()) for a, b in zip(k9_k, k9_p))
+    sampled9 = int(args9[4].sum())
+    k9_ms, k9_dev = timings(lambda: mip_cuda.sample_pyramid(*args9), 200)
+    k9_plain = cuda_ms(lambda: mip_cuda.sample_pyramid_plain(*args9), 20)
+    k9_bound = bound(nbytes(args9[0].texels, args9[4], *k9_k)
+                     + 12 * sampled9, 94 * sampled9)
+    say("k9", case="config3_color", texture=f"{mips3[0].shape[1]}x"
+        f"{mips3[0].shape[0]}", levels=len(mips3), sampled_px=sampled9,
+        max_abs_err=k9_err, tol=0, ms=f"{k9_ms:.4f}",
+        device_ms=f"{k9_dev:.5f}", plain_ms=f"{k9_plain:.4f}",
+        bound_ms=f"{k9_bound[0]:.5f}", bound_by=k9_bound[1], card=repr(smi))
+    if not k9_err == 0.0 or sampled9 == 0:
+        fail("K9 disagrees with its twin on config 3 (or sampled nothing)")
+    del ch3, args9, k9_k, k9_p, gout3
+    cams3 = orbit(cam3, CFG_FRAMES)
+    outs, launches = serve_config(
+        "config3", lambda c: pipeline.render_frame(scene3, c, light3, cfg3,
+                                                   device=dev),
+        lambda c: pipeline.prepare_frame(scene3, c, light3, cfg3, device=dev),
+        cams3, {"raster_gbuffer": CFG_FRAMES,
+                "sample_pyramid": 2 * CFG_FRAMES}, smi, 4)
+    add(launches)
+    rows.append(kernel_row("raster_gbuffer<1>@config3", RASTER_SRC,
+                           "raster_pallas.py:865", launches["raster_gbuffer"],
+                           k3_err, k3_ms, k3_dev, k3_plain, k3_bound))
+    rows.append(kernel_row("sample_pyramid@config3", SAMPLE_SRC,
+                           "mip_pallas.py:475", launches["sample_pyramid"],
+                           k9_err, k9_ms, k9_dev, k9_plain, k9_bound))
+    fb_cpu, st_cpu = pipeline.render_frame(scene3.to("cpu"), cams3[-1],
+                                           light3, cfg3, device="cpu")
+    covf_vs_cpu("config3", *outs[-1], fb_cpu, st_cpu)
+    del prep3, mb3, outs, fb_cpu
+
+    # Config 5: the 1M-triangle displaced sphere at 3840x2160, one sample:
+    # K2 with no shadow map, and K6 over a 2-frame batch.
+    scene5, cam5, light5, cfg5 = configs.config5_animated_high_poly(
+        target_tris=C5_TRIS, width=C5_W, height=C5_H, device=dev)
+    disps5 = [float(d) for d in np.linspace(0.0, 0.05, C5_FRAMES)]
+    prep5, mem5 = peak_mb(lambda: pipeline.prepare_frame(
+        scene5, cam5, light5, cfg5, displacement=disps5[-1], device=dev))
+    say("configs", config="config5", prep_peak_mem_mb=f"{mem5:.1f}",
+        vis_mb=f"{nbytes(prep5.main_bins.vis) / 1e6:.1f}",
+        attr_mb=f"{nbytes(prep5.main_bins.attr) / 1e6:.1f}")
+    if not prep5.fused or prep5.shadow_bins is not None:
+        fail("config 5 did not take the fused path without a shadow map")
+    list_stats("config5", prep5)
+    k2c5 = fused_twin("config5_4k", prep5, C5_W, C5_H,
+                      tuple(cfg5.sample_positions))
+    del prep5
+    outs, launches = serve_config(
+        "config5", lambda d: pipeline.render_frame(
+            scene5, cam5, light5, cfg5, displacement=d, device=dev),
+        lambda d: pipeline.prepare_frame(scene5, cam5, light5, cfg5,
+                                         displacement=d, device=dev),
+        disps5, {"render_fused": C5_FRAMES}, smi, 2)
+    add(launches)
+    rows.append(kernel_row("render_fused<1>@config5_4k", RASTER_SRC,
+                           "raster_pallas.py:997", launches["render_fused"],
+                           *k2c5))
+    # K6 against its twin on 2 frames, and against per-frame K2.
+    preps = [pipeline.prepare_frame(scene5, cam5, light5, cfg5,
+                                    displacement=d, device=dev)
+             for d in disps5[:2]]
+    mb52 = raster_cuda.stack_bins([p.main_bins for p in preps])
+    uni52 = torch.stack([p.uniforms for p in preps])
+    args6 = (mb52, uni52, None, C5_W, C5_H, tuple(cfg5.sample_positions))
+    r_k, c_k = raster_cuda.render_fused_batch(*args6)
+    (r_p, c_p), k6_plain = timed_once(
+        lambda: raster_cuda.render_fused_batch_plain(*args6))
+    k6_err = float((r_k - r_p).abs().max())
+    k6_eq = torch.equal(c_k, c_p)
+    k2_eq = all(torch.equal(r_k[f], outs[f][0]) for f in range(2))
+    covered6 = [int((c_k[f] > 0).sum()) for f in range(2)]
+    say("k6", case="config5_4k_2_frames", covered_px=covered6,
+        covf_equal=k6_eq, rgba_max_abs_err=k6_err, tol=1e-5,
+        equal_to_render_frame=k2_eq)
+    if not (k6_eq and k6_err <= 1e-5 and k2_eq):
+        fail("K6 disagrees with its twin or with render_frame on config 5")
+    k6_ms, k6_dev = timings(lambda: raster_cuda.render_fused_batch(*args6),
+                            20)
+    k6_bound = bound(bins_bytes(mb52, True) + nbytes(uni52, r_k, c_k),
+                     sum(raster_ops(raster_cuda.frame_bins(mb52, f), C5_W,
+                                    C5_H, 1, covered6[f]) for f in range(2)))
+    say("k6", case="config5_4k_2_frames", ms=f"{k6_ms:.4f}",
+        device_ms=f"{k6_dev:.5f}", plain_ms=f"{k6_plain:.4f}",
+        bound_ms=f"{k6_bound[0]:.5f}", bound_by=k6_bound[1], card=repr(smi))
+    del preps, mb52, r_k, c_k, r_p, c_p
+    # One render_batch of the first two frames: one K6, frames equal.
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    (rgba, bst), mem = peak_mb(lambda: render_batch(
+        scene5, cam5, light5, disps5[:2], config=cfg5, device=dev))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    eq = all(torch.equal(rgba[f], outs[f][0]) for f in range(2))
+    say("serve_cfg", config="config5_batch", frames=2,
+        size=f"{C5_W}x{C5_H}", batch_ms=f"{batch_ms:.4f}",
+        per_frame_ms=f"{batch_ms / 2:.4f}", peak_mem_mb=f"{mem:.1f}",
+        launches=json.dumps(launches), frames_equal_render_frame=eq,
+        card=repr(smi))
+    want = {k: 0 for k in launches}
+    want["render_fused_batch"] = 1
+    if launches != want or not eq:
+        fail(f"config 5 batch: launches {launches} != {want}, or frames "
+             "unequal to render_frame")
+    add(launches)
+    rows.append(kernel_row("render_fused_batch<1>@config5_4k_2_frames",
+                           RASTER_SRC, "raster_pallas.py:1278",
+                           launches["render_fused_batch"], k6_err, k6_ms,
+                           k6_dev, k6_plain, k6_bound))
+    del rgba, outs
+    # The 4K frame's CPU counterpart at a reduced size: the card's frame
+    # and the CPU's of the same configuration.
+    w, h, tris = C5_CPU
+    small5 = configs.config5_animated_high_poly(target_tris=tris, width=w,
+                                                height=h, device="cpu")
+    fb, st = pipeline.render_frame(small5[0].to(dev), *small5[1:],
+                                   displacement=disps5[-1], device=dev)
+    fb_cpu, st_cpu = pipeline.render_frame(*small5, displacement=disps5[-1],
+                                           device="cpu")
+    covf_vs_cpu("config5", fb, st, fb_cpu, st_cpu,
+                {"size": f"{w}x{h}", "triangles": tris})
+    return rows
+
+
 def main():
     import torch
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA GPU")
     sys.path.insert(0, str(ROOT))
@@ -1756,6 +2160,10 @@ def main():
             fail(f"the {name} sequence on the card differs from the CPU run "
                  f"by {err}")
 
+    # 21. BASELINE configs 2, 3 and 5 --------------------------------------
+    case_rows = configs_phase(dev, smi, path_launches)
+    say("time", seconds=f"{time.perf_counter() - start:.1f}", limit=900)
+
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),
             "render_fused": (RASTER_SRC, "raster_pallas.py:997"),
             "raster_gbuffer": (RASTER_SRC, "raster_pallas.py:865"),
@@ -1766,18 +2174,9 @@ def main():
             "raster_gbuffer_batch": (RASTER_SRC, "raster_pallas.py:1207"),
             "render_fused_batch": (RASTER_SRC, "raster_pallas.py:1278"),
             "sample_bilinear_batch": (SAMPLE_SRC, "sample_pallas.py:587")}
-    kernels = []
-    for name, (src, tpu) in meta.items():
-        err, ms, dev_ms, plain_ms, (bound_ms, bound_by), lib_ms, lib_dev = \
-            stats[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": f"metalrenderer_tpu/raster/{tpu}",
-            "launches": path_launches[name], "max_abs_err": err, "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms,
-            "library_device_ms": lib_dev})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    kernels = [kernel_row(name, src, tpu, path_launches[name], *stats[name])
+               for name, (src, tpu) in meta.items()]
+    print(json.dumps({"kernels": kernels + case_rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

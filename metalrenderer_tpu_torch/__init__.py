@@ -15,7 +15,7 @@ from .scene.camera import OrbitCamera
 from .scene.lights import DirectionalLight, Lighting, PointLight
 from .scene.materials import (BLINN_PHONG, BLINN_PHONG_SHADOW, EMISSIVE,
                               Material)
-from .scene.mesh import Mesh, cube, plane
+from .scene.mesh import Mesh, cube, plane, square, triangle, uv_sphere
 from .scene.scene import Instance, Scene
 from .passes.pipeline import render_batch, render_frame
 
@@ -24,6 +24,6 @@ __version__ = "0.1.0"
 __all__ = [
     "RenderConfig", "ShadowConfig", "OrbitCamera", "Lighting", "PointLight",
     "DirectionalLight", "Material", "BLINN_PHONG", "BLINN_PHONG_SHADOW",
-    "EMISSIVE", "Mesh", "cube", "plane", "Instance", "Scene", "render_frame",
-    "render_batch",
+    "EMISSIVE", "Mesh", "cube", "plane", "square", "triangle", "uv_sphere",
+    "Instance", "Scene", "render_frame", "render_batch",
 ]

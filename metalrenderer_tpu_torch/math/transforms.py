@@ -121,10 +121,48 @@ def scale(sx, sy, sz):
                                    torch.ones((), dtype=F32)]))
 
 
+def rotation(radians, axis):
+    """Axis-angle rotation (``matrix4x4_rotation``,
+    AAPLMathUtilities.cpp:233-244). The angle and the axis are taken as f32
+    first, as the JAX package takes them, then cos and sin."""
+    axis = normalize(_f32(axis))
+    x, y, z = axis[0], axis[1], axis[2]
+    rad = _f32(radians)
+    ct = torch.cos(rad)
+    st = torch.sin(rad)
+    ci = 1.0 - ct
+    zero = torch.zeros((), dtype=F32)
+    return torch.stack([
+        torch.stack([ct + x * x * ci, x * y * ci - z * st,
+                     x * z * ci + y * st, zero]),
+        torch.stack([y * x * ci + z * st, ct + y * y * ci,
+                     y * z * ci - x * st, zero]),
+        torch.stack([z * x * ci - y * st, z * y * ci + x * st,
+                     ct + z * z * ci, zero]),
+        torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=F32),
+    ])
+
+
 def upper_left_3x3(m):
     """First 3 columns/rows of a 4x4 model matrix — the reference's "normal
     matrix" (BlinnPhong.metal:21; NOT an inverse-transpose)."""
     return m[:3, :3]
+
+
+def inverse_transpose_3x3(m3):
+    """``matrix_inverse_transpose`` (AAPLMathUtilities.cpp:197ff), for
+    normal transforms under non-uniform scale: the cofactor matrix over the
+    determinant, written out (no LAPACK call, the same rounding on every
+    device)."""
+    def c(i, j):
+        r0, r1 = [r for r in range(3) if r != i]
+        c0, c1 = [k for k in range(3) if k != j]
+        minor = m3[r0, c0] * m3[r1, c1] - m3[r0, c1] * m3[r1, c0]
+        return minor if (i + j) % 2 == 0 else -minor
+    cof = torch.stack([torch.stack([c(i, j) for j in range(3)])
+                       for i in range(3)])
+    det = (m3[0, 0] * cof[0, 0] + m3[0, 1] * cof[0, 1]) + m3[0, 2] * cof[0, 2]
+    return cof / det
 
 
 def transform_points(m, pts):

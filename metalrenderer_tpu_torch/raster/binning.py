@@ -48,6 +48,9 @@ ROW_COLOR = 11
 ROW_NMID = 14
 ROW_DEPTH = 15
 GOUT_ROWS = 16
+# build_tri_fields stores each tid as f32 (field 16 of vis): integers are
+# exact in f32 below 2^24.
+MAX_TRIANGLES = 2 ** 24
 
 
 def build_tri_fields(setup: TriangleSetup) -> torch.Tensor:
@@ -113,12 +116,17 @@ def _floor_tile(x, tile):
 def bin_triangles(setup: TriangleSetup, fields, width, height,
                   tile_w, tile_h, span_cap=8, big_capacity=256,
                   attr_fields=None) -> TileBins:
-    """Build per-tile triangle lists and the big list (see module doc)."""
+    """Build per-tile triangle lists and the big list (see module doc).
+    Raises ValueError for 2^24 triangles or more: ``vis`` carries each tid
+    as f32, exact only below 2^24."""
+    T = setup.valid.shape[0]
+    if T >= MAX_TRIANGLES:
+        raise ValueError(f"{T} triangles: the tids ride as f32 in vis, "
+                         f"exact only below {MAX_TRIANGLES}")
     dev = fields.device
     ntx = -(-width // tile_w)
     nty = -(-height // tile_h)
     nt = ntx * nty
-    T = setup.valid.shape[0]
 
     aabb = setup.aabb
     tx0 = torch.clamp(_floor_tile(aabb[:, 0], tile_w), 0, ntx - 1)

@@ -1,9 +1,10 @@
 """Texture sampling (torch counterpart of ``metalrenderer_tpu.raster.sampling``).
 
 Metal sampler state (mtl_engine.mm:603-612 creates a linear min/mag,
-repeat-address sampler for the shadow map) as a plain gather. These are the
-reference semantics; the kernels of ``sample_cuda`` (bilinear) and
-``mip_cuda`` (trilinear) compute the same functions on the GPU.
+repeat-address sampler for the shadow map) as a plain gather: nearest,
+bilinear and trilinear. These are the reference semantics; the kernels of
+``sample_cuda`` (bilinear) and ``mip_cuda`` (trilinear) compute the same
+functions on the GPU.
 """
 from __future__ import annotations
 
@@ -17,6 +18,15 @@ def _wrap(idx, size, address_mode):
     if address_mode == REPEAT:
         return torch.remainder(idx, size)     # floors, like jnp.mod
     return torch.clamp(idx, 0, size - 1)
+
+
+def sample_nearest(tex, u, v, address_mode=REPEAT):
+    """tex: f32[H,W,C]; u, v: f32[...] in texture space (u right, v down).
+    Returns f32[..., C], the texel under (u, v)."""
+    h, w = tex.shape[0], tex.shape[1]
+    xi = _wrap(torch.floor(u * w).to(torch.int64), w, address_mode)
+    yi = _wrap(torch.floor(v * h).to(torch.int64), h, address_mode)
+    return tex[yi, xi]
 
 
 def sample_bilinear(tex, u, v, address_mode=REPEAT):

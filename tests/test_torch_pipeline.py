@@ -114,7 +114,13 @@ def test_port_imports_without_jax():
             "metalrenderer_tpu_torch.audio.interpreter, "
             "metalrenderer_tpu_torch.audio.mapping, "
             "metalrenderer_tpu_torch.io.wav, "
+            "metalrenderer_tpu_torch.io.obj, "
+            "metalrenderer_tpu_torch.io.native, "
             "metalrenderer_tpu_torch.convert; "
+            "from metalrenderer_tpu_torch import uv_sphere, square, triangle; "
+            "from metalrenderer_tpu_torch.engine.configs import ("
+            "config2_multi_mesh, config3_high_poly, "
+            "config5_animated_high_poly); "
             "from metalrenderer_tpu_torch import render_batch; "
             "from metalrenderer_tpu_torch.passes.pipeline import ("
             "render_frame_batch_fused, render_frame_batch_px, "
