@@ -142,6 +142,33 @@ Phases (one line each; any failure exits non-zero and prints no result):
      1e-6 (config 5 at 960x540 with 100k triangles, the card's frame of
      that size) and the rgba difference; one render_batch of 2 config-5
      frames: one K6, frames bit-equal to render_frame's.
+ 22. the app layer at 1920x1080, 4xMSAA, 1024^2 shadow map, through
+     metalrenderer_tpu_torch.cli.main(argv) in process (stdout captured,
+     files in a temporary directory) and one ``python -m
+     metalrenderer_tpu_torch.cli render`` subprocess, which must exit 0 and
+     write the same PNG: render (one frame: rgba bit-equal to
+     render_audio_app, one K1 + K2; --frames 8 --orbit 0.8: one K4 + K6,
+     frames bit-equal to render_batch and to render_frame at each theta;
+     PNG ms per frame), flythrough (three key poses, 8 frames a segment:
+     17 PoseCameras in one K4 + K6 batch, each frame within 1e-5 of
+     render_frame at its slerped pose; the render's ms per frame apart from
+     the CLI's wall time with PNG writes, peak device memory), session (a
+     40-event script, session_script: 47 frames, one K1 + K2 each, resize
+     to 1280x720 and back, scroll to the minimum radius; event-to-frame
+     latency on the host, median/min/max, beside phase 5's median; the CLI
+     run equal to the in-process one; 4 frames traced with
+     utils.profiling.device_trace: launch calls and device-busy ms per
+     frame, the trace must name raster_depth_kernel and
+     render_fused_kernel; the script at 160x120 on the card and on the
+     CPU: camera states equal after every event, last frames within
+     1e-5), audioapp (phase 20's signal as a 16-bit WAV: offline frames
+     and telemetry bit-equal to render_audio_reactive_sequence, one K4 +
+     K6; --stream --chunk-frames 16 within 1e-5 of the offline frames,
+     fetch_ms per chunk), a stream resumed at chunk 16 from the analyzer
+     and visual states saved and restored by utils.checkpoint (bit-equal
+     to the unbroken stream), and analyze --dashboard (32 dashboards; the
+     JSON lines within 1e-5 relative of the CPU run's, |b| floored at 0.1,
+     the melancholy within 1e-4).
 Then the run's seconds, one JSON line with each kernel's numbers (and a row
 for each of phase 21's cases, ``name<samples>@config``), the nvidia-smi
 line, and the result line {"ok": true, "device": {...}}.
@@ -944,6 +971,406 @@ def configs_phase(dev, smi, path_launches):
     return rows
 
 
+def session_script(size, small):
+    """Phase 22's session: 40 events as JSON lines — shifted and unshifted
+    cursor moves (the first only anchors), drags, a scroll to the minimum
+    radius and back, ``set`` of the light colour, the cube and light
+    positions and the displacement, a resize to ``small`` and back to
+    ``size``, and a closing ``frame`` of 8: 47 frames."""
+    ev = [{"type": "cursor", "x": 400.0, "y": 300.0},
+          {"type": "cursor", "x": 420.0, "y": 310.0}]
+    ev += [{"type": "cursor", "x": 420.0 + 17.0 * i, "y": 310.0 - 6.5 * i,
+            "shift": True} for i in range(1, 7)]
+    ev += [{"type": "drag", "dx": dx, "dy": dy}
+           for dx, dy in ((-30.0, 12.0), (45.5, -8.0), (3.0, 60.0),
+                          (-12.25, -40.0))]
+    ev += [{"type": "scroll", "dy": 1.0}, {"type": "scroll", "dy": -2.0},
+           {"type": "set", "light_color": [1.0, 0.6, 0.3]},
+           {"type": "set", "cube_pos": [0.4, 0.1, -1.3]},
+           {"type": "set", "light_pos": [0.8, 2.5, 0.3]},
+           {"type": "set", "displacement": 0.04},
+           {"type": "resize", "width": small[0], "height": small[1]}]
+    ev += [{"type": "cursor", "x": 520.0 - 11.0 * i, "y": 270.0 + 9.0 * i,
+            "shift": True} for i in range(4)]
+    ev += [{"type": "drag", "dx": 20.0, "dy": 5.0},
+           {"type": "resize", "width": size[0], "height": size[1]},
+           {"type": "scroll", "dy": 100.0}, {"type": "scroll", "dy": -22.0}]
+    ev += [{"type": "cursor", "x": 470.0 + 13.0 * i, "y": 305.0 - 4.0 * i,
+            "shift": True} for i in range(4)]
+    ev += [{"type": "cursor", "x": 600.0, "y": 200.0},
+           {"type": "cursor", "x": 640.0, "y": 180.0}]
+    ev += [{"type": "drag", "dx": dx, "dy": dy}
+           for dx, dy in ((8.0, -3.0), (-25.0, 14.0), (60.0, 0.5),
+                          (-5.0, -9.0))]
+    ev += [{"type": "set", "light_color": [0.3, 0.8, 1.0],
+            "displacement": 0.0},
+           {"type": "set", "cube_pos": [0.0, 0.0, -1.0]},
+           {"type": "frame", "n": 8}]
+    assert len(ev) == 40
+    return [json.dumps(e) for e in ev]
+
+
+def trace_summary(path, frames):
+    """Per frame, from a Chrome trace written by ``utils.profiling.
+    device_trace``: CUDA launch calls, device events (kernels, copies,
+    memsets) and their summed ms; and the kernels' names."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                    "gpu_memset")]
+    calls = sum(1 for e in events if str(e.get("name", "")).startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+    busy = sum(float(e.get("dur", 0.0)) for e in device) / 1e3
+    names = {e["name"] for e in device if e.get("cat") == "kernel"}
+    return {"launch_calls": calls / frames,
+            "device_events": len(device) / frames,
+            "device_busy_ms": busy / frames}, names
+
+
+def check_launches(what, launches, want):
+    full = {k: 0 for k in launches}
+    full.update(want)
+    if launches != full:
+        fail(f"{what}: launch counts {launches} != {full}")
+
+
+def app_phase(dev, smi, path_launches, sig, rate, serve_ms, batch_ms):
+    """Phase 22: the app layer on the card at W x H, 4xMSAA, SHADOW^2: the
+    CLI's render (one frame in a subprocess through ``python -m``, one and
+    8 in process), flythrough, session, audioapp (offline and streamed),
+    analyze --dashboard, and a stream resumed from a checkpoint, each held
+    to the in-process entry points. Adds each path's launches to
+    ``path_launches``. ``serve_ms``: phase 5's median flagship frame;
+    ``batch_ms``: phase 16's flagship batch, ms per frame."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch import cli
+    from metalrenderer_tpu_torch.audio import analyzer, mapping
+    from metalrenderer_tpu_torch.config import RenderConfig
+    from metalrenderer_tpu_torch.engine import audio_app, renderer
+    from metalrenderer_tpu_torch.engine.session import InteractiveSession
+    from metalrenderer_tpu_torch.io import png, wav
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+    from metalrenderer_tpu_torch.scene.lights import Lighting
+    from metalrenderer_tpu_torch.utils import checkpoint, profiling
+
+    devname = "cuda" if dev.type == "cuda" else "cpu"
+    cfg = RenderConfig(width=W, height=H, msaa=4, shadow_map_size=SHADOW)
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=W / H)
+    size = ["--width", str(W), "--height", str(H), "--msaa", "4",
+            "--shadow-map-size", str(SHADOW)]
+    target = (0.0, 0.0, -1.0)
+    tmp = Path(tempfile.mkdtemp(prefix="app_phase_"))
+
+    def run_cli(argv, want=None):
+        """cli.main(argv) in process with its stdout captured; the launch
+        counts must be ``want`` (and go to ``path_launches``). Returns (the
+        subcommand's result, its JSON lines, host ms)."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(["--device", devname, *argv])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        if want is not None:
+            check_launches(f"cli {argv[0]}", launches, want)
+        for k, n in launches.items():
+            path_launches[k] += n
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        return res, lines, ms
+
+    def files(d, pattern):
+        return sorted(p.name for p in Path(d).glob(pattern))
+
+    one = dict(raster_depth=1, render_fused=1)
+    batch = dict(raster_depth_batch=1, render_fused_batch=1)
+    scene = audio_app.build_scene(device=dev)
+
+    # The module entry point on its own, in a subprocess.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "metalrenderer_tpu_torch.cli", "--device",
+         devname, "render", *size, "--out", str(tmp / "sub.png")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"python -m metalrenderer_tpu_torch.cli render exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    sub_stats = json.loads(proc.stdout.splitlines()[0])
+
+    # render: one frame, then an 8-frame turntable.
+    (fb, st), lines, r1_ms = run_cli(["render", *size, "--out",
+                                      str(tmp / "one.png")], one)
+    want_fb, _ = audio_app.render_audio_app(camera=cam, config=cfg,
+                                            device=dev)
+    one_eq = torch.equal(fb, want_fb)
+    png_eq = np.array_equal(png.read_png(tmp / "one.png"),
+                            png.to_u8(fb.cpu().numpy())[..., :3])
+    sub_eq = np.array_equal(png.read_png(tmp / "sub.png"),
+                            png.read_png(tmp / "one.png"))
+    host = fb.cpu().numpy()
+    png_ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        png.write_png(tmp / f"png_{i}.png", host)
+        png_ms.append((time.perf_counter() - t0) * 1e3)
+    say("app", cmd="render", frames=1, size=f"{W}x{H}",
+        rgba_equal_render_audio_app=one_eq, png_equal_rgba=png_eq,
+        subprocess_png_equal=sub_eq, subprocess_s=f"{sub_s:.2f}",
+        cli_ms=f"{r1_ms:.4f}", png_ms_per_frame=f"{min(png_ms):.2f}",
+        stats_keys_equal=sorted(lines[0]) == sorted(st) == sorted(sub_stats),
+        card=repr(smi))
+    if not (one_eq and png_eq and sub_eq and sorted(lines[0]) == sorted(st)
+            == sorted(sub_stats)):
+        fail("cli render: frame, PNG or stats differ from render_audio_app")
+
+    nf = 8
+    (fbs, st8), lines, r8_ms = run_cli(
+        ["render", *size, "--frames", str(nf), "--orbit", "0.8", "--out",
+         str(tmp / "turn.png")], batch)
+    thetas = torch.tensor(2.5, dtype=torch.float32) + cli.linspace_f32(
+        0.0, 0.8, nf)
+    want8, _ = pipeline.render_batch(scene, cam, Lighting.default(),
+                                     [0.0] * nf, thetas, config=cfg,
+                                     shadow_target=target, device=dev)
+    batch_eq = torch.equal(fbs, want8)
+    frames_eq = all(torch.equal(fbs[i], pipeline.render_frame(
+        scene, dataclasses.replace(cam, theta=float(t)), Lighting.default(),
+        cfg, shadow_target=target, device=dev)[0])
+        for i, t in enumerate(thetas))
+    pngs = files(tmp, "turn_*.png")
+    say("app", cmd="render", frames=nf, orbit=0.8, cli_ms=f"{r8_ms:.4f}",
+        per_frame_ms=f"{r8_ms / nf:.4f}", frames_equal_render_batch=batch_eq,
+        frames_equal_render_frame=frames_eq, pngs=len(pngs),
+        stats_keys=sorted(lines[0]) == sorted(st8))
+    if not (batch_eq and frames_eq and len(pngs) == nf
+            and sorted(lines[0]) == sorted(st8)):
+        fail("cli render --frames: frames differ from render_batch or "
+             "render_frame, or files or stats are missing")
+    del fbs, want8
+
+    # flythrough: three key poses, 8 frames a segment -> 17 PoseCameras in
+    # one K4 + K6 batch.
+    poses = ["5,2.5,1.2", "4,3.0,1.35", "6,2.0,1.0"]
+    frames, _, fly_ms = run_cli(
+        ["flythrough", *size, *sum((["--pose", p] for p in poses), []),
+         "--frames-per-segment", "8", "--out-dir", str(tmp / "fly")], batch)
+    keys = [OrbitCamera(radius=float(r), theta=float(t), phi=float(p),
+                        aspect=W / H)
+            for r, t, p in (k.split(",") for k in poses)]
+
+    def fly():
+        return renderer.render_camera_path(
+            scene, Lighting.default(), keys, frames_per_segment=8,
+            config=cfg, shadow_target=target, device=dev)
+    fly()                                             # warm-up
+    (rend, fly_render_ms), fly_mem = peak_mb(lambda: timed_once(fly))
+    cams = renderer.camera_path(keys, 8)
+    fly_err = max(float((frames[i] - pipeline.render_frame(
+        scene, c, Lighting.default(), cfg, shadow_target=target,
+        device=dev)[0]).abs().max()) for i, c in enumerate(cams))
+    fly_eq = torch.equal(rend, frames)
+    nfly = len(cams)
+    say("app", cmd="flythrough", frames=nfly, keys=len(keys),
+        render_ms=f"{fly_render_ms:.4f}",
+        render_ms_per_frame=f"{fly_render_ms / nfly:.4f}",
+        flagship_batch8_ms_per_frame=f"{batch_ms:.4f}",
+        cli_wall_ms_with_png=f"{fly_ms:.4f}",
+        cli_wall_ms_per_frame=f"{fly_ms / nfly:.4f}",
+        peak_mem_mb=f"{fly_mem:.1f}", max_abs_err_vs_render_frame=fly_err,
+        tol=1e-5, cli_equal_in_process=fly_eq,
+        pngs=len(files(tmp / "fly", "fly_*.png")), card=repr(smi))
+    if not (nfly == 17 and tuple(frames.shape) == (17, H, W, 4)
+            and fly_err <= 1e-5 and fly_eq
+            and len(files(tmp / "fly", "fly_*.png")) == 17):
+        fail(f"flythrough: frames differ from render_frame at the slerped "
+             f"poses by {fly_err} or from the in-process path")
+    del frames, rend
+
+    # session: the 40-event script at full size (resize to 1280x720 and
+    # back), in process (timed: event to frame on the host) and through the
+    # CLI; then 4 frames under the profiler.
+    lines = session_script((W, H), (W * 2 // 3, H * 2 // 3))
+    script = tmp / "events.jsonl"
+    script.write_text("\n".join(lines) + "\n")
+
+    def session(config, device):
+        return InteractiveSession(config=config, camera=OrbitCamera(
+            radius=5.0, theta=2.5, phi=1.2,
+            aspect=config.width / config.height), device=device)
+
+    session(cfg, dev).render_frame()                  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    lat, states, sizes = [], [], []
+    sess = session(cfg, dev)
+    t_prev = time.perf_counter()
+    for fb_s, telem in sess.run(lines):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lat.append((t - t_prev) * 1e3)
+        t_prev = t
+        states.append(telem["camera"])
+        sizes.append((telem["width"], telem["height"]))
+    launches = read_counts()
+    n_sess = len(states)
+    check_launches("session", launches, dict(raster_depth=n_sess,
+                                             render_fused=n_sess))
+    for k, n in launches.items():
+        path_launches[k] += n
+    (fb_cli, telems), _, sess_cli_ms = run_cli(
+        ["session", *size, "--events", str(script), "--out-dir",
+         str(tmp / "sess"), "--png-every", "16"],
+        dict(raster_depth=n_sess, render_fused=n_sess))
+    cli_eq = ([t["camera"] for t in telems] == states
+              and torch.equal(fb_cli, fb_s))
+    trace_dir = tmp / "trace"
+    with profiling.device_trace(trace_dir) as prof:
+        t0 = time.perf_counter()
+        for _ in sess.run(['{"type": "frame", "n": 4}']):
+            pass
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / 4
+    tr, kernel_names = trace_summary(prof.trace_path, 4)
+    named = {k: any(k in n for n in kernel_names)
+             for k in ("raster_depth_kernel", "render_fused_kernel")}
+    say("app", cmd="session", events=len(lines), frames=n_sess,
+        sizes=sorted(set(sizes)),
+        latency_median_ms=f"{statistics.median(lat):.4f}",
+        latency_min_ms=f"{min(lat):.4f}", latency_max_ms=f"{max(lat):.4f}",
+        render_audio_app_median_ms=f"{serve_ms:.4f}",
+        launches=json.dumps(launches), cli_ms=f"{sess_cli_ms:.4f}",
+        cli_equal_in_process=cli_eq, min_radius=min(
+            s["radius"] for s in states), card=repr(smi))
+    say("app", cmd="session", profiled_frames=4, per="frame",
+        **{k: f"{v:.4f}" for k, v in tr.items()},
+        wall_ms=f"{prof_wall:.4f}",
+        busy_share=f"{tr['device_busy_ms'] / prof_wall:.4f}",
+        trace_names=json.dumps(named), card=repr(smi))
+    if not (n_sess == 47 and cli_eq and all(named.values())
+            and min(s["radius"] for s in states) == 0.5):
+        fail("session: frame count, CLI run or trace wrong "
+             f"({n_sess} frames, cli equal {cli_eq}, trace {named})")
+
+    # The same script at 160x120 (resize to 96x72 and back) on the card and
+    # on the CPU: camera states equal after every event, last frames within
+    # 1e-5 (K2's twin bar).
+    small = RenderConfig(width=160, height=120, msaa=4, shadow_map_size=256)
+    lines_s = session_script((160, 120), (96, 72))
+    runs = {}
+    for d in (dev, "cpu"):
+        out = list(session(small, d).run(lines_s))
+        runs[str(d)] = ([t["camera"] for _, t in out], out[-1][0].cpu())
+    (st_gpu, fb_gpu), (st_cpu, fb_cpu) = runs[str(dev)], runs["cpu"]
+    sess_err = float((fb_gpu - fb_cpu).abs().max())
+    say("app", cmd="session", check="card vs CPU", size="160x120",
+        camera_states_equal=st_gpu == st_cpu == states,
+        last_frame_rgba_max_abs_err=sess_err, tol=1e-5)
+    if not (st_gpu == st_cpu == states and sess_err <= 1e-5):
+        fail(f"session at 160x120: card and CPU differ ({sess_err})")
+
+    # audioapp: phase 20's signal as a 16-bit WAV; offline, then streamed.
+    wav_path = tmp / "signal.wav"
+    wav.write_wav(wav_path, sig, int(rate))
+    samples, rate = wav.read_wav(wav_path)
+    mono = samples[0]
+    chunks = mono.shape[0] // analyzer.FFT_SIZE
+    (frames, telem), _, aa_ms = run_cli(
+        ["audioapp", *size, "--wav", str(wav_path), "--out-dir",
+         str(tmp / "aa")], batch)
+    want_f, want_t = renderer.render_audio_reactive_sequence(
+        mono, rate, camera=cam, config=cfg, device=dev)
+    aa_eq = torch.equal(frames, want_f) and all(
+        torch.equal(telem[k], want_t[k]) for k in want_t)
+    tele = json.loads((tmp / "aa" / "telemetry.json").read_text())
+    say("app", cmd="audioapp", frames=chunks, cli_ms=f"{aa_ms:.4f}",
+        cli_ms_per_frame=f"{aa_ms / chunks:.4f}",
+        frames_equal_sequence=aa_eq, telemetry_keys=sorted(tele),
+        pngs=len(files(tmp / "aa", "frame_*.png")))
+    if not (aa_eq and sorted(tele) == sorted(want_t)
+            and len(files(tmp / "aa", "frame_*.png")) == chunks):
+        fail("cli audioapp: frames or telemetry differ from "
+             "render_audio_reactive_sequence")
+    del want_f
+    (sframes, recs), _, st_ms = run_cli(
+        ["audioapp", *size, "--wav", str(wav_path), "--out-dir",
+         str(tmp / "as"), "--stream", "--chunk-frames", "16"],
+        dict(raster_depth_batch=2, render_fused_batch=2))
+    stream_err = float((sframes - frames.cpu()).abs().max())
+    # What of fetch_ms is the chunk's copy to the host (16 frames, 531 MB).
+    _, d2h_ms = timed_once(lambda: frames[:16].cpu())
+    say("app", cmd="audioapp --stream", chunk_frames=16,
+        fetch_ms=[r["fetch_ms"] for r in recs], cli_ms=f"{st_ms:.4f}",
+        chunk_to_host_ms=f"{d2h_ms:.2f}",
+        max_abs_diff_vs_offline=stream_err, tol=1e-5, card=repr(smi))
+    if not (tuple(sframes.shape) == (chunks, H, W, 4)
+            and stream_err <= 1e-5 and len(recs) == 2):
+        fail(f"cli audioapp --stream differs from the offline run by "
+             f"{stream_err}")
+    del frames
+
+    # Checkpoint: the stream split at chunk 16, the analyzer and visual
+    # states saved and restored, equal to the unbroken stream.
+    a_state, v_state, _, _ = renderer.audio_visual_track(
+        mono[:16 * analyzer.FFT_SIZE], rate, device=dev)
+    ckpt = tmp / "stream_state.npz"
+    checkpoint.save_pytree(ckpt, (a_state, v_state))
+    a_rest, v_rest = checkpoint.restore_like(
+        (analyzer.AnalyzerState.init(), mapping.VisualState.init()), ckpt)
+    reset_counts()
+    resumed = torch.cat([f for f, _ in renderer.stream_audio_reactive(
+        mono[16 * analyzer.FFT_SIZE:], rate, chunk_frames=16, camera=cam,
+        config=cfg, device=dev, analyzer_state=a_rest,
+        visual_state=v_rest)])
+    launches = read_counts()
+    check_launches("resumed stream", launches, batch)
+    for k, n in launches.items():
+        path_launches[k] += n
+    resume_eq = torch.equal(resumed.cpu(), sframes[16:])
+    say("app", check="checkpoint resume", split_chunk=16,
+        leaves=len(checkpoint.load_leaves(ckpt)),
+        resumed_equal_unbroken=resume_eq)
+    if not resume_eq:
+        fail("the stream resumed from a checkpoint differs from the "
+             "unbroken stream")
+    del sframes, resumed
+
+    # analyze --dashboard on the card against the CPU run.
+    _, gpu_lines, an_ms = run_cli(["analyze", "--wav", str(wav_path),
+                                   "--dashboard", str(tmp / "dash")], {})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", "cpu", "analyze", "--wav", str(wav_path)])
+    cpu_lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    # Phase 20's track bar: 1e-5 relative (|b| floored at 0.1); the
+    # melancholy 1e-4 absolute (tests/test_torch_audio.py's bar: minor- and
+    # major-third sums of a tone's leakage bins, where cuFFT and the CPU
+    # FFT part at ~1e-7 of the peak).
+    errs = {k: max(abs(g[k] - c[k]) / max(abs(c[k]), 0.1)
+                   for g, c in zip(gpu_lines, cpu_lines))
+            for k in cpu_lines[0] if k != "chunk"}
+    ok = (len(gpu_lines) == len(cpu_lines) == chunks
+          and all(v <= (1e-4 if k == "melancholy" else 1e-5)
+                  for k, v in errs.items()))
+    dash = files(tmp / "dash", "dash_*.png")
+    say("app", cmd="analyze --dashboard", chunks=len(gpu_lines),
+        cli_ms=f"{an_ms:.4f}", dashboards=len(dash),
+        max_rel_err_vs_cpu=json.dumps({k: float(f"{v:.3g}")
+                                       for k, v in errs.items()}))
+    if not (ok and len(dash) == chunks):
+        fail(f"cli analyze on the card differs from the CPU run: {errs}")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
     start = time.perf_counter()
@@ -1210,6 +1637,7 @@ def main():
         fail(f"covered_fraction {covf_gpu} (GPU) vs {covf_cpu} (CPU)")
     path_launches = dict(launches)
     covf_cpu_flagship = covf_cpu
+    serve_med = med
 
     # Config-4 inputs (split path), built by the port's own prep on the card.
     scene4, cam4, light4, cfg4 = configs.config4_shadow_normal_map(W, H,
@@ -1776,6 +2204,7 @@ def main():
                         sample_bilinear_batch=1, sample_pyramid=2)}
     covf_cpu_last = {"flagship": covf_cpu_flagship,
                      "config4": covf_cpu_config4}
+    batch_per_frame = {}
     for name, fn in (("flagship", batch_flagship),
                      ("config4", batch_config4)):
         fn()                                          # warm-up
@@ -1823,6 +2252,7 @@ def main():
                  f"{covf_cpu_last[name]} (CPU)")
         for k, n in launches.items():
             path_launches[k] += n
+        batch_per_frame[name] = med / BATCH
         del rgba, st
     hoisted()                                         # warm-up
     hoisted_ms, outs = timed_frames(lambda _: hoisted(), range(BATCHES))
@@ -2162,6 +2592,10 @@ def main():
 
     # 21. BASELINE configs 2, 3 and 5 --------------------------------------
     case_rows = configs_phase(dev, smi, path_launches)
+
+    # 22. the app layer ---------------------------------------------------------
+    app_phase(dev, smi, path_launches, sig, rate, serve_med,
+              batch_per_frame["flagship"])
     say("time", seconds=f"{time.perf_counter() - start:.1f}", limit=900)
 
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),

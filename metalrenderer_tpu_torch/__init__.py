@@ -7,23 +7,26 @@ audio-reactive scene driven by an audio analysis pipeline: ``audio/``,
 kernels replaced by CUDA C++ kernels for Hopper (``csrc/raster.cu``,
 ``csrc/sample.cu``, built with nvcc at first use). Entry points render on
 the GPU unless the caller asks for the CPU; tensors on the CPU take the
-kernels' plain PyTorch twins. The package imports torch, never jax.
+kernels' plain PyTorch twins. The app layer (``cli.py``, run as ``python
+-m metalrenderer_tpu_torch.cli``, and ``engine/session.py``) and the
+utilities (``utils/``) sit on top. The package imports torch, never jax.
 """
 
 from .config import RenderConfig, ShadowConfig
-from .scene.camera import OrbitCamera
+from .scene.camera import OrbitCamera, PoseCamera
 from .scene.lights import DirectionalLight, Lighting, PointLight
 from .scene.materials import (BLINN_PHONG, BLINN_PHONG_SHADOW, EMISSIVE,
                               Material)
 from .scene.mesh import Mesh, cube, plane, square, triangle, uv_sphere
 from .scene.scene import Instance, Scene
-from .passes.pipeline import render_batch, render_frame
+from .passes.pipeline import render, render_batch, render_frame
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "RenderConfig", "ShadowConfig", "OrbitCamera", "Lighting", "PointLight",
+    "RenderConfig", "ShadowConfig", "OrbitCamera", "PoseCamera",
+    "Lighting", "PointLight",
     "DirectionalLight", "Material", "BLINN_PHONG", "BLINN_PHONG_SHADOW",
     "EMISSIVE", "Mesh", "cube", "plane", "square", "triangle", "uv_sphere",
-    "Instance", "Scene", "render_frame", "render_batch",
+    "Instance", "Scene", "render", "render_batch", "render_frame",
 ]

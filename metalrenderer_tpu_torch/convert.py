@@ -21,7 +21,7 @@ from .audio.analyzer import AnalyzerState
 from .audio.mapping import VisualParams, VisualState
 from .passes.pipeline import PassGeometry
 from .raster.geometry import TriangleSetup
-from .scene.camera import OrbitCamera
+from .scene.camera import OrbitCamera, PoseCamera
 from .scene.lights import DirectionalLight, Lighting, PointLight
 from .scene.materials import Material
 from .scene.mesh import Mesh
@@ -92,6 +92,25 @@ def cameras_from_jax(cams) -> list:
     return [camera_from_jax(types.SimpleNamespace(
         **{f: frame(getattr(cams, f), i) for f in fields}))
         for i in range(n)]
+
+
+_POSE_FIELDS = ("position", "orientation", "fov_degrees", "near", "far",
+                "aspect")
+
+
+def pose_camera_from_jax(cam) -> PoseCamera:
+    """A free camera's pose and lens, as f32 CPU tensors (kept exactly)."""
+    return PoseCamera(**{f: _f32(getattr(cam, f)) for f in _POSE_FIELDS})
+
+
+def pose_cameras_from_jax(cams) -> list:
+    """A stacked PoseCamera pytree (every leaf with a leading frame axis F,
+    as the JAX ``render_camera_path`` slerps them) as F port cameras."""
+    leaves = {f: np.asarray(getattr(cams, f), np.float32)
+              for f in _POSE_FIELDS}
+    n = leaves["position"].shape[0]
+    return [pose_camera_from_jax(types.SimpleNamespace(
+        **{f: a[i] for f, a in leaves.items()})) for i in range(n)]
 
 
 def lighting_from_jax(lighting) -> Lighting:

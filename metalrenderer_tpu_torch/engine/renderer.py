@@ -10,7 +10,9 @@ samples in, frames out, on one device: the track is computed for all
 frames at once (``audio_visual_track``), brought to the host in one copy
 (the frames' scenes and uniforms are built there), and the frames go
 through the fused frame batch (kernels K4 + K6) or, for configurations
-the fused batch does not take, through ``render_frame`` one by one.
+the fused batch does not take, through ``render_frame`` one by one. A
+camera flythrough (``render_camera_path``) slerps PoseCameras between key
+poses on the host and renders them the same way.
 
 Frame cadence matches the reference's data flow: one 1024-sample audio
 chunk produces one frame's worth of scene parameters (the audio tap fires
@@ -22,8 +24,10 @@ import torch
 
 from ..audio import analyzer, interpreter, mapping
 from ..config import RenderConfig, ShadowConfig
-from ..passes.pipeline import (fused_batch_eligible, render_frame,
-                               render_frame_batch_fused, resolve_device)
+from ..passes.pipeline import (fused_batch_eligible, px_batch_eligible,
+                               render_frame, render_frame_batch_fused,
+                               render_frame_batch_px, resolve_device)
+from ..scene.camera import PoseCamera
 from ..scene.lights import Lighting, PointLight
 from . import audio_app
 
@@ -47,6 +51,57 @@ def audio_visual_track(samples, sample_rate,
     v_state, params = mapping.map_audio_to_visual(
         visual_state, ctxs, results.rms, results.rolling_avg)
     return a_state, v_state, params, ctxs
+
+
+def camera_path(key_poses, frames_per_segment=8):
+    """The flythrough's per-frame cameras: F = (len(key_poses) - 1) *
+    frames_per_segment + 1 PoseCameras slerped on the host between the key
+    poses (PoseCamera, or OrbitCamera converted by ``.pose()``). Frame i
+    lies in segment ``min(i // fps, n_seg - 1)`` at ``t = (i - seg * fps) /
+    fps`` in f32, as in the JAX package. Raises ValueError with fewer than
+    two key poses."""
+    poses = [p if isinstance(p, PoseCamera) else p.pose() for p in key_poses]
+    if len(poses) < 2:
+        raise ValueError("need at least two key poses")
+    n_seg, fps = len(poses) - 1, frames_per_segment
+    idx = torch.arange(n_seg * fps + 1)
+    seg = torch.clamp_max(torch.div(idx, fps, rounding_mode="floor"),
+                          n_seg - 1)
+    t = (idx - seg * fps).to(torch.float32) / fps
+    return [poses[s].slerp(poses[s + 1], tt)
+            for s, tt in zip(seg.tolist(), t)]
+
+
+def render_camera_path(scene, lighting, key_poses, frames_per_segment=8,
+                       config: RenderConfig = RenderConfig(),
+                       shadow_config: ShadowConfig = ShadowConfig(),
+                       displacement=0.0, shadow_target=(0.0, 0.0, 0.0),
+                       backend="kernels", device="cuda"):
+    """Camera flythrough on ``device``: quaternion slerp between key poses
+    (``camera_path``), rendered as one frame batch where the scene takes
+    one (the fused batch: K4 + K6; the px batch: K4 + K5 + K8 + K9), else
+    frame by frame through ``render_frame``. Returns rgba f32[F, H, W, 4]
+    with F = (len(key_poses) - 1) * frames_per_segment + 1.
+
+    Orientation interpolates on the quaternion sphere
+    (AAPLMathUtilities.h:242 semantics), so the camera never gimbal-flips
+    between keys."""
+    cams = camera_path(key_poses, frames_per_segment)
+    fused = fused_batch_eligible(scene, lighting, config)
+    if backend == "kernels" and (
+            fused or px_batch_eligible(scene, lighting, config)):
+        batch_fn = render_frame_batch_fused if fused else \
+            render_frame_batch_px
+        nf = len(cams)
+        rgba, _ = batch_fn(scene, cams[0], lighting, config, shadow_config,
+                           [displacement] * nf, [0.0] * nf,
+                           shadow_target=shadow_target, cameras=cams,
+                           backend=backend, device=device)
+        return rgba
+    return torch.stack([
+        render_frame(scene, cam, lighting, config, shadow_config,
+                     displacement, shadow_target, backend, device)[0]
+        for cam in cams])
 
 
 def _telemetry(params, ctxs, n):
@@ -121,7 +176,9 @@ def stream_audio_reactive(samples, sample_rate, chunk_frames=16,
                           light_position=(0.0, 2.0, 0.0),
                           config: RenderConfig = RenderConfig(),
                           shadow_config: ShadowConfig = ShadowConfig(),
-                          backend="kernels", device="cuda"):
+                          backend="kernels", device="cuda",
+                          analyzer_state: analyzer.AnalyzerState = None,
+                          visual_state: mapping.VisualState = None):
     """Streaming serving mode: yield rendered frames as audio arrives.
 
     The analog of the reference's live path — the CoreAudio tap delivers a
@@ -138,14 +195,18 @@ def stream_audio_reactive(samples, sample_rate, chunk_frames=16,
     Yields (frames f32[<=chunk_frames, H, W, 4], telemetry dict) per chunk.
     The last chunk's audio is zero-padded to ``chunk_frames`` buffers, so
     every chunk's track has one shape, and trimmed before its frames are
-    rendered."""
+    rendered. ``analyzer_state``, ``visual_state``: the carries to start
+    from (default: a fresh stream), e.g. restored from a checkpoint
+    (``utils.checkpoint``) to resume a stream mid-way."""
     r = _SequenceRenderer(camera, cube_position, light_position, config,
                           shadow_config, backend, device)
     samples = torch.as_tensor(samples, dtype=torch.float32)
     chunk_samples = chunk_frames * analyzer.FFT_SIZE
     n_frames = samples.shape[0] // analyzer.FFT_SIZE
-    a_state = analyzer.AnalyzerState.init()
-    v_state = mapping.VisualState.init()
+    a_state = (analyzer.AnalyzerState.init() if analyzer_state is None
+               else analyzer_state)
+    v_state = (mapping.VisualState.init() if visual_state is None
+               else visual_state)
     fused = None
     for start in range(0, n_frames, chunk_frames):
         nf = min(chunk_frames, n_frames - start)

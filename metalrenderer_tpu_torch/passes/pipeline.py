@@ -329,6 +329,19 @@ def render_frame(scene: Scene, camera, lighting,
     return _render_prepared(prep, config)
 
 
+def render(scene: Scene, camera, lighting,
+           config: RenderConfig = RenderConfig(),
+           shadow_config: ShadowConfig = ShadowConfig(),
+           displacement=0.0, shadow_target=(0.0, 0.0, 0.0),
+           backend="kernels", device="cuda"):
+    """The package-level entry point, ``render_frame`` under the JAX
+    package's name (there a jitted wrapper whose default backend is its
+    brute-force oracle; the port has no oracle, ROADMAP A11, so the default
+    here is the kernels)."""
+    return render_frame(scene, camera, lighting, config, shadow_config,
+                        displacement, shadow_target, backend, device)
+
+
 # --------------------------------------------------------------------------
 # Frame batches (``metalrenderer_tpu.passes.pipeline``'s batch API)
 # --------------------------------------------------------------------------

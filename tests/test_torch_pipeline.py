@@ -116,7 +116,17 @@ def test_port_imports_without_jax():
             "metalrenderer_tpu_torch.io.wav, "
             "metalrenderer_tpu_torch.io.obj, "
             "metalrenderer_tpu_torch.io.native, "
-            "metalrenderer_tpu_torch.convert; "
+            "metalrenderer_tpu_torch.convert, "
+            "metalrenderer_tpu_torch.cli, "
+            "metalrenderer_tpu_torch.engine.session, "
+            "metalrenderer_tpu_torch.math.quaternion, "
+            "metalrenderer_tpu_torch.utils.stats, "
+            "metalrenderer_tpu_torch.utils.dashboard, "
+            "metalrenderer_tpu_torch.utils.checkpoint, "
+            "metalrenderer_tpu_torch.utils.profiling; "
+            "from metalrenderer_tpu_torch import render, PoseCamera; "
+            "from metalrenderer_tpu_torch.engine.renderer import ("
+            "render_camera_path); "
             "from metalrenderer_tpu_torch import uv_sphere, square, triangle; "
             "from metalrenderer_tpu_torch.engine.configs import ("
             "config2_multi_mesh, config3_high_poly, "
