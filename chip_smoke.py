@@ -168,7 +168,36 @@ Phases (one line each; any failure exits non-zero and prints no result):
      and visual states saved and restored by utils.checkpoint (bit-equal
      to the unbroken stream), and analyze --dashboard (32 dashboards; the
      JSON lines within 1e-5 relative of the CPU run's, |b| floored at 0.1,
-     the melancholy within 1e-4).
+     the melancholy within 1e-4);
+ 23. the brute-force reference backend (backend="reference", no kernel
+     launched): the flagship at 1920x1080 MSAA4 with a 1024^2 map, config
+     4, config 3 at one sample and the 800x600 flagship, each against the
+     kernels' frame (>= 40 dB; PSNR, max abs diff, covered fractions, the
+     reference's ms), the 800x600 one also against its golden (>= 40 dB);
+     K3s's winner plane against the brute force's winners (anchored at the
+     main-pass tiles) on the same setup for config 3 (1080p), config 5
+     (3840x2160) and the flagship: the differing samples and how many are
+     z-fights (both triangles cover the sample at depths within 2 ulp),
+     any other difference fails; at 160x120 every entry point on the
+     reference backend (render, render_batch, the session, the camera
+     path, the sequence, the CLI; frames equal to render_frame's) and the
+     reference frame on the card within 1e-5 of the CPU's;
+ 24. multi-device rendering (parallel/sharding.py) on the one card: a
+     world-size-1 NCCL group (file store), render_frame_batch of 8
+     flagship frames (one K4 + one K6, bit-equal to render_batch) and
+     render_tile_sharded (bit-equal to render_frame); then the flagship
+     in 2 and 4 bands and config 3 in 4, band by band through
+     sharding.prepare_band and the frame's render: per band its in-band
+     triangles, drops, prep and render ms beside the unsharded frame's,
+     config 3's longest tile list; per band, every kernel call replayed
+     through its twin (at the bars above), the reference backend's band on
+     the same setup (>= 40 dB) and K3s's winners against the brute force's
+     (z-fights only); the assembled frame's pixels beyond 1e-4 of the
+     unsharded one, for the kernels and for the reference backend
+     (printed, not held: the JAX package's bands differ
+     from its unsharded frame likewise, tests/torch_band_witness.py), its
+     PSNR (>= 40 dB) and the samples K3s covers otherwise than on the
+     unsharded frame (<= BAND_FLIPS of them).
 Then the run's seconds, one JSON line with each kernel's numbers (and a row
 for each of phase 21's cases, ``name<samples>@config``), the nvidia-smi
 line, and the result line {"ok": true, "device": {...}}.
@@ -232,6 +261,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -255,6 +285,10 @@ C2_OBJECTS, C3_TRIS, C5_TRIS = 24, 100_000, 1_000_000
 CW, CH, C5_W, C5_H = 1920, 1080, 3840, 2160
 CFG_FRAMES, C5_FRAMES = 8, 4
 C5_CPU = (960, 540, 100_000)
+# Phase 24: the share of an assembled frame's samples that its bands may
+# cover otherwise than the unsharded frame, by K3s's winners (rounding at
+# edges and cracks).
+BAND_FLIPS = 1e-4
 
 
 def fail(msg):
@@ -439,6 +473,13 @@ def psnr_db(fb, golden):
     a = np.clip(fb.cpu().numpy()[..., :3], 0, 1)
     b = golden[..., :3].astype(np.float32) / 255.0
     return 10 * np.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12))
+
+
+def psnr_frames(a, b):
+    """PSNR of two float frames on any device, every channel clipped to
+    [0, 1]."""
+    d = a.clamp(0, 1).float() - b.to(a.device).clamp(0, 1).float()
+    return 10 * math.log10(1.0 / max(float((d * d).mean()), 1e-12))
 
 
 def soup_setup(n, size, seed, device):
@@ -1369,6 +1410,523 @@ def app_phase(dev, smi, path_launches, sig, rate, serve_ms, batch_ms):
     if not (ok and len(dash) == chunks):
         fail(f"cli analyze on the card differs from the CPU run: {errs}")
     shutil.rmtree(tmp, ignore_errors=True)
+
+
+def frames_vs_kernels(name, ref_fn, kern_fn, smi):
+    """Render ``ref_fn`` (the reference backend) after a warm-up, three
+    times, checking it launches no kernel, and ``kern_fn`` (the kernels);
+    print the reference's median ms, PSNR and max abs diff against the
+    kernels' frame and both covered fractions; fail below 40 dB. Returns
+    the reference frame."""
+    import numpy as np
+    import torch
+    ref_fn()
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, outs = timed_frames(lambda _: ref_fn(), range(3))
+    launches = read_counts()
+    check_launches(f"reference {name}", launches, {})
+    fb, st = outs[-1]
+    fb_k, st_k = kern_fn()
+    a = np.clip(fb.cpu().numpy(), 0, 1)
+    b = np.clip(fb_k.cpu().numpy(), 0, 1)
+    psnr = 10 * np.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12))
+    err = float((fb - fb_k).abs().max())
+    say("reference", frame=name, size=f"{fb.shape[1]}x{fb.shape[0]}",
+        reference_ms=f"{statistics.median(ms):.4f}",
+        psnr_vs_kernels_db=f"{psnr:.3f}", max_abs_diff_vs_kernels=err,
+        covered_fraction=float(st["covered_fraction"]),
+        covered_fraction_kernels=float(st_k["covered_fraction"]),
+        launches=json.dumps(launches), card=repr(smi))
+    if not (psnr >= 40.0 and bool(torch.isfinite(fb).all())):
+        fail(f"reference {name}: {psnr:.3f} dB against the kernels (< 40) "
+             "or a non-finite frame")
+    return fb
+
+
+def winners_vs_brute_force(name, prep_k, prep_r, width, height, samples,
+                           anchor, smi):
+    """K3s's winner plane on the kernels' bins against the brute force's
+    winners on the same triangle setup: the differing samples and how many
+    of them are z-fights (both triangles cover the sample at depths within
+    2 ulp). Any other difference fails: it would be a fault of the tile
+    lists. K3s runs here as a comparison, not on a path. Returns K3s's
+    winners i32[S, H, W]."""
+    import torch
+    from metalrenderer_tpu_torch.raster import raster_cuda, reference_cpu
+    _, _, win_k = raster_cuda.raster_gbuffer_samples(
+        prep_k.main_bins, width, height, samples)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, win_r = reference_cpu.rasterize_brute_force(
+        prep_r.main_setup, width, height, samples, anchor)
+    torch.cuda.synchronize()
+    brute_ms = (time.perf_counter() - t0) * 1e3
+    idx = torch.nonzero((win_k != win_r).reshape(-1)).squeeze(1)
+    depths = [reference_cpu.depth_at_samples(
+        prep_r.main_setup, width, height, samples, idx,
+        w.reshape(-1)[idx], anchor) for w in (win_k, win_r)]
+    (z0, h0), (z1, h1) = depths
+    ulps = (z0.view(torch.int32).to(torch.int64)
+            - z1.view(torch.int32).to(torch.int64)).abs()
+    zfights = int((h0 & h1 & (ulps <= 2)).sum())
+    cnt = candidate_counts(prep_k.main_bins)
+    say("reference", check="K3s winners vs brute force", case=name,
+        size=f"{width}x{height}xS{len(samples)}",
+        slots=prep_r.main_setup.valid.numel(),
+        covered_samples=int((win_r >= 0).sum()),
+        max_tile_candidates=int(cnt.max()), differing=int(idx.numel()),
+        zfights=zfights, brute_force_ms=f"{brute_ms:.3f}", card=repr(smi))
+    if zfights != idx.numel():
+        fail(f"{name}: {idx.numel() - zfights} samples where K3s and the "
+             "brute force pick different winners outside a z-fight")
+    return win_k
+
+
+def entry_points(dev):
+    """``backend="reference"`` through every entry point on the card at
+    160x120: ``render``, ``render_batch`` (frame by frame), the session,
+    the camera path, the audio-reactive sequence and the CLI, each frame
+    equal to ``render_frame``'s where it is the same frame; no kernel
+    launched."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch import cli, render, render_batch
+    from metalrenderer_tpu_torch.config import RenderConfig
+    from metalrenderer_tpu_torch.engine import audio_app, renderer
+    from metalrenderer_tpu_torch.engine.session import InteractiveSession
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+    from metalrenderer_tpu_torch.scene.lights import Lighting
+    cfg = RenderConfig(width=160, height=120, msaa=4, shadow_map_size=256)
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=160 / 120)
+    kw = dict(backend="reference", device=dev)
+    scene = audio_app.build_scene(device=dev)
+    target = (0.0, 0.0, -1.0)
+    reset_counts()
+    one, _ = pipeline.render_frame(scene, cam, Lighting.default(), cfg,
+                                   shadow_target=target, **kw)
+    same = {
+        "render": torch.equal(render(scene, cam, Lighting.default(), cfg,
+                                     shadow_target=target, **kw)[0], one),
+        "render_batch": bool(torch.equal(render_batch(
+            scene, cam, Lighting.default(), [0.0, 0.0], [2.5, 2.5],
+            config=cfg, shadow_target=target, **kw)[0],
+            torch.stack([one, one]))),
+        "session": torch.equal(InteractiveSession(
+            config=cfg, camera=cam, **kw).render_frame()[0],
+            audio_app.render_audio_app(config=cfg, camera=cam, **kw)[0]),
+    }
+    path = renderer.render_camera_path(scene, Lighting.default(),
+                                       [cam.pose(), cam.pose()], 2,
+                                       config=cfg, **kw)
+    t = np.arange(2 * 1024) / 48000.0
+    seq, _ = renderer.render_audio_reactive_sequence(
+        (0.01 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32), 48000.0,
+        camera=cam, config=cfg, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        fb_cli, _ = cli.main(["--device", torch.device(dev).type, "render",
+                              "--backend", "reference", "--width",
+                              "160", "--height", "120", "--shadow-map-size",
+                              "256", "--out", f"{tmp}/f.png"])
+    same["cli"] = torch.equal(fb_cli, audio_app.render_audio_app(
+        config=cfg, camera=cam, **kw)[0])
+    finite = all(bool(torch.isfinite(x).all()) for x in (path, seq))
+    launches = read_counts()
+    say("reference", check="entry points", size="160x120",
+        equal_render_frame=json.dumps(same),
+        camera_path=tuple(path.shape), sequence=tuple(seq.shape),
+        finite=finite, launches=json.dumps(launches))
+    check_launches("reference entry points", launches, {})
+    if not (all(same.values()) and finite and path.shape[0] == 3
+            and seq.shape[0] == 2):
+        fail("an entry point's reference frame differs from render_frame's")
+
+
+def reference_phase(dev, smi):
+    """Phase 23: the brute-force reference backend on the card. Frames of
+    the flagship (W x H, 4xMSAA, SHADOW^2), config 4, config 3 at one sample
+    and the 800x600 flagship against the kernels' frames (>= 40 dB; the
+    800x600 one also against its golden), K3s's winners against the brute
+    force's on configs 3 (1080p) and 5 (3840x2160) and the flagship, and a
+    160x120 reference frame on the card against the CPU's (1e-5)."""
+    import torch
+    from metalrenderer_tpu_torch.config import RenderConfig
+    from metalrenderer_tpu_torch.engine import audio_app, configs
+    from metalrenderer_tpu_torch.io import png
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+    from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
+    t_phase = time.perf_counter()
+
+    def flagship(w, h, msaa=4, shadow=SHADOW):
+        cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=w / h)
+        cfg = RenderConfig(width=w, height=h, msaa=msaa,
+                           shadow_map_size=shadow)
+        return cam, cfg
+
+    cam, cfg = flagship(W, H)
+    scene = audio_app.build_scene(device=dev)
+    frames_vs_kernels(
+        "flagship", lambda: audio_app.render_audio_app(
+            camera=cam, config=cfg, backend="reference", device=dev,
+            scene=scene),
+        lambda: audio_app.render_audio_app(camera=cam, config=cfg,
+                                           device=dev, scene=scene), smi)
+    s4 = configs.config4_shadow_normal_map(W, H, device=dev)
+    frames_vs_kernels(
+        "config4", lambda: pipeline.render_frame(*s4, backend="reference",
+                                                 device=dev),
+        lambda: pipeline.render_frame(*s4, device=dev), smi)
+    s3 = configs.config3_high_poly(target_tris=C3_TRIS, width=CW, height=CH,
+                                   device=dev)
+    frames_vs_kernels(
+        "config3", lambda: pipeline.render_frame(*s3, backend="reference",
+                                                 device=dev),
+        lambda: pipeline.render_frame(*s3, device=dev), smi)
+    cam8, cfg8 = flagship(800, 600, shadow=1024)    # the golden's
+    fb8 = frames_vs_kernels(
+        "flagship_800x600", lambda: audio_app.render_audio_app(
+            camera=cam8, config=cfg8, backend="reference", device=dev,
+            scene=scene),
+        lambda: audio_app.render_audio_app(camera=cam8, config=cfg8,
+                                           device=dev, scene=scene), smi)
+    psnr = psnr_db(fb8, png.read_png(ROOT / "tests" / "goldens"
+                                     / "audio_app_800x600.png"))
+    say("reference", frame="flagship_800x600", psnr_vs_golden_db=f"{psnr:.3f}",
+        bar=40)
+    if not psnr >= 40.0:
+        fail(f"reference 800x600 golden PSNR {psnr:.3f} dB < 40")
+
+    # K3s against the brute force: the independent check of the tile walk.
+    for name, (sc, cm, lt, cf) in (
+            ("config3", s3),
+            ("config5_4k", configs.config5_animated_high_poly(
+                target_tris=C5_TRIS, width=C5_W, height=C5_H, device=dev)),
+            ("flagship", (scene, cam, Lighting(
+                light=PointLight(), ambient_intensity=0.1, shininess=32.0),
+                cfg))):
+        kw = dict(shadow_target=(0.0, 0.0, -1.0)) if name == "flagship" \
+            else {}
+        prep_k = pipeline.prepare_frame(sc, cm, lt, cf, device=dev, **kw)
+        prep_r = pipeline.prepare_frame(sc, cm, lt, cf, backend="reference",
+                                        device=dev, **kw)
+        winners_vs_brute_force(name, prep_k, prep_r, cf.width, cf.height,
+                               tuple(cf.sample_positions),
+                               (cf.tile_w, cf.tile_h), smi)
+        del prep_k, prep_r
+
+    # Every entry point takes the reference backend on the card.
+    entry_points(dev)
+
+    # The card against the CPU.
+    cam_s, cfg_s = flagship(160, 120, shadow=256)
+    fb_gpu, _ = audio_app.render_audio_app(camera=cam_s, config=cfg_s,
+                                           backend="reference", device=dev)
+    fb_cpu, _ = audio_app.render_audio_app(camera=cam_s, config=cfg_s,
+                                           backend="reference", device="cpu")
+    err = float((fb_gpu.cpu() - fb_cpu).abs().max())
+    say("reference", check="card vs CPU", size="160x120",
+        rgba_max_abs_err=err, tol=1e-5,
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not err <= 1e-5:
+        fail(f"the reference frame on the card differs from the CPU's by "
+             f"{err}")
+
+
+# The one-frame kernel wrappers a frame's path calls, by module, and their
+# plain twins.
+PATH_WRAPPERS = {
+    "raster_cuda": ("raster_depth", "render_fused", "raster_gbuffer",
+                    "raster_gbuffer_samples"),
+    "mip_cuda": ("sample_pyramid",),
+    "sample_cuda": ("sample_bilinear",),
+}
+
+
+def recorded_calls(fn):
+    """Run ``fn`` while the one-frame kernel wrappers record their calls:
+    (fn's result, [(wrapper, args, kwargs, its outputs cloned)]). The
+    wrappers launch their kernels and count as ever."""
+    import torch
+    from metalrenderer_tpu_torch.raster import (mip_cuda, raster_cuda,
+                                                sample_cuda)
+    mods = {"raster_cuda": raster_cuda, "mip_cuda": mip_cuda,
+            "sample_cuda": sample_cuda}
+    calls, saved = [], {}
+
+    def clone(out):
+        if isinstance(out, tuple):
+            return tuple(clone(o) for o in out)
+        return out.clone() if isinstance(out, torch.Tensor) else out
+
+    def recorder(name, wrapper):
+        def call(*args, **kw):
+            out = wrapper(*args, **kw)
+            calls.append((name, args, kw, clone(out)))
+            return out
+        return call
+
+    try:
+        for mod, names in PATH_WRAPPERS.items():
+            for name in names:
+                saved[mod, name] = getattr(mods[mod], name)
+                setattr(mods[mod], name, recorder(name, saved[mod, name]))
+        result = fn()
+    finally:
+        for (mod, name), wrapper in saved.items():
+            setattr(mods[mod], name, wrapper)
+    return result, calls
+
+
+def twins_hold(what, calls):
+    """Each recorded kernel call against its plain twin on the same inputs,
+    at the bars of the phases that introduced them: depth, G-buffer and
+    winners bit-equal (K1, K3, K3s), K2's coverage equal and its rgba within
+    1e-5, K9's and K7's samples equal. Fails on any other difference;
+    returns ({wrapper: calls checked}, the largest difference)."""
+    import torch
+    from metalrenderer_tpu_torch.raster import (mip_cuda, raster_cuda,
+                                                sample_cuda)
+    mods = {"raster_cuda": raster_cuda, "mip_cuda": mip_cuda,
+            "sample_cuda": sample_cuda}
+    plain = {name: getattr(mods[mod], name + "_plain")
+             for mod, names in PATH_WRAPPERS.items() for name in names}
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    checked, worst = {}, 0.0
+    for name, args, kw, out in calls:
+        ref = plain[name](*args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        pairs = [(a, b) for a, b in zip(outs, refs)
+                 if a is not None or b is not None]
+        if len(outs) != len(refs) or any(a is None or b is None
+                                          for a, b in pairs):
+            fail(f"{what}: {name} and its twin return different outputs")
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+        worst = max(worst, err)
+        if name == "render_fused":
+            ok = torch.equal(outs[1], refs[1]) and err <= 1e-5
+        elif name.startswith("sample_"):
+            ok = err == 0.0
+        else:
+            ok = all(torch.equal(bits(a), bits(b)) for a, b in pairs)
+        if not ok:
+            fail(f"{what}: {name} differs from its twin by {err}")
+        checked[name] = checked.get(name, 0) + 1
+    return checked, worst
+
+
+def parallel_phase(dev, smi, path_launches):
+    """Phase 24: multi-device rendering on the one card. A world-size-1 NCCL
+    group (file store in a temporary directory): ``render_frame_batch`` of
+    BATCH flagship frames (one K4 + one K6, bit-equal to ``render_batch``)
+    and ``render_tile_sharded`` (bit-equal to ``render_frame``), gathered
+    over NCCL. Then the flagship (W x H) in 2 and 4 bands and config 3 in 4,
+    every band in turn through ``sharding.render_band``'s parts: per band
+    its triangles, drops, prep and render ms beside the unsharded frame's
+    (config 3: its longest tile list), every kernel call of the band
+    against its twin, the reference backend's band (>= 40 dB) and K3s's
+    winners against the brute force's on the band's setup. The assembled
+    frame: its pixels beyond 1e-4 of the unsharded one printed, the
+    reference backend's too (JAX's bands differ likewise), >= 40 dB, and at most BAND_FLIPS of its samples
+    covered otherwise by K3s. Adds each path's launches to
+    ``path_launches``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from metalrenderer_tpu_torch import render_batch
+    from metalrenderer_tpu_torch.config import RenderConfig
+    from metalrenderer_tpu_torch.engine import audio_app, configs
+    from metalrenderer_tpu_torch.parallel import sharding
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.raster import raster_cuda
+    from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+    from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
+    t_phase = time.perf_counter()
+
+    def add(launches):
+        for k, n in launches.items():
+            path_launches[k] += n
+
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=W / H)
+    cfg = RenderConfig(width=W, height=H, msaa=4, shadow_map_size=SHADOW)
+    lighting = Lighting(light=PointLight(), ambient_intensity=0.1,
+                        shininess=32.0)
+    scene = audio_app.build_scene(device=dev)
+    target = (0.0, 0.0, -1.0)
+    disps = [float(d) for d in np.linspace(0.0, 0.05, BATCH)]
+    thetas = [2.5 + 0.01 * i for i in range(BATCH)]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = sharding.make_mesh(1)
+            if mesh.group is None or mesh.device != torch.device(dev):
+                fail(f"make_mesh gave {mesh}")
+            sharding.render_frame_batch(scene, cam, lighting, disps, thetas,
+                                        mesh, cfg, shadow_target=target)
+            torch.cuda.synchronize()
+            reset_counts()
+            fbs, ms = timed_once(lambda: sharding.render_frame_batch(
+                scene, cam, lighting, disps, thetas, mesh, cfg,
+                shadow_target=target))
+            launches = read_counts()
+            check_launches("render_frame_batch", launches,
+                           {"raster_depth_batch": 1, "render_fused_batch": 1})
+            add(launches)
+            rgba, _ = render_batch(scene, cam, lighting, disps, thetas,
+                                   config=cfg, shadow_target=target,
+                                   device=dev)
+            eq_batch = torch.equal(fbs, rgba)
+            reset_counts()
+            fb_t, ms_t = timed_once(lambda: sharding.render_tile_sharded(
+                scene, cam, lighting, mesh, cfg, shadow_target=target))
+            launches_t = read_counts()
+            check_launches("render_tile_sharded", launches_t,
+                           {"raster_depth": 1, "render_fused": 1})
+            add(launches_t)
+            fb_1, _ = pipeline.render_frame(scene, cam, lighting, cfg,
+                                            shadow_target=target, device=dev)
+            eq_tile = torch.equal(fb_t, fb_1)
+            say("parallel", group="nccl world_size=1",
+                frame_batch=f"{BATCH}x{W}x{H}", frame_batch_ms=f"{ms:.3f}",
+                frame_batch_launches=json.dumps(launches),
+                equal_render_batch=eq_batch, tile_sharded_ms=f"{ms_t:.3f}",
+                equal_render_frame=eq_tile, card=repr(smi))
+            if not (eq_batch and eq_tile):
+                fail("the world-size-1 group's frames differ from the "
+                     "unsharded entry points")
+        finally:
+            dist.destroy_process_group()
+    del fbs, rgba
+
+    s3 = configs.config3_high_poly(target_tris=C3_TRIS, width=CW, height=CH,
+                                   device=dev)
+    cases = (("flagship", 2, (scene, cam, lighting, cfg), target),
+             ("flagship", 4, (scene, cam, lighting, cfg), target),
+             ("config3", 4, s3, (0.0, 0.0, 0.0)))
+    for name, n, (sc, cm, lt, cf), tg in cases:
+        samples = tuple(cf.sample_positions)
+
+        def prep_full():
+            return pipeline.prepare_frame(sc, cm, lt, cf, shadow_target=tg,
+                                          device=dev)
+        fb_full, _ = pipeline._render_prepared(prep_full(), cf)   # warm-up
+        prep, prep_ms = timed_once(prep_full)
+        (fb_full, _), render_ms = timed_once(
+            lambda: pipeline._render_prepared(prep, cf))
+        reset_counts()
+        bands, preps, rows = [], [], []
+        for b in range(n):
+            (bprep, bcfg, n_in, dropped), bprep_ms = timed_once(
+                lambda: sharding.prepare_band(sc, cm, lt, b, n, cf,
+                                              shadow_target=tg, device=dev))
+            (fb_b, _), brender_ms = timed_once(
+                lambda: pipeline._render_prepared(bprep, bcfg))
+            bands.append(fb_b)
+            preps.append((bprep, bcfg))
+            off = bprep.main_bins.tile_offsets
+            rows.append({"band": b, "band_triangles": int(n_in),
+                         "band_dropped": int(dropped),
+                         "prep_ms": round(bprep_ms, 4),
+                         "render_ms": round(brender_ms, 4),
+                         "longest_tile_list": int((off[1:] - off[:-1]).max())})
+        launches = read_counts()
+        add(launches)
+        per = ({"raster_depth": 1, "render_fused": 1} if name == "flagship"
+               else {"raster_gbuffer": 1, "sample_pyramid": 2})
+        check_launches(f"{name} in {n} bands", launches,
+                       {k: n * v for k, v in per.items()})
+
+        # Each band on its own setup: its kernels' calls replayed through
+        # their twins, the reference backend's band (>= 40 dB, as phase 23
+        # holds whole frames), and K3s's winners against the brute force's.
+        # The bands' coverage is then K3s's, held against K3s's on the
+        # unsharded frame.
+        win_full = raster_cuda.raster_gbuffer_samples(
+            prep.main_bins, cf.width, cf.height, samples)[2]
+        fb_full_r, _ = pipeline.render_frame(sc, cm, lt, cf, shadow_target=tg,
+                                             backend="reference", device=dev)
+        covered, bands_r = [], []
+        for b, ((bprep, bcfg), row) in enumerate(zip(preps, rows)):
+            what = f"{name}x{n}_band{b}"
+            (fb_b, _), calls = recorded_calls(
+                lambda: pipeline._render_prepared(bprep, bcfg))
+            checked, twin_err = twins_hold(what, calls)
+            if checked != per or not torch.equal(fb_b, bands[b]):
+                fail(f"{what}: the band's kernels {checked} (want {per}), "
+                     "or its frame differs on a second render")
+            rprep, _, _, _ = sharding.prepare_band(
+                sc, cm, lt, b, n, cf, shadow_target=tg, backend="reference",
+                device=dev)
+            reset_counts()
+            fb_r, _ = pipeline._render_prepared(rprep, bcfg)
+            check_launches(f"{what} on the reference backend", read_counts(),
+                           {})
+            psnr_r = psnr_frames(fb_r, bands[b])
+            win_b = winners_vs_brute_force(
+                what, bprep, rprep, bcfg.width, bcfg.height, samples,
+                (cf.tile_w, cf.tile_h), smi)
+            covered.append(win_b >= 0)
+            bands_r.append(fb_r)
+            row.update(twins=checked, twin_max_abs_err=twin_err,
+                       psnr_vs_reference_band_db=round(psnr_r, 3))
+            if not (psnr_r >= 40.0 and bool(torch.isfinite(fb_r).all())):
+                fail(f"{what}: {psnr_r:.3f} dB between the kernels' band and "
+                     "the reference backend's (< 40)")
+            del calls, rprep
+        flips = int((torch.cat(covered, dim=1) != (win_full >= 0)).sum())
+
+        fb_bands = torch.cat(bands)
+        diff = (fb_bands - fb_full).abs().amax(-1)
+        psnr = psnr_frames(fb_bands, fb_full)
+        over = int((diff > 1e-4).sum())
+        diff_r = (torch.cat(bands_r) - fb_full_r).abs().amax(-1)
+        # A band's last row takes its screen-space differences (texture LOD)
+        # from the band's first row, where the frame takes them from the
+        # next band's: those rows are counted apart.
+        inner = torch.ones(cf.height, dtype=torch.bool, device=diff.device)
+        inner[cf.height // n - 1::cf.height // n] = False
+        off = prep.main_bins.tile_offsets
+        say("parallel", bands=f"{name}x{n}", size=f"{cf.width}x{cf.height}",
+            unsharded_prep_ms=f"{prep_ms:.4f}",
+            unsharded_render_ms=f"{render_ms:.4f}",
+            unsharded_longest_tile_list=int((off[1:] - off[:-1]).max()),
+            per_band=json.dumps(rows), psnr_vs_unsharded_db=f"{psnr:.3f}",
+            max_abs_err_vs_unsharded=float(diff.max()),
+            pixels_over_1em4=over, within_1em4=over == 0,
+            off_band_last_rows=int((diff[inner] > 1e-4).sum()),
+            reference_max_abs_err_vs_unsharded=float(diff_r.max()),
+            reference_pixels_over_1em4=int((diff_r > 1e-4).sum()),
+            reference_off_band_last_rows=int((diff_r[inner] > 1e-4).sum()),
+            coverage_flips=flips, samples=win_full.numel(),
+            launches=json.dumps(launches), card=repr(smi))
+        # 1e-4 from the unsharded frame is printed and not held: a band
+        # renders through BandedCamera's projection, which rounds clip space
+        # otherwise, so a sample within rounding of an edge may change
+        # triangle and the shading's screen-space differences amplify it.
+        # The JAX package's own bands differ from its unsharded frame so at
+        # these sizes (tests/torch_band_witness.py).
+        # What a fault would change is held instead: every band's kernels
+        # against their twins and the oracle (above), no triangle dropped,
+        # the frame >= 40 dB from the unsharded one, and coverage sample by
+        # sample: a dropped or misplaced triangle uncovers whole triangles.
+        if (psnr < 40.0 or flips > BAND_FLIPS * win_full.numel()
+                or any(r["band_dropped"] for r in rows)):
+            fail(f"{name} in {n} bands: {psnr:.3f} dB from the unsharded "
+                 f"frame, {flips} samples covered differently, or triangles "
+                 "dropped")
+        del bands, preps, covered, win_full, fb_bands, bands_r, fb_full_r
+    say("parallel", phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def main():
@@ -2596,6 +3154,12 @@ def main():
     # 22. the app layer ---------------------------------------------------------
     app_phase(dev, smi, path_launches, sig, rate, serve_med,
               batch_per_frame["flagship"])
+
+    # 23. the brute-force reference backend ----------------------------------
+    reference_phase(dev, smi)
+
+    # 24. multi-device rendering on one card ---------------------------------
+    parallel_phase(dev, smi, path_launches)
     say("time", seconds=f"{time.perf_counter() - start:.1f}", limit=900)
 
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),

@@ -7,9 +7,13 @@ audio-reactive scene driven by an audio analysis pipeline: ``audio/``,
 kernels replaced by CUDA C++ kernels for Hopper (``csrc/raster.cu``,
 ``csrc/sample.cu``, built with nvcc at first use). Entry points render on
 the GPU unless the caller asks for the CPU; tensors on the CPU take the
-kernels' plain PyTorch twins. The app layer (``cli.py``, run as ``python
--m metalrenderer_tpu_torch.cli``, and ``engine/session.py``) and the
-utilities (``utils/``) sit on top. The package imports torch, never jax.
+kernels' plain PyTorch twins. ``backend="reference"`` renders with the
+brute-force oracle (``raster/reference_cpu.py``) instead of the kernels,
+and ``parallel/sharding.py`` splits a frame batch or one frame's rows over
+the ranks of a ``torch.distributed`` group. The app layer (``cli.py``,
+run as ``python -m metalrenderer_tpu_torch.cli``, and
+``engine/session.py``) and the utilities (``utils/``) sit on top. The
+package imports torch, never jax.
 """
 
 from .config import RenderConfig, ShadowConfig

@@ -35,7 +35,8 @@ def _add_render_args(p):
     p.add_argument("--backend", default="kernels",
                    choices=["kernels", "reference"],
                    help="kernels (the CUDA kernels, on the CPU their plain "
-                        "twins); reference is not ported (ROADMAP A11)")
+                        "twins) or reference (the brute-force oracle: no "
+                        "binning, no kernel)")
     p.add_argument("--radius", type=float, default=5.0)
     p.add_argument("--theta", type=float, default=2.5)
     p.add_argument("--phi", type=float, default=1.2)
@@ -346,10 +347,6 @@ def main(argv=None):
     from .passes.pipeline import resolve_device
 
     args = build_parser().parse_args(argv)
-    if getattr(args, "backend", "kernels") == "reference":
-        raise NotImplementedError(
-            "--backend reference: the port has only the tile-list kernels; "
-            "a brute-force oracle is ROADMAP A11")
     args.device = resolve_device(args.device)
     return args.fn(args)
 

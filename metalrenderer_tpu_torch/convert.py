@@ -20,7 +20,9 @@ import torch
 from .audio.analyzer import AnalyzerState
 from .audio.mapping import VisualParams, VisualState
 from .passes.pipeline import PassGeometry
+from .math import transforms
 from .raster.geometry import TriangleSetup
+from .raster.shade import GBuffer, ShadowContext
 from .scene.camera import OrbitCamera, PoseCamera
 from .scene.lights import DirectionalLight, Lighting, PointLight
 from .scene.materials import Material
@@ -142,6 +144,24 @@ def pass_geometry_from_jax(pg, device="cpu") -> PassGeometry:
         f: tensor(getattr(pg, f), device)
         for f in ("vattrs", "mat_kind", "mat_color", "tex_id",
                   "normal_map_id")})
+
+
+def gbuffer_from_jax(gbuf, device="cpu") -> GBuffer:
+    """A JAX ``shade.GBuffer`` (the brute-force reference's G-buffer)."""
+    return GBuffer(**{
+        f: tensor(getattr(gbuf, f), device)
+        for f in ("world", "normal", "uv", "depth", "mat_kind", "mat_color",
+                  "tex_id", "normal_map_id", "covered")})
+
+
+def shadow_context_from_jax(ctx, device="cpu") -> ShadowContext:
+    """A JAX ``shade.ShadowContext``: its depth map, and its light view and
+    projection as the port's one matrix ``light_m = light_proj @
+    light_view`` (``transforms.matmul``: a float32 sum of separately
+    rounded products, as the port's pipeline forms it)."""
+    light_m = transforms.matmul(_f32(ctx.light_proj), _f32(ctx.light_view))
+    return ShadowContext(depth_map=_f32(ctx.depth_map, device),
+                         light_m=light_m.to(device))
 
 
 def analyzer_state_from_jax(state) -> AnalyzerState:

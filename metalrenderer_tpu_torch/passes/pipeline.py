@@ -1,8 +1,16 @@
 """Two-pass render pipeline: shadow pass + main pass.
 
-Torch counterpart of ``metalrenderer_tpu.passes.pipeline.render_frame``
-with ``backend="pallas"``.
-Frame anatomy (MtlEngine::draw, mtl_engine.mm:767-770):
+Torch counterpart of ``metalrenderer_tpu.passes.pipeline``. The rasterizer
+backend is pluggable, as there:
+  * ``"kernels"`` (the default; the JAX package's ``"pallas"``): the
+    tile-binned CUDA kernels below, their plain twins on the CPU;
+  * ``"reference"`` (the JAX package's default): the brute-force oracle of
+    ``raster/reference_cpu.py`` on the same triangle setup, no binning and
+    no kernel: visibility with the kernels' anchored plane arithmetic, an
+    array-of-structs G-buffer, and ``shade.shade_channels`` with the plain
+    gather samplers (``tiled_sampler=False``), then the MSAA resolve.
+Frame anatomy of the kernels backend (MtlEngine::draw,
+mtl_engine.mm:767-770):
   1. shadow pass: depth-only render of the shadow casters from the light
      (renderShadowPass, :772-792) -> kernel K1 ``raster_depth``;
   2. main pass, one of three branches:
@@ -42,7 +50,7 @@ import torch
 
 from ..config import RenderConfig, ShadowConfig
 from ..math import transforms
-from ..raster import raster_cuda, shade
+from ..raster import raster_cuda, reference_cpu, shade
 from ..raster.binning import bin_triangles, build_attr_fields, build_tri_fields
 from ..raster.geometry import clip_near, guard_clip_xy, setup_triangles
 from ..scene import lights as lights_mod
@@ -130,11 +138,25 @@ def _fused_uniforms(m, camera, light_anchor, light, lighting, config):
     ])
 
 
-def _check_supported(lighting, config, backend):
-    if backend != "kernels":
-        raise NotImplementedError(
-            f"backend={backend!r}: the port has only the tile-list kernels; "
-            "a brute-force oracle is ROADMAP A11")
+def _raster_gbuffer_reference(setup, pg: PassGeometry, config: RenderConfig):
+    """The reference backend's main pass: brute-force visibility anchored
+    at the main-pass tiles (so z-fighting samples resolve as the kernels
+    resolve them) and the per-sample G-buffer."""
+    samples = tuple(config.sample_positions)
+    depth, winner = reference_cpu.rasterize_brute_force(
+        setup, config.width, config.height, samples,
+        anchor=(config.tile_w, config.tile_h))
+    return reference_cpu.interpolate_gbuffer(
+        setup, winner, config.width, config.height, samples, pg.vattrs,
+        pg.mat_kind, pg.mat_color, pg.tex_id, depth,
+        normal_map_id=pg.normal_map_id)
+
+
+def _check_supported(lighting, backend):
+    """Any backend but "kernels" and "reference" raises ValueError, as in
+    the JAX package."""
+    if backend not in ("kernels", "reference"):
+        raise ValueError(f"unknown rasterizer backend: {backend}")
     if not isinstance(lighting.light, (lights_mod.PointLight,
                                        lights_mod.DirectionalLight)):
         raise TypeError(f"unknown light type {type(lighting.light)!r}")
@@ -167,46 +189,66 @@ class FramePrep:
     textures: tuple          # the scene's mip chains on the device
     fused: bool              # the main pass takes the fused kernel (K2)
     stats: dict              # prep-side stats (0-d tensors)
+    backend: str = "kernels"
+    # The reference backend's inputs in place of the bins: the shadow
+    # pass's TriangleSetup (or None), the main pass's and its PassGeometry.
+    shadow_setup: object = None
+    main_setup: object = None
+    pass_geom: object = None
 
 
 def prepare_frame(scene: Scene, camera, lighting,
                   config: RenderConfig = RenderConfig(),
                   shadow_config: ShadowConfig = ShadowConfig(),
                   displacement=0.0, shadow_target=(0.0, 0.0, 0.0),
-                  backend="kernels", device="cuda") -> FramePrep:
+                  backend="kernels", device="cuda",
+                  main_geom=None) -> FramePrep:
     """The host-side part of a frame: vertex stage, clipping, triangle
-    setup and binning of both passes, and the uniforms. No kernel runs."""
+    setup and binning of both passes (the reference backend bins nothing),
+    and the uniforms. No kernel runs.
+
+    ``main_geom`` (a ``PackedGeometry`` on ``device``, e.g. a band's pruned
+    soup from ``parallel.sharding.prune_to_band``) replaces the scene's
+    geometry in the main pass only: the shadow pass always takes the whole
+    scene, since a caster outside the camera's view still shadows it."""
     device = resolve_device(device)
-    _check_supported(lighting, config, backend)
+    _check_supported(lighting, backend)
+    reference = backend == "reference"
     scene = scene.to(device)
-    geom = bake(scene, displacement)
+    geom_full = bake(scene, displacement)
+    geom = geom_full if main_geom is None else main_geom
     light = lighting.light
     light_anchor = lights_mod.light_anchor_position(
         light, shadow_target, shadow_config)
     stats = {"num_triangles": torch.tensor(geom.num_triangles,
                                            dtype=torch.int32, device=device)}
 
-    shadow_bins = None
+    shadow_bins = shadow_setup = None
+    zero = torch.zeros((), dtype=torch.int32, device=device)
     m = torch.zeros((4, 4), dtype=torch.float32)
     if _wants_shadow(scene):
         light_view = lights_mod.light_view_matrix(
             light_anchor, torch.as_tensor(shadow_target, dtype=torch.float32))
         light_proj = lights_mod.light_projection_matrix(shadow_config)
         m = transforms.matmul(light_proj, light_view)
-        clip_l = project(geom.world, light_view, light_proj)
+        clip_l = project(geom_full.world, light_view, light_proj)
         clip_l2, _, parent_l = clip_near(clip_l.reshape(-1, 3, 4))
         size = config.shadow_map_size
         setup_l = setup_triangles(clip_l2, size, size, cull_backfaces=False,
                                   near_eps=config.near_eps)
         # Only shadow casters contribute (the reference encodes only the
         # cube into the shadow pass, mtl_engine.mm:785-787).
-        setup_l = setup_l.replace(
-            valid=setup_l.valid & geom.cast_shadow[parent_l.to(torch.int64)])
-        shadow_bins = bin_triangles(
-            setup_l, build_tri_fields(setup_l), size, size,
-            config.shadow_tile_w, config.shadow_tile_h,
-            span_cap=SHADOW_SPAN_CAP, big_capacity=config.big_capacity)
-        stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
+        setup_l = setup_l.replace(valid=setup_l.valid & geom_full.cast_shadow[
+            parent_l.to(torch.int64)])
+        if reference:
+            shadow_setup = setup_l
+            stats["shadow_big_dropped"] = zero
+        else:
+            shadow_bins = bin_triangles(
+                setup_l, build_tri_fields(setup_l), size, size,
+                config.shadow_tile_w, config.shadow_tile_h,
+                span_cap=SHADOW_SPAN_CAP, big_capacity=config.big_capacity)
+            stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
 
     setup, pg, gstats = prepare_main_pass(geom, camera.view_matrix(),
                                           camera.projection_matrix(), config,
@@ -216,12 +258,16 @@ def prepare_frame(scene: Scene, camera, lighting,
     stats["max_screen_coord"] = torch.amax(
         torch.where(setup.valid[:, None, None], torch.abs(setup.screen),
                     torch.zeros_like(setup.screen)))
-    main_bins = bin_triangles(setup, build_tri_fields(setup), config.width,
-                              config.height, config.tile_w, config.tile_h,
-                              span_cap=config.span_cap,
-                              big_capacity=config.big_capacity,
-                              attr_fields=build_attr_fields(setup, pg))
-    stats["big_dropped"] = main_bins.num_big_dropped
+    main_bins = None
+    if reference:
+        stats["big_dropped"] = zero
+    else:
+        main_bins = bin_triangles(
+            setup, build_tri_fields(setup), config.width, config.height,
+            config.tile_w, config.tile_h, span_cap=config.span_cap,
+            big_capacity=config.big_capacity,
+            attr_fields=build_attr_fields(setup, pg))
+        stats["big_dropped"] = main_bins.num_big_dropped
     uniforms = _fused_uniforms(m, camera, light_anchor, light, lighting,
                                config).to(device)
     light_dir = None
@@ -229,8 +275,10 @@ def prepare_frame(scene: Scene, camera, lighting,
         light_dir = torch.as_tensor(light.direction,
                                     dtype=torch.float32).to(device)
     return FramePrep(shadow_bins, main_bins, uniforms, light_dir,
-                     scene.textures, _fused_ok(scene, lighting, config),
-                     stats)
+                     scene.textures,
+                     not reference and _fused_ok(scene, lighting, config),
+                     stats, backend, shadow_setup,
+                     *((setup, pg) if reference else (None, None)))
 
 
 def _shadow_pass(shadow_bins, config, stats):
@@ -254,13 +302,14 @@ def _shadow_pass(shadow_bins, config, stats):
     return shadow_map
 
 
-def _split_shade(ch, uniforms, shadow_map, textures, light_dir, config):
+def _split_shade(ch, uniforms, shadow_map, textures, light_dir, config,
+                 tiled_sampler=True):
     """The split path's fragment stage on channel planes: [H, W] planes
     with uniforms f32[FU_LEN], or [F, H, W] planes with per-frame uniforms
     f32[F, FU_LEN] (equal in every frame but the camera position) and
     per-frame shadow maps, or [S, H, W] sample planes (no ``cov_frac``),
-    box-resolved here when every sample was shaded. Returns rgba
-    f32[..., H, W, 4]."""
+    box-resolved here when every sample was shaded. ``tiled_sampler``:
+    as ``shade.shade_channels``'s. Returns rgba f32[..., H, W, 4]."""
     fc = raster_cuda
     if uniforms.dim() == 2:
         camera_pos = uniforms[:, fc.FU_CAM:fc.FU_CAM + 3].T[:, :, None, None]
@@ -282,15 +331,36 @@ def _split_shade(ch, uniforms, shadow_map, textures, light_dir, config):
         shadow=shadow_ctx, textures=textures,
         shadow_bias=u[fc.FU_BIAS], shadow_factor_value=u[fc.FU_FACTOR],
         light_dir=light_dir, shadow_per_pixel=config.shadow_per_pixel,
-        per_pixel=config.shading_per_pixel)
+        per_pixel=config.shading_per_pixel, tiled_sampler=tiled_sampler)
     if ch.get("cov_frac") is None and r.dim() == 3:
         # Sample planes: the MSAA box resolve, per channel plane.
         r, g, b, a = (torch.mean(c, dim=0) for c in (r, g, b, a))
     return torch.stack([r, g, b, a], dim=-1)
 
 
+def _render_reference(prep: FramePrep, config: RenderConfig):
+    """The reference backend's passes and shading of one prepared frame:
+    (rgba, stats). No kernel runs."""
+    stats = dict(prep.stats)
+    shadow_map = None
+    if prep.shadow_setup is not None:
+        size = config.shadow_map_size
+        shadow_map = reference_cpu.rasterize_depth_brute_force(
+            prep.shadow_setup, size, size,
+            anchor=(config.shadow_tile_w, config.shadow_tile_h))
+        stats["shadow_min_depth"] = torch.amin(shadow_map)
+    gbuf = _raster_gbuffer_reference(prep.main_setup, prep.pass_geom, config)
+    stats["covered_fraction"] = torch.mean(gbuf.covered.to(torch.float32))
+    return _split_shade(shade.channels_from_gbuffer(gbuf), prep.uniforms,
+                        shadow_map, prep.textures, prep.light_dir, config,
+                        tiled_sampler=False), stats
+
+
 def _render_prepared(prep: FramePrep, config: RenderConfig):
-    """The kernels and shading of one prepared frame: (rgba, stats)."""
+    """The kernels (or the reference backend's passes) and shading of one
+    prepared frame: (rgba, stats)."""
+    if prep.backend != "kernels":
+        return _render_reference(prep, config)
     stats = dict(prep.stats)
     shadow_map = _shadow_pass(prep.shadow_bins, config, stats)
     samples = tuple(config.sample_positions)
@@ -321,11 +391,14 @@ def render_frame(scene: Scene, camera, lighting,
                  config: RenderConfig = RenderConfig(),
                  shadow_config: ShadowConfig = ShadowConfig(),
                  displacement=0.0, shadow_target=(0.0, 0.0, 0.0),
-                 backend="kernels", device="cuda"):
+                 backend="kernels", device="cuda", main_geom=None):
     """Render one frame on ``device``. Returns (framebuffer f32[H,W,4] and a
-    stats dict of 0-d tensors, both on ``device``)."""
+    stats dict of 0-d tensors, both on ``device``). ``backend``:
+    ``"kernels"`` or ``"reference"`` (module docstring); ``main_geom``: as
+    ``prepare_frame``'s."""
     prep = prepare_frame(scene, camera, lighting, config, shadow_config,
-                         displacement, shadow_target, backend, device)
+                         displacement, shadow_target, backend, device,
+                         main_geom)
     return _render_prepared(prep, config)
 
 
@@ -336,8 +409,8 @@ def render(scene: Scene, camera, lighting,
            backend="kernels", device="cuda"):
     """The package-level entry point, ``render_frame`` under the JAX
     package's name (there a jitted wrapper whose default backend is its
-    brute-force oracle; the port has no oracle, ROADMAP A11, so the default
-    here is the kernels)."""
+    brute-force oracle; the port's default is the kernels, and
+    ``backend="reference"`` takes its oracle)."""
     return render_frame(scene, camera, lighting, config, shadow_config,
                         displacement, shadow_target, backend, device)
 
@@ -347,7 +420,7 @@ def render(scene: Scene, camera, lighting,
 # --------------------------------------------------------------------------
 #
 # Every frame of a batch is prepared by ``prepare_frame`` (a loop over the
-# frames; vectorizing the prep is ROADMAP D1), its bins are stacked, and the
+# frames; vectorizing the prep is ROADMAP A13), its bins are stacked, and the
 # kernels run once per batch: K4 for the shadow maps, then K6 (fused
 # branch) or K5 + the batch-transparent split shading with K8 and one K9
 # per texture and pass (px branch). Each frame is bit-equal to
@@ -403,6 +476,12 @@ class BatchPrep:
     stats: dict              # prep-side stats, leaves [F]
 
 
+def _check_batch_backend(backend):
+    if backend != "kernels":
+        raise ValueError("the batch kernels need backend='kernels'; "
+                         "render_batch renders the reference frame by frame")
+
+
 def _stack_preps(preps) -> BatchPrep:
     shadow = [p.shadow_bins for p in preps]
     if any(b is None for b in shadow) and not all(b is None for b in shadow):
@@ -440,8 +519,10 @@ def render_frame_batch_fused(scene: Scene, camera, lighting,
     ``scene_fn(param) -> Scene`` and/or ``lighting_fn(param) -> Lighting``;
     ``scene`` and ``lighting`` are then the templates that decide
     eligibility, and every frame is ``render_frame`` of its own scene and
-    lighting. Raises ValueError unless ``fused_batch_eligible``. Returns (rgba
-    f32[F, H, W, 4], stats with per-frame leaves)."""
+    lighting. Raises ValueError unless ``fused_batch_eligible`` and
+    ``backend="kernels"``. Returns (rgba f32[F, H, W, 4], stats with
+    per-frame leaves)."""
+    _check_batch_backend(backend)
     if not fused_batch_eligible(scene, lighting, config):
         raise ValueError("the fused batch needs an untextured scene, a point "
                          "light, fused_shade and per-pixel 8x128 tiles")
@@ -480,8 +561,10 @@ def render_frame_batch_px(scene: Scene, camera, lighting,
     G-buffer, then the split shading once on [F, H, W] planes with K8 for
     the shadow test and one K9 per texture and pass. Arguments as
     ``render_frame_batch_fused`` (one scene and lighting for all frames).
-    Raises ValueError unless ``px_batch_eligible``. Returns (rgba
-    f32[F, H, W, 4], stats with per-frame leaves)."""
+    Raises ValueError unless ``px_batch_eligible`` and
+    ``backend="kernels"``. Returns (rgba f32[F, H, W, 4], stats with
+    per-frame leaves)."""
+    _check_batch_backend(backend)
     if not px_batch_eligible(scene, lighting, config):
         raise ValueError("the px batch needs per-pixel shading on 8x128 "
                          "main-pass tiles")
@@ -580,9 +663,8 @@ def render_batch(scene: Scene, camera, lighting,
     the fused batch (untextured point-light scenes: K4 + K6), else the px
     batch (K4 + K5 + K8 + K9), else ``render_frame`` frame by frame
     (supersampled shading and main-pass tiles other than 8x128: K1 + K3s +
-    K7 per frame), which raises NotImplementedError where ``render_frame``
-    does (ROADMAP A11). Every frame equals ``render_frame`` of the same
-    frame.
+    K7 per frame, and every frame of the reference backend). Every frame
+    equals ``render_frame`` of the same frame.
 
     ``displacements``: F numbers; ``thetas``: F orbit angles (default: the
     camera's); ``cameras``: F cameras, replacing ``thetas``. ``chunk``:

@@ -333,3 +333,16 @@ def guard_clip_xy(clip2, attrs2, parent, width, height, cap=64,
     if attrs2 is None:
         return data_out[..., :4], None, parent_out, stats
     return data_out[..., :4], data_out[..., 4:], parent_out, stats
+
+
+def coverage(setup_edge, setup_top_left, px, py):
+    """Top-left-rule coverage of a batch of sample positions.
+
+    setup_edge: f32[..., 3, 3]; setup_top_left: bool[..., 3]; px, py:
+    f32[P]. Returns bool[..., P]: the sample lies inside all three edges,
+    or on an edge the fill rule keeps. (The brute-force reference's rule;
+    the kernels evaluate the same planes on their tile grid.)"""
+    e = (setup_edge[..., 0:1] * px + setup_edge[..., 1:2] * py
+         + setup_edge[..., 2:3])                        # [..., 3, P]
+    on_edge_ok = torch.where(setup_top_left[..., None], e >= 0.0, e > 0.0)
+    return torch.all(on_edge_ok, dim=-2)

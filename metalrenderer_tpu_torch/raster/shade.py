@@ -21,7 +21,15 @@ tensors they launch the kernels, on CPU tensors their plain twins run.
 On [S, H, W] sample planes each lookup is ONE launch over the flattened
 planes against the one texture (the kernels index pixels linearly and the
 frame differences roll within each plane), where the JAX package loops its
-shadow sampler over the samples.
+shadow sampler over the samples. With ``tiled_sampler=False`` (the
+brute-force reference backend's shading) every lookup takes the plain
+gather samplers of ``sampling`` instead, on any device, as the JAX
+package's untiled path does.
+
+The array-of-structs API of the JAX module (``GBuffer``, ``shade``,
+``channels_from_gbuffer`` and the wrappers ``blinn_phong``,
+``shadow_factor``, ``resolve_base_color``, ``apply_normal_maps``) sits on
+the same SoA code; the reference backend and external callers use it.
 """
 from __future__ import annotations
 
@@ -31,6 +39,25 @@ import torch
 
 from ..scene.materials import BLINN_PHONG_SHADOW, EMISSIVE
 from . import mip_cuda, sample_cuda, sampling
+
+
+@dataclasses.dataclass(frozen=True)
+class GBuffer:
+    """Per-sample geometry buffers of the brute-force rasterizer
+    (``reference_cpu.interpolate_gbuffer``)."""
+
+    world: torch.Tensor      # f32[..., 3]
+    normal: torch.Tensor     # f32[..., 3] (interpolated, not renormalized)
+    uv: torch.Tensor         # f32[..., 2]
+    depth: torch.Tensor      # f32[...] NDC z of the visible surface
+    mat_kind: torch.Tensor   # i32[...]
+    mat_color: torch.Tensor  # f32[..., 3]
+    tex_id: torch.Tensor     # i32[...]
+    normal_map_id: torch.Tensor  # i32[...] (-1 = none)
+    covered: torch.Tensor    # bool[...] any geometry at this sample
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +112,30 @@ def _blinn_phong_soa(w, n, base, camera_pos, light_pos, light_color,
             s * light_color[2] * base[2])
 
 
+def blinn_phong(world, normal, mat_color, camera_pos, light_pos, light_color,
+                ambient_intensity, shininess):
+    """AoS wrapper of the point-light Blinn-Phong term: f32[..., 3]."""
+    def vec(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=world.device)
+    rgb = _blinn_phong_soa(
+        (world[..., 0], world[..., 1], world[..., 2]),
+        (normal[..., 0], normal[..., 1], normal[..., 2]),
+        (mat_color[..., 0], mat_color[..., 1], mat_color[..., 2]),
+        vec(camera_pos), vec(light_pos), vec(light_color),
+        ambient_intensity, shininess)
+    return torch.stack(rgb, dim=-1)
+
+
+def _sample2d_untiled(tex, u, v, address_mode, oob_value=None, mask=None):
+    """The plain gather sampler at every fragment, whatever ``mask`` and
+    ``oob_value`` say (the JAX ``_sample2d(tiled=False)``); per-frame maps
+    f32[F, S, S] at [F, H, W] planes frame by frame."""
+    if tex.dim() == 3:
+        return torch.stack([_sample2d_untiled(t, uu, vv, address_mode)
+                            for t, uu, vv in zip(tex, u, v)])
+    return sampling.sample_bilinear(tex[..., None], u, v, address_mode)[..., 0]
+
+
 def _shadow_coords(w, light_m):
     """Light-space lookup of world positions ``w`` (BlinnPhong.metal:79-90):
     (u, v, the fragment's remapped depth, uv inside [0,1]^2)."""
@@ -111,7 +162,8 @@ def _shadow_factor_soa(w, light_m, depth_map, bias, factor, needs,
     [0,1]^2 and it is shadowed, else 1. The map is read (by ``sample``:
     kernel K7 by default, K8 for per-frame maps, or a twin) only for
     fragments that need it and are in bounds; the others read depth 1.0,
-    i.e. lit."""
+    i.e. lit. ``sample=_sample2d_untiled``, the plain gather sampler, reads
+    it at every fragment instead."""
     if sample is None:
         sample = (sample_cuda.sample_bilinear_batch if depth_map.dim() == 3
                   else sample_cuda.sample_bilinear)
@@ -120,6 +172,16 @@ def _shadow_factor_soa(w, light_m, depth_map, bias, factor, needs,
     shadowed = (shadow_depth - bias) > d
     one = torch.ones_like(u)
     return torch.where(in_bounds & shadowed, factor * one, one)
+
+
+def shadow_factor(world, shadow_ctx: ShadowContext, bias=0.005, factor=0.5,
+                  tiled_sampler=False):
+    """AoS wrapper: the shadow factor f32[...] of world positions
+    f32[..., 3], every fragment testing the map."""
+    w = (world[..., 0], world[..., 1], world[..., 2])
+    return _shadow_factor_soa(w, shadow_ctx.light_m, shadow_ctx.depth_map,
+                              bias, factor, torch.ones_like(w[0], dtype=bool),
+                              None if tiled_sampler else _sample2d_untiled)
 
 
 def _ddx(a):
@@ -137,26 +199,42 @@ def _texture_lod(u, v, tex_w, tex_h):
         _ddx(u), _ddx(v), _ddy(u), _ddy(v), tex_w, tex_h)
 
 
-def _sample_rgb(mips, u, v, mask):
-    """Texture RGB in SoA channels: one K9 launch per call, trilinear at the
-    pixel's LOD (bilinear for a single-level texture), pixels outside
-    ``mask`` 0."""
+def _sample_rgb(mips, u, v, mask, tiled_sampler=True):
+    """Texture RGB in SoA channels, trilinear at the pixel's LOD (bilinear
+    for a single-level texture): one K9 launch per call, pixels outside
+    ``mask`` 0; or, with ``tiled_sampler=False``, the plain gather sampler
+    at every pixel."""
     if len(mips) > 1:
         lod = _texture_lod(u, v, mips[0].shape[1], mips[0].shape[0])
     else:
         lod = torch.zeros_like(u)
+    if not tiled_sampler:
+        t = sampling.sample_trilinear(mips, u, v, lod)
+        return t[..., 0], t[..., 1], t[..., 2]
     return mip_cuda.sample_pyramid(mip_cuda.build_pyramid(mips), u, v, lod,
                                    mask, sampling.REPEAT)
 
 
-def _resolve_base_color_soa(base, tex_id, u, v, textures):
+def _resolve_base_color_soa(base, tex_id, u, v, textures, tiled_sampler=True):
     """A texture sample replaces materialColor where tex_id selects it
     (Metal-Tutorial textured path)."""
     for i, mips in enumerate(textures):
         sel = tex_id == i
-        tex = _sample_rgb(mips, u, v, sel)
+        tex = _sample_rgb(mips, u, v, sel, tiled_sampler)
         base = tuple(torch.where(sel, tex[c], base[c]) for c in range(3))
     return base
+
+
+def resolve_base_color(mat_color, tex_id, uv, textures, tiled_sampler=False,
+                       use_mipmaps=True):
+    """AoS wrapper: a texture sample replaces materialColor where tex_id
+    selects one; ``use_mipmaps=False`` samples the base level alone."""
+    if not use_mipmaps:
+        textures = tuple(mips[:1] for mips in textures)
+    base = (mat_color[..., 0], mat_color[..., 1], mat_color[..., 2])
+    base = _resolve_base_color_soa(base, tex_id, uv[..., 0], uv[..., 1],
+                                   textures, tiled_sampler)
+    return torch.stack(base, dim=-1)
 
 
 def _norm3(x, y, z):
@@ -165,7 +243,8 @@ def _norm3(x, y, z):
     return x * s, y * s, z * s
 
 
-def _apply_normal_maps_soa(w, n, u, v, covered, textures, normal_map_ids):
+def _apply_normal_maps_soa(w, n, u, v, covered, textures, normal_map_ids,
+                           tiled_sampler=True):
     """Tangent-space normal mapping from screen-space derivatives (BASELINE
     config 4; the reference has no normal mapping). Deferred-style TBN:
     tangent and bitangent come from finite differences of world position
@@ -196,7 +275,7 @@ def _apply_normal_maps_soa(w, n, u, v, covered, textures, normal_map_ids):
     out = n
     for i, mips in enumerate(textures):
         use = (normal_map_ids == i) & covered
-        m0, m1, m2 = _sample_rgb(mips, u, v, use)
+        m0, m1, m2 = _sample_rgb(mips, u, v, use, tiled_sampler)
         m0 = m0 * 2.0 - 1.0
         m1 = m1 * 2.0 - 1.0
         m2 = m2 * 2.0 - 1.0
@@ -207,6 +286,18 @@ def _apply_normal_maps_soa(w, n, u, v, covered, textures, normal_map_ids):
         out = (torch.where(use, px, out[0]), torch.where(use, py, out[1]),
                torch.where(use, pz, out[2]))
     return out
+
+
+def apply_normal_maps(gbuf: GBuffer, textures, normal_map_ids,
+                      tiled_sampler=False):
+    """AoS wrapper: the G-buffer with its normals perturbed by the normal
+    maps ``normal_map_ids`` selects."""
+    n = _apply_normal_maps_soa(
+        (gbuf.world[..., 0], gbuf.world[..., 1], gbuf.world[..., 2]),
+        (gbuf.normal[..., 0], gbuf.normal[..., 1], gbuf.normal[..., 2]),
+        gbuf.uv[..., 0], gbuf.uv[..., 1], gbuf.covered, textures,
+        normal_map_ids, tiled_sampler)
+    return gbuf.replace(normal=torch.stack(n, dim=-1))
 
 
 _SELECTED = ("wx", "wy", "wz", "nx", "ny", "nz", "u", "v", "kind", "texid",
@@ -237,7 +328,8 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
                    ambient_intensity, shininess, clear_color,
                    shadow: ShadowContext = None, textures=(),
                    shadow_bias=0.005, shadow_factor_value=0.5,
-                   light_dir=None, shadow_per_pixel=True, per_pixel=True):
+                   light_dir=None, shadow_per_pixel=True, per_pixel=True,
+                   tiled_sampler=True):
     """The fragment stage over SoA channel planes -> (r, g, b, a) planes
     (``shade.shade_channels(return_planes=True)`` of the JAX package).
 
@@ -261,7 +353,10 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
         once per sample.
     Scalars (positions, colors, ambient, shininess, clear color, bias,
     factor, ``light_dir``) may be numbers or tensors; ``textures``: mip
-    chains on the planes' device.
+    chains on the planes' device. ``tiled_sampler`` (the default; the JAX
+    function's is False) samples shadow maps, textures and normal maps
+    through kernels K7/K8 and K9 (their twins on the CPU); False takes the
+    plain gather samplers on any device, as the reference backend does.
     """
     dev = ch["wx"].device
 
@@ -289,8 +384,10 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
     covered = ch["covered"]
 
     if ch.get("nmid") is not None:
-        n = _apply_normal_maps_soa(w, n, u, v, covered, textures, ch["nmid"])
-    base = _resolve_base_color_soa(base, ch["texid"], u, v, textures)
+        n = _apply_normal_maps_soa(w, n, u, v, covered, textures, ch["nmid"],
+                                   tiled_sampler)
+    base = _resolve_base_color_soa(base, ch["texid"], u, v, textures,
+                                   tiled_sampler)
 
     lit = _blinn_phong_soa(w, n, base, camera_pos, light_pos, light_color,
                            ambient_intensity, shininess, light_dir)
@@ -302,18 +399,20 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
 
     if shadow is not None:
         receives = ch["kind"] == BLINN_PHONG_SHADOW
+        sample = None if tiled_sampler else _sample2d_untiled
         if shadow_per_pixel and sample_planes and covered.dim() == 3:
             # One shadow test per pixel at the first covered sample's world
             # position (Metal shades fragments per pixel, not per sample).
             w0, _ = _first_covered(w, covered)
             sf = _shadow_factor_soa(w0, shadow.light_m, shadow.depth_map,
                                     shadow_bias, shadow_factor_value,
-                                    torch.any(receives & covered, dim=0))
+                                    torch.any(receives & covered, dim=0),
+                                    sample)
             sf = sf[None].expand(covered.shape)
         else:
             sf = _shadow_factor_soa(w, shadow.light_m, shadow.depth_map,
                                     shadow_bias, shadow_factor_value,
-                                    receives & covered)
+                                    receives & covered, sample)
         # fragColor * shadow multiplies all four channels
         # (BlinnPhong.metal:96).
         msk = torch.where(receives, sf, torch.ones_like(sf))
@@ -328,3 +427,37 @@ def shade_channels(ch, camera_pos, light_pos, light_color,
                 b * cov_frac + clear[2] * keep, a * cov_frac + clear[3] * keep)
     return tuple(torch.where(covered, c, clear[i].expand_as(c))
                  for i, c in enumerate((r, g, b, a)))
+
+
+def channels_from_gbuffer(gbuf: GBuffer):
+    """SoA channel planes of an AoS G-buffer (the reference backend's)."""
+    return {
+        "wx": gbuf.world[..., 0], "wy": gbuf.world[..., 1],
+        "wz": gbuf.world[..., 2],
+        "nx": gbuf.normal[..., 0], "ny": gbuf.normal[..., 1],
+        "nz": gbuf.normal[..., 2],
+        "u": gbuf.uv[..., 0], "v": gbuf.uv[..., 1],
+        "kind": gbuf.mat_kind, "texid": gbuf.tex_id,
+        "nmid": gbuf.normal_map_id,
+        "cr": gbuf.mat_color[..., 0], "cg": gbuf.mat_color[..., 1],
+        "cb": gbuf.mat_color[..., 2],
+        "covered": gbuf.covered,
+    }
+
+
+def shade(gbuf: GBuffer, camera_pos, light_pos, light_color,
+          ambient_intensity, shininess, clear_color,
+          shadow_ctx: ShadowContext = None, textures=(),
+          shadow_bias=0.005, shadow_factor_value=0.5,
+          tiled_sampler=False, normal_map_ids=None, shadow_per_pixel=True):
+    """AoS wrapper of :func:`shade_channels`, every sample shaded:
+    rgba f32[..., 4]. Normal maps apply only when ``normal_map_ids`` is
+    given (the G-buffer's ids select them)."""
+    ch = channels_from_gbuffer(gbuf)
+    if normal_map_ids is None:
+        ch = dict(ch, nmid=None)
+    return torch.stack(shade_channels(
+        ch, camera_pos, light_pos, light_color, ambient_intensity, shininess,
+        clear_color, shadow_ctx, textures, shadow_bias, shadow_factor_value,
+        shadow_per_pixel=shadow_per_pixel, per_pixel=False,
+        tiled_sampler=tiled_sampler), dim=-1)

@@ -47,6 +47,10 @@ class Scene:
     # split path.
     textures: tuple = ()
 
+    @property
+    def num_triangles(self):
+        return sum(i.mesh.num_triangles for i in self.instances)
+
     def to(self, device):
         return Scene(instances=tuple(i.to(device) for i in self.instances),
                      textures=tuple(tuple(level.to(device) for level in mips)

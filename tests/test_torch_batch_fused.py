@@ -267,8 +267,9 @@ def test_render_batch_dispatch(case, monkeypatch):
     within the fused-batch tolerances); configurations no batch branch
     takes go frame by frame through render_frame: 16x128 tiles and
     supersampled shading (the per-sample G-buffer) render, each frame
-    bit-equal to render_frame of that frame; the reference backend raises
-    naming the ROADMAP item that would render it."""
+    bit-equal to render_frame of that frame; the reference backend also
+    goes frame by frame, its frames bit-equal to render_frame's on the
+    reference backend."""
     called = _record_calls(monkeypatch)
     disps = DISPS[:2]
     if case == "flagship":
@@ -281,10 +282,17 @@ def test_render_batch_dispatch(case, monkeypatch):
         _assert_matches_jax(rgba, stats, rgba_j, stats_j)
         return
     if case == "reference":
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            render_batch(_scene(), CAM, Lighting.default(), disps,
-                         config=CFG, backend="reference", device="cpu")
-        assert called == ["render_frame"]
+        rgba, stats = render_batch(_scene(), CAM, Lighting.default(), disps,
+                                   config=CFG, backend="reference",
+                                   device="cpu")
+        assert called == ["render_frame"] * 2
+        for i, d in enumerate(disps):
+            fb, st = pipeline.render_frame(
+                _scene(), CAM, Lighting.default(), CFG, ShadowConfig(), d,
+                (0.0, 0.0, -1.0), "reference", "cpu")
+            assert torch.equal(rgba[i], fb)
+            assert torch.equal(stats["covered_fraction"][i],
+                               st["covered_fraction"])
         return
     cfg = (CFG.replace(tile_h=16) if case == "tiles"
            else CFG.replace(shading_per_pixel=False))

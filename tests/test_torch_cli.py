@@ -96,9 +96,25 @@ def test_help_lists_subcommands():
 
 
 def test_backend_reference_and_missing_gpu_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli.main(["--device", "cpu", "render", "--backend", "reference",
-                  "--out", str(tmp_path / "f.png")])
+    """``--backend reference`` renders the brute-force oracle's frame: the
+    PNG of ``render_audio_app(backend="reference")``, within a rounding of
+    the kernels' frame. Without a GPU the default device raises and writes
+    nothing."""
+    from metalrenderer_tpu_torch.config import RenderConfig
+    from metalrenderer_tpu_torch.engine import audio_app
+    from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+    ref = tmp_path / "ref.png"
+    fb, _ = cli.main(["--device", "cpu", "render", "--backend", "reference",
+                      *SMALL, "--out", str(ref)])
+    cfg = RenderConfig(width=64, height=48, msaa=1, shadow_map_size=64)
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=64 / 48)
+    want, _ = audio_app.render_audio_app(camera=cam, config=cfg,
+                                         backend="reference", device="cpu")
+    assert torch.equal(fb, want)
+    assert png.read_png(ref).shape[:2] == (48, 64)
+    kern, _ = audio_app.render_audio_app(camera=cam, config=cfg,
+                                         device="cpu")
+    assert float((kern - fb).abs().max()) <= 1e-4
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli.main(["render", *SMALL, "--out", str(tmp_path / "f.png")])

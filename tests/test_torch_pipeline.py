@@ -123,7 +123,9 @@ def test_port_imports_without_jax():
             "metalrenderer_tpu_torch.utils.stats, "
             "metalrenderer_tpu_torch.utils.dashboard, "
             "metalrenderer_tpu_torch.utils.checkpoint, "
-            "metalrenderer_tpu_torch.utils.profiling; "
+            "metalrenderer_tpu_torch.utils.profiling, "
+            "metalrenderer_tpu_torch.raster.reference_cpu, "
+            "metalrenderer_tpu_torch.parallel.sharding; "
             "from metalrenderer_tpu_torch import render, PoseCamera; "
             "from metalrenderer_tpu_torch.engine.renderer import ("
             "render_camera_path); "
@@ -193,9 +195,8 @@ def test_branches_not_ported_raise(case):
     a directional light) and those of the per-sample G-buffer (16x128
     main-pass tiles, supersampled shading: kernel K3s' twin) render the JAX
     reference's frame of the same configuration (>= 40 dB, covered fraction
-    within 1e-6); the one branch still not ported raises
-    NotImplementedError naming its ROADMAP item: the brute-force oracle
-    (A11)."""
+    within 1e-6), and so does the port's own brute-force oracle
+    (``backend="reference"``): no branch raises any more."""
     w = h = 32
     cfg = RenderConfig(width=w, height=h, shadow_map_size=64)
     cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2)
@@ -205,11 +206,7 @@ def test_branches_not_ported_raise(case):
     scene = audio_app.build_scene(device="cpu")
     jscene = j_app.build_scene()
     lighting, jlighting = Lighting(light=PointLight()), JLighting.default()
-    if case == "reference":
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            pipeline.render_frame(scene, cam, lighting, cfg, device="cpu",
-                                  backend="reference")
-        return
+    backend = "reference" if case == "reference" else "kernels"
     if case == "tiles":
         cfg, jcfg = cfg.replace(tile_h=16), jcfg.replace(tile_h=16)
     elif case == "per_sample":
@@ -227,7 +224,8 @@ def test_branches_not_ported_raise(case):
         jlighting = JLighting(light=JDirectional())
     before = dict(raster_cuda.LAUNCHES)
     fb_p, st_p = pipeline.render_frame(scene, cam, lighting, cfg,
-                                       shadow_target=target, device="cpu")
+                                       shadow_target=target, backend=backend,
+                                       device="cpu")
     assert raster_cuda.LAUNCHES == before
     assert fb_p.shape == (h, w, 4)
     fb_j, st_j = mr.render(jscene, jcam, jlighting, jcfg,
