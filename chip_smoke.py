@@ -21,7 +21,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
      (fused_soup_bins: tile lists, one tile's candidates outgrowing the
      kernel's staging chunk, a big list near its cap, z-fighting coplanar
      pairs) at 1920x1080 and at the ragged 1000x601 on 8x128 tiles, and at
-     1000x601 on 40x24 tiles — covered fractions equal, rgba within 1e-5;
+     1000x601 on 40x24 tiles, and on a 1920x1080 soup whose centre tile
+     holds ~12,000 candidates (crowd=10000: the split walk, its items
+     merged per sample; the split line: split tiles, items, scratch, and
+     the item count the device scheduled, equal to the host's) — covered
+     fractions equal, rgba within 1e-5;
   4. an 800x600 flagship frame against tests/goldens/audio_app_800x600.png,
      >= 40 dB PSNR;
   5. serve 16 flagship frames (1920x1080 MSAA4, 1024^2 shadow map,
@@ -33,7 +37,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      (1920x1080 MSAA4, the port's own prep) — per-sample winners equal,
      depth and gout bit-equal — and on phase 3's soups (1920x1080 and
      1000x601 on 8x128 tiles, 1000x601 on 40x24 tiles with the per-sample
-     depth and winner planes) — gout (and depth, winner) bit-equal;
+     depth and winner planes, the crowd10k soup with them) — gout (and
+     depth, winner) bit-equal;
   7. K7 sample_bilinear against its twin on that frame's shadow lookup
      (its 1024^2 shadow map) — max abs error 0 — and, bit-equal, on the
      same planes with no pixel sampled (timed: the launch's fixed cost,
@@ -64,12 +69,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
      — winners equal, depth bit-equal, and bit-equal to K1 launches on the
      same bins; timed as K1 is;
  13. K6 render_fused_batch against its twin on that batch's main passes
-     (1920x1080 MSAA4, K4's shadow maps) and on a 2-frame batch of two
-     such soups — covered fractions equal, rgba within 1e-5, and bit-equal
-     to per-frame K2 launches;
+     (1920x1080 MSAA4, K4's shadow maps), on a 2-frame batch of two such
+     soups and on a 2-frame batch of two crowd10k soups — covered
+     fractions equal, rgba within 1e-5, and bit-equal to per-frame K2
+     launches;
  14. K5 raster_gbuffer_batch against its twin on 8 config-4 frames (the
-     camera orbiting by 0.01 rad a frame) and on a 2-frame batch of phase
-     13's soups — gout bit-equal, and bit-equal to per-frame K3 launches;
+     camera orbiting by 0.01 rad a frame) and on phase 13's two 2-frame
+     batches of soups — gout bit-equal, and bit-equal to per-frame K3
+     launches;
  15. K8 sample_bilinear_batch against its twin on those frames' shadow
      lookups (their own 1024^2 maps) — max abs error 0, and bit-equal to
      eight K7 launches — and on those lookups cut to 1919x1079 a frame
@@ -131,7 +138,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
      2-frame config-5 batch — within 1e-5 of its twin and bit-equal to
      render_frame; each timed beside its bound, K2 and K3 also on the
      same bins with every list emptied but the longest (what one tile's
-     walk costs) and with none (the fixed cost). Then 8 frames each of
+     walk costs) and with none (the fixed cost), beside the times of
+     the one-block walk that came before the split walk, and the split
+     line of each (split tiles, items,
+     scratch bytes, the device's item count). Then 8 frames each of
      configs 2 and 3 (the camera orbiting by 0.01 rad a frame) and 4
      config-5 frames (displacement linspace(0, 0.05)) through
      render_frame(device="cuda"): median/min/max ms, the prep alone, peak
@@ -178,7 +188,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
      main-pass tiles) on the same setup for config 3 (1080p), config 5
      (3840x2160) and the flagship: the differing samples and how many are
      z-fights (both triangles cover the sample at depths within 2 ulp),
-     any other difference fails; at 160x120 every entry point on the
+     any other difference fails; K3's per-sample winners (the split walk)
+     on configs 3 and 5 likewise, held to 0 differing samples; at 160x120
+     every entry point on the
      reference backend (render, render_batch, the session, the camera
      path, the sequence, the CLI; frames equal to render_frame's) and the
      reference frame on the card within 1e-5 of the CPU's;
@@ -215,7 +227,11 @@ lerp expressions), so their outputs are bit-equal. K2's shading adds
 sqrtf, IEEE division and powf: sqrt and division are correctly rounded on
 both sides, and powf is the same libdevice routine in torch's kernel and
 in ours, so rgba agrees to float32 rounding; 1e-5 leaves room for a
-differing libdevice version. K4, K5, K6 and K8 run the per-frame kernels'
+differing libdevice version. The split walk of K2, K3, K5 and K6
+(a long tile's candidates in items over blocks) merges each sample's
+items' winners into their lexicographic minimum of (z, -tid), the
+winner's own depth bits kept, which is the one-block walk's result: the
+bars stay. K4, K5, K6 and K8 run the per-frame kernels'
 code on each frame's slice of the stacked tables, so each batch frame is
 bit-equal to the per-frame launch, K4, K5 and K8 bit-equal to their twins
 (the per-frame twins frame by frame) and K6 within K2's 1e-5 of its
@@ -308,15 +324,28 @@ def run(cmd):
         return f"unavailable ({e})"
 
 
+# A mangled kernel's template arguments: the sample count and, for the
+# tile kernels of the split walk, whether the instance is the split kernel.
+_TEMPLATE_ARGS = r"(?:ILi(\d+)E(?:Lb([01])E)?E)?"
+
+
+def kernel_name(m):
+    """``name<NS>`` or ``name<NS,split>`` from a match of _TEMPLATE_ARGS."""
+    if not m[2]:
+        return m[1]
+    return m[1] + (f"<{m[2]},split>" if m[3] == "1" else
+                   f"<{m[2]}>")
+
+
 def ptxas_summary(log):
     """Per kernel of an ``nvcc -Xptxas -v`` build log: {name: "R regs,
     B B smem, spills S/L B"} (``name<N>`` for a template instance)."""
     out, name, spill = {}, None, "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?([a-z][a-z_]*_kernel)"
-                      r"(?:ILi(\d+)EE)?", ln)
+                      + _TEMPLATE_ARGS, ln)
         if m:
-            name = m[1] + (f"<{m[2]}>" if m[2] else "")
+            name = kernel_name(m)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -339,10 +368,10 @@ def sass_counts(lib):
     text = run([tool, "-sass", str(lib)])
     out, name = {}, None
     for ln in text.splitlines():
-        m = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)(?:ILi(\d+)EE)?",
+        m = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)" + _TEMPLATE_ARGS,
                       ln)
         if m:
-            name = m[1] + (f"<{m[2]}>" if m[2] else "")
+            name = kernel_name(m)
             out[name] = 0
         elif name and re.search(r"/\*[0-9a-f]{4}\*/", ln):
             out[name] += 1
@@ -690,11 +719,9 @@ def list_stats(name, prep):
     return info
 
 
-def tile_walk_split(name, bins, launch):
-    """How much of a tile kernel's time one tile's list sets: host-ahead ms
-    of ``launch(bins)`` on the bins, on the bins with every list emptied but
-    the longest (and no big list: that one block's walk, plus the empty
-    tiles), and with every list emptied (the fixed cost)."""
+def longest_list_bins(bins):
+    """``bins`` with every tile list emptied but the longest and no big
+    list, and with every list emptied: (longest, empty, its length)."""
     import torch
     off = bins.tile_offsets.to(torch.int64)
     per = off[1:] - off[:-1]
@@ -708,12 +735,53 @@ def tile_walk_split(name, bins, launch):
         big_n=no_big)
     empty = dataclasses.replace(bins, tile_offsets=torch.zeros_like(
         bins.tile_offsets), big_n=no_big)
+    return longest, empty, n
+
+
+# tile_walk_split's three host-ahead times with every tile walked by one
+# 256-thread block, before the split walk: phase 21's cases on NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md section 5).
+ONE_BLOCK_WALK = {"k2_config2": (0.10766, 0.07529, 0.01905),
+                 "k3_config3": (0.83847, 0.82866, 0.04583),
+                 "k2_config5_4k": (3.21940, 2.58534, 0.05407)}
+
+
+def tile_walk_split(name, bins, launch):
+    """How much of a tile kernel's time one tile's list sets: host-ahead ms
+    of ``launch(bins)`` on the bins, on the bins with every list emptied but
+    the longest (and no big list: that tile's walk, plus the empty tiles),
+    and with every list emptied (the fixed cost); the one-block walk's
+    beside them."""
+    longest, empty, n = longest_list_bins(bins)
     _, full_ms = timings(lambda: launch(bins), 20)
     _, longest_ms = timings(lambda: launch(longest), 20)
     _, empty_ms = timings(lambda: launch(empty), 20)
+    before = ONE_BLOCK_WALK.get(name)
     say("tile_walk", case=name, longest_list=n, device_ms=f"{full_ms:.5f}",
         longest_tile_only_device_ms=f"{longest_ms:.5f}",
-        no_list_device_ms=f"{empty_ms:.5f}")
+        no_list_device_ms=f"{empty_ms:.5f}",
+        one_block_walk_device_ms="/".join(map(str, before)) if before
+        else None)
+
+
+def split_line(name, bins, n_samples, launch):
+    """Print what the split walk does on ``bins``: split tiles, items, the
+    longest tile's items, the merge keys they use and the scratch the plan
+    allocates (host counts, ``raster_cuda.split_stats``), and the item count
+    the device's schedule wrote after ``launch()``, which must agree."""
+    import torch
+    from metalrenderer_tpu_torch.raster import raster_cuda
+    st = raster_cuda.split_stats(bins, n_samples)
+    launch()
+    torch.cuda.synchronize()
+    sched = raster_cuda.scheduled_items(bins.vis.device)
+    say("split", case=name, split_above=raster_cuda.TILE_SPLIT_ABOVE,
+        slice_candidates=raster_cuda.TILE_SPLIT_SLICE,
+        scheduled_items=sched, **st)
+    if st["split_tiles"] and sched != st["items"]:
+        fail(f"{name}: the device scheduled {sched} items, the lists need "
+             f"{st['items']}")
+    return st
 
 
 def serve_config(name, frame_fn, prep_fn, args, want, smi, n_profile):
@@ -804,6 +872,9 @@ def configs_phase(dev, smi, path_launches):
             bound_by=b[1], card=repr(smi))
         tile_walk_split(f"k2_{name}", mb, lambda bb: raster_cuda.render_fused(
             bb, uni, None, w, h, samples))
+        split_line(f"k2_{name}", mb, len(samples),
+                   lambda: raster_cuda.render_fused(mb, uni, None, w, h,
+                                                    samples))
         return err, ms, dev_ms, plain_ms, b
 
     # Config 2: 24 cubes and spheres, the fused path with no shadow map.
@@ -876,6 +947,8 @@ def configs_phase(dev, smi, path_launches):
         bound_by=k3_bound[1], card=repr(smi))
     tile_walk_split("k3_config3", mb3, lambda bb: raster_cuda.raster_gbuffer(
         bb, CW, CH, s1))
+    split_line("k3_config3", mb3, 1, lambda: raster_cuda.raster_gbuffer(
+        mb3, CW, CH, s1))
     # K9 on config 3's color lookup (the checkerboard's 10 levels).
     ch3 = raster_cuda.channels_from_gout_px(gout3, 1)
     mips3 = scene3.textures[0]
@@ -969,6 +1042,8 @@ def configs_phase(dev, smi, path_launches):
     k6_bound = bound(bins_bytes(mb52, True) + nbytes(uni52, r_k, c_k),
                      sum(raster_ops(raster_cuda.frame_bins(mb52, f), C5_W,
                                     C5_H, 1, covered6[f]) for f in range(2)))
+    split_line("k6_config5_4k_2_frames", mb52, 1,
+               lambda: raster_cuda.render_fused_batch(*args6))
     say("k6", case="config5_4k_2_frames", ms=f"{k6_ms:.4f}",
         device_ms=f"{k6_dev:.5f}", plain_ms=f"{k6_plain:.4f}",
         bound_ms=f"{k6_bound[0]:.5f}", bound_by=k6_bound[1], card=repr(smi))
@@ -1445,17 +1520,22 @@ def frames_vs_kernels(name, ref_fn, kern_fn, smi):
 
 
 def winners_vs_brute_force(name, prep_k, prep_r, width, height, samples,
-                           anchor, smi):
-    """K3s's winner plane on the kernels' bins against the brute force's
-    winners on the same triangle setup: the differing samples and how many
-    of them are z-fights (both triangles cover the sample at depths within
-    2 ulp). Any other difference fails: it would be a fault of the tile
-    lists. K3s runs here as a comparison, not on a path. Returns K3s's
-    winners i32[S, H, W]."""
+                           anchor, smi, kernel="k3s"):
+    """K3s's winner plane (``kernel="k3"``: K3's per-sample winners, the
+    split walk's) on the kernels' bins against the brute force's winners
+    on the same triangle setup: the differing samples and how many of them
+    are z-fights (both triangles cover the sample at depths within 2 ulp).
+    Any other difference fails: it would be a fault of the tile lists or
+    of the walk. The kernel runs here as a comparison, not on a path.
+    Returns its winners i32[S, H, W]."""
     import torch
     from metalrenderer_tpu_torch.raster import raster_cuda, reference_cpu
-    _, _, win_k = raster_cuda.raster_gbuffer_samples(
-        prep_k.main_bins, width, height, samples)
+    if kernel == "k3":
+        _, _, win_k = raster_cuda.raster_gbuffer(
+            prep_k.main_bins, width, height, samples, with_samples=True)
+    else:
+        _, _, win_k = raster_cuda.raster_gbuffer_samples(
+            prep_k.main_bins, width, height, samples)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, win_r = reference_cpu.rasterize_brute_force(
@@ -1471,15 +1551,18 @@ def winners_vs_brute_force(name, prep_k, prep_r, width, height, samples,
             - z1.view(torch.int32).to(torch.int64)).abs()
     zfights = int((h0 & h1 & (ulps <= 2)).sum())
     cnt = candidate_counts(prep_k.main_bins)
-    say("reference", check="K3s winners vs brute force", case=name,
+    say("reference", check=f"{kernel.upper()} winners vs brute force",
+        case=name,
         size=f"{width}x{height}xS{len(samples)}",
         slots=prep_r.main_setup.valid.numel(),
         covered_samples=int((win_r >= 0).sum()),
         max_tile_candidates=int(cnt.max()), differing=int(idx.numel()),
         zfights=zfights, brute_force_ms=f"{brute_ms:.3f}", card=repr(smi))
-    if zfights != idx.numel():
-        fail(f"{name}: {idx.numel() - zfights} samples where K3s and the "
-             "brute force pick different winners outside a z-fight")
+    # K3 splits these configs' long lists over blocks: held to no sample
+    # apart, z-fights included (K3s's winners met that in every run).
+    if zfights != idx.numel() or (kernel == "k3" and idx.numel()):
+        fail(f"{name}: {idx.numel()} samples where {kernel.upper()} and the "
+             f"brute force pick different winners ({zfights} z-fights)")
     return win_k
 
 
@@ -1613,9 +1696,12 @@ def reference_phase(dev, smi):
         prep_k = pipeline.prepare_frame(sc, cm, lt, cf, device=dev, **kw)
         prep_r = pipeline.prepare_frame(sc, cm, lt, cf, backend="reference",
                                         device=dev, **kw)
-        winners_vs_brute_force(name, prep_k, prep_r, cf.width, cf.height,
-                               tuple(cf.sample_positions),
-                               (cf.tile_w, cf.tile_h), smi)
+        # K3 (one sample on configs 3 and 5) walks their long lists split
+        # over blocks: its per-sample winners too.
+        for kernel in ("k3s", "k3") if name != "flagship" else ("k3s",):
+            winners_vs_brute_force(name, prep_k, prep_r, cf.width,
+                                   cf.height, tuple(cf.sample_positions),
+                                   (cf.tile_w, cf.tile_h), smi, kernel)
         del prep_k, prep_r
 
     # Every entry point takes the reference backend on the card.
@@ -2126,6 +2212,31 @@ def main():
             soup_ms, soup_dev = timings(lambda: raster_cuda.render_fused(
                 sbins, uni, shadow_map, w, h, samples), 100)
         del sbins, r_k, c_k, r_p, c_p
+    # A soup whose centre tile holds ~12,000 candidates (duplicates and
+    # z-fights among them): the split walk, its items merged per sample.
+    crowds = [fused_soup_bins(W, H, seed=sd, device=dev, crowd=10000)
+              for sd in (5, 6)]
+    crowd = crowds[0]
+    r_k, c_k = raster_cuda.render_fused(crowd, uni, shadow_map, W, H,
+                                        samples)
+    r_p, c_p = raster_cuda.render_fused_plain(crowd, uni, shadow_map, W, H,
+                                              samples)
+    torch.cuda.synchronize()
+    err = float((r_k - r_p).abs().max())
+    eq = torch.equal(c_k, c_p)
+    cnt = candidate_counts(crowd)
+    say("k2", case="crowd10k_1920x1080_8x128", triangles=crowd.vis.shape[0],
+        max_candidates=int(cnt.max()), covered_px=int((c_k > 0).sum()),
+        covf_equal=eq, rgba_max_abs_err=err, tol=1e-5)
+    st = split_line("k2_crowd10k", crowd, len(samples),
+                    lambda: raster_cuda.render_fused(crowd, uni, shadow_map,
+                                                     W, H, samples))
+    if not eq or not err <= 1e-5:
+        fail("K2 disagrees with its twin on the crowd10k soup")
+    if int(cnt.max()) < 9000 or st["split_tiles"] == 0:
+        fail("crowd10k: no tile of ~10,000 candidates, or none split")
+    k2_err = max(k2_err, err)
+    del r_k, c_k, r_p, c_p
     k2_ms, k2_dev = timings(lambda: raster_cuda.render_fused(
         mb, uni, shadow_map, W, H, samples), 100)
     k2_plain_ms = cuda_ms(lambda: raster_cuda.render_fused_plain(
@@ -2265,6 +2376,21 @@ def main():
                 bins_bytes(sbins, True) + nbytes(o_k[0]),
                 raster_ops(sbins, w, h, len(samples), covered))
         del sbins, o_k, o_p
+    # Phase 3's crowd10k soup: the split walk, per-sample planes included.
+    o_k = raster_cuda.raster_gbuffer(crowd, W, H, samples, with_samples=True)
+    o_p = raster_cuda.raster_gbuffer_plain(crowd, W, H, samples,
+                                           with_samples=True)
+    torch.cuda.synchronize()
+    eq = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+             for a, b in zip(o_k, o_p))
+    say("k3", case="crowd10k_1920x1080_8x128",
+        max_candidates=int(candidate_counts(crowd).max()),
+        covered_px=int((o_k[0][binning.ROW_DEPTH] > 0).sum()),
+        with_samples=True, bit_equal=eq,
+        max_abs_err=float((o_k[0] - o_p[0]).abs().max()))
+    if not eq:
+        fail("K3 disagrees with its twin on the crowd10k soup")
+    del o_k, o_p
     k3_ms, k3_dev = timings(lambda: raster_cuda.raster_gbuffer(
         mb4, W, H, samples), 100)
     k3_plain_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_plain(
@@ -2551,31 +2677,36 @@ def main():
         fail("K6 disagrees with its twin or with K2")
     del r_p, c_p
     # Two of phase 3's soups as one batch: lists longer than a chunk in
-    # both frames.
-    soups = [fused_soup_bins(W, H, seed=s, device=dev) for s in (11, 12)]
-    sb2 = raster_cuda.stack_bins(soups)
-    args2 = (sb2, uni8[:2].contiguous(), smaps8[:2].contiguous(), W, H,
-             samples)
-    r2k, c2k = raster_cuda.render_fused_batch(*args2)
-    r2p, c2p = raster_cuda.render_fused_batch_plain(*args2)
-    soup_k2_eq = True
-    for f, sbins in enumerate(soups):
-        r2, c2 = raster_cuda.render_fused(sbins, uni8[f], smaps8[f], W, H,
-                                          samples)
-        soup_k2_eq &= torch.equal(r2, r2k[f]) and torch.equal(c2, c2k[f])
-    torch.cuda.synchronize()
-    soup_err = float((r2k - r2p).abs().max())
-    soup_eq = torch.equal(c2k, c2p)
-    over = [int((candidate_counts(s) > raster_cuda.FUSED_STAGING_CHUNK).sum())
-            for s in soups]
-    say("k6", case="soup_2x1920x1080_8x128", big_n=sb2.big_n.tolist(),
-        tiles_over_chunk=over, covf_equal=soup_eq, rgba_max_abs_err=soup_err,
-        tol=1e-5, equal_to_k2=soup_k2_eq)
-    if not (soup_eq and soup_err <= 1e-5 and soup_k2_eq) or min(over) == 0:
-        fail("K6 disagrees with its twin or with K2 on the soups (or no "
-             "list outgrew a chunk)")
-    k6_err = max(k6_err, soup_err)
-    del soups, sb2, args2, r2k, c2k, r2p, c2p
+    # both frames; and its two crowd10k soups (the split walk in both).
+    for case, soups in (
+            ("soup_2x1920x1080_8x128",
+             [fused_soup_bins(W, H, seed=s, device=dev) for s in (11, 12)]),
+            ("crowd10k_2x1920x1080_8x128", crowds)):
+        sb2 = raster_cuda.stack_bins(soups)
+        args2 = (sb2, uni8[:2].contiguous(), smaps8[:2].contiguous(), W, H,
+                 samples)
+        r2k, c2k = raster_cuda.render_fused_batch(*args2)
+        r2p, c2p = raster_cuda.render_fused_batch_plain(*args2)
+        soup_k2_eq = True
+        for f, sbins in enumerate(soups):
+            r2, c2 = raster_cuda.render_fused(sbins, uni8[f], smaps8[f], W,
+                                              H, samples)
+            soup_k2_eq &= torch.equal(r2, r2k[f]) and torch.equal(c2, c2k[f])
+        torch.cuda.synchronize()
+        soup_err = float((r2k - r2p).abs().max())
+        soup_eq = torch.equal(c2k, c2p)
+        over = [int((candidate_counts(s)
+                     > raster_cuda.FUSED_STAGING_CHUNK).sum()) for s in soups]
+        say("k6", case=case, big_n=sb2.big_n.tolist(), tiles_over_chunk=over,
+            split=raster_cuda.split_stats(sb2, len(samples)),
+            covf_equal=soup_eq, rgba_max_abs_err=soup_err, tol=1e-5,
+            equal_to_k2=soup_k2_eq)
+        if not (soup_eq and soup_err <= 1e-5 and soup_k2_eq) or \
+                min(over) == 0:
+            fail(f"K6 disagrees with its twin or with K2 on {case} (or no "
+                 "list outgrew a chunk)")
+        k6_err = max(k6_err, soup_err)
+        del soups, sb2, args2, r2k, c2k, r2p, c2p
     k6_ms, k6_dev = timings(lambda: raster_cuda.render_fused_batch(
         mb8, uni8, smaps8, W, H, samples), 50)
     k6_plain_ms = cuda_ms(lambda: raster_cuda.render_fused_batch_plain(
@@ -2617,32 +2748,35 @@ def main():
     if min(covered5) == 0:
         fail("K5 covered nothing in a frame")
     # Phase 13's two soups as one batch: lists longer than a chunk in both
-    # frames.
-    soups = [fused_soup_bins(W, H, seed=s, device=dev) for s in (11, 12)]
-    sb2 = raster_cuda.stack_bins(soups)
-    g2k = raster_cuda.raster_gbuffer_batch(sb2, W, H, samples)
-    g2p = raster_cuda.raster_gbuffer_batch_plain(sb2, W, H, samples)
-    soup_k3_eq = True
-    for f, sbins in enumerate(soups):
-        g3 = raster_cuda.raster_gbuffer(sbins, W, H, samples)[0]
-        soup_k3_eq &= torch.equal(g3.view(torch.int32),
-                                  g2k[f].view(torch.int32))
-    torch.cuda.synchronize()
-    soup_eq = torch.equal(g2k.view(torch.int32), g2p.view(torch.int32))
-    soup_err = float((g2k - g2p).abs().max())
-    over = [int((candidate_counts(s) > raster_cuda.FUSED_STAGING_CHUNK).sum())
-            for s in soups]
-    say("k5", case="soup_2x1920x1080_8x128", big_n=sb2.big_n.tolist(),
-        tiles_over_chunk=over,
-        covered_px=[int((g2k[f, binning.ROW_DEPTH] > 0).sum())
-                    for f in range(2)],
-        gout_bit_equal=soup_eq, equal_to_k3=soup_k3_eq,
-        max_abs_err=soup_err)
-    if not (soup_eq and soup_k3_eq) or min(over) == 0:
-        fail("K5 disagrees with its twin or with K3 on the soups (or no "
-             "list outgrew a chunk)")
-    k5_err = max(k5_err, soup_err)
-    del soups, sb2, g2k, g2p, g3
+    # frames; and its two crowd10k soups (the split walk in both).
+    for case, soups in (
+            ("soup_2x1920x1080_8x128",
+             [fused_soup_bins(W, H, seed=s, device=dev) for s in (11, 12)]),
+            ("crowd10k_2x1920x1080_8x128", crowds)):
+        sb2 = raster_cuda.stack_bins(soups)
+        g2k = raster_cuda.raster_gbuffer_batch(sb2, W, H, samples)
+        g2p = raster_cuda.raster_gbuffer_batch_plain(sb2, W, H, samples)
+        soup_k3_eq = True
+        for f, sbins in enumerate(soups):
+            g3 = raster_cuda.raster_gbuffer(sbins, W, H, samples)[0]
+            soup_k3_eq &= torch.equal(g3.view(torch.int32),
+                                      g2k[f].view(torch.int32))
+        torch.cuda.synchronize()
+        soup_eq = torch.equal(g2k.view(torch.int32), g2p.view(torch.int32))
+        soup_err = float((g2k - g2p).abs().max())
+        over = [int((candidate_counts(s)
+                     > raster_cuda.FUSED_STAGING_CHUNK).sum()) for s in soups]
+        say("k5", case=case, big_n=sb2.big_n.tolist(), tiles_over_chunk=over,
+            covered_px=[int((g2k[f, binning.ROW_DEPTH] > 0).sum())
+                        for f in range(2)],
+            gout_bit_equal=soup_eq, equal_to_k3=soup_k3_eq,
+            max_abs_err=soup_err)
+        if not (soup_eq and soup_k3_eq) or min(over) == 0:
+            fail(f"K5 disagrees with its twin or with K3 on {case} (or no "
+                 "list outgrew a chunk)")
+        k5_err = max(k5_err, soup_err)
+        del soups, sb2, g2k, g2p, g3
+    del crowds, crowd
     k5_ms, k5_dev = timings(lambda: raster_cuda.raster_gbuffer_batch(
         mb48, W, H, samples), 50)
     k5_plain_ms = cuda_ms(lambda: raster_cuda.raster_gbuffer_batch_plain(

@@ -8,6 +8,7 @@ raster kernels K1 (raster_depth), K4 (raster_depth_batch), K2
     python3 compare_kernels.py ROOT [ROOT ...]   # e.g. a parent's checkout, .
     python3 compare_kernels.py --cases k7,k8,k9 ROOT [ROOT ...]
     python3 compare_kernels.py --parts 1,2,4,8 ROOT [ROOT ...]
+    python3 compare_kernels.py --split 512:256,256:256 ROOT [ROOT ...]
 
 Each root runs in a process of its own, its kernels built from its own
 ``metalrenderer_tpu_torch/csrc``. The raster kernels run on the inputs of
@@ -16,8 +17,13 @@ chip_smoke.py's phases 2, 3, 6, 12, 13 and 14: the flagship shadow pass
 1024^2 soup, the 8 shadow passes of the flagship batch, the flagship main
 pass (1920x1080 MSAA4, displacement 0.05), phase 3's seeded 1920x1080
 soup, the 8-frame flagship batch, BASELINE config 4's main pass (1920x1080
-MSAA4) and its 8-frame batch (the camera orbiting by 0.01 rad a frame).
-The samplers run on the lookups of phases 7, 8, 15 and 19: config 4's
+MSAA4) and its 8-frame batch (the camera orbiting by 0.01 rad a frame);
+and on BASELINE configs 2, 3 and 5 as phase 21 builds them from the root's
+``engine/configs`` (``config_cases``: K2<4> on config 2, K3<1> on config
+3, K2<1> on config 5 at 3840x2160 and K6<1> on its first two frames; K3
+and K2 also with every tile list emptied but the longest, ``_longest``),
+held by their digests across roots (their twins take seconds to minutes
+a call; chip_smoke.py holds them against the twins). The samplers run on the lookups of phases 7, 8, 15 and 19: config 4's
 shadow lookup (K7, ``k7_config4``) and normal-map lookup (K9), the shadow
 lookups of its 8-frame batch against their 8 maps (K8), and the
 supersampled flagship's shadow lookups: once per pixel at the first
@@ -28,7 +34,10 @@ kernels kept). K1 and K4 are timed with the winner plane and, where the
 root's ``raster_depth`` takes ``with_winner``, without it (``_nw``): the
 shadow path's form. With ``--parts``, a root whose ``raster_cuda`` splits
 K1/K4 tiles (``_depth_parts``) is also timed at each of those fixed
-splits (``_pN``). Every time is taken two ways (this checkout's
+splits (``_pN``). With ``--split A:L,...``, a root whose ``raster_cuda``
+splits long tiles of K2/K3/K5/K6 (``TILE_SPLIT_ABOVE``,
+``TILE_SPLIT_SLICE``) is also timed with a tile split above A candidates
+into slices of L (``_AaLl``). Every time is taken two ways (this checkout's
 chip_smoke.timings): back to back (the host may pace it), and with the
 host ahead (``device_ms``: device time only). The roots run in the order
 given, then in reverse (A B B A). Prints the card's name and power limit,
@@ -51,8 +60,13 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 W, H, SHADOW, BATCH = 1920, 1080, 1024, 8
-RASTER = ("k1", "k2", "k3", "k4", "k5", "k6")
-SAMPLERS = ("k7", "k8", "k9")
+RASTER = ("k1_flagship", "k1_soup4000", "k1_crowd", "k4_flagship8",
+          "k2_flagship", "k2_soup", "k6_flagship8", "k3_config4", "k3_soup",
+          "k5_config4x8")
+CONFIGS = ("k2_config2", "k3_config3", "k3_config3_longest", "k2_config5",
+           "k2_config5_longest", "k6_config5x2")
+SAMPLERS = ("k7_config4", "k7_ss_px", "k7_ss_planes4", "k8_config4x8",
+            "k9_config4")
 
 
 def smoke():
@@ -182,6 +196,55 @@ def raster_cases(cs, dev):
                          (mb48, *main), 50)}
 
 
+def config_cases(cs, dev):
+    """K2, K3 and K6 on BASELINE configs 2, 3 and 5, built by the root's
+    engine/configs as chip_smoke.py's phase 21 builds them: K2<4> on config
+    2 (1920x1080, no shadow map), K3<1> on config 3 (1920x1080, the 100k
+    triangle OBJ asset), K2<1> on config 5 (3840x2160, displacement 0.05)
+    and K6<1> on its first two frames; K3 and K2 also on the bins with
+    every list emptied but the longest (``_longest``: one tile's walk).
+    Their twins take seconds to minutes a call, so these cases are held by
+    their digests across roots (and against their twins in chip_smoke.py):
+    {name: (kernel, None, None, args, reps)}."""
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch.engine import configs
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.raster import raster_cuda
+    s2 = configs.config2_multi_mesh(n_objects=cs.C2_OBJECTS, width=cs.CW,
+                                    height=cs.CH, device=dev)
+    p2 = pipeline.prepare_frame(*s2, device=dev)
+    s3 = configs.config3_high_poly(target_tris=cs.C3_TRIS, width=cs.CW,
+                                   height=cs.CH, device=dev)
+    mb3 = pipeline.prepare_frame(*s3, device=dev).main_bins
+    s5 = configs.config5_animated_high_poly(target_tris=cs.C5_TRIS,
+                                            width=cs.C5_W, height=cs.C5_H,
+                                            device=dev)
+    disps = [float(d) for d in np.linspace(0.0, 0.05, cs.C5_FRAMES)]
+    p5 = pipeline.prepare_frame(*s5, displacement=disps[-1], device=dev)
+    preps = [pipeline.prepare_frame(*s5, displacement=d, device=dev)
+             for d in disps[:2]]
+    mb52 = raster_cuda.stack_bins([p.main_bins for p in preps])
+    uni52 = torch.stack([p.uniforms for p in preps])
+    one = tuple(s3[3].sample_positions)
+    fused, gbuf = raster_cuda.render_fused, raster_cuda.raster_gbuffer
+    c3, c5 = (cs.CW, cs.CH, one), (cs.C5_W, cs.C5_H, one)
+    return {
+        "k2_config2": (fused, None, None, (
+            p2.main_bins, p2.uniforms, None, cs.CW, cs.CH,
+            tuple(s2[3].sample_positions)), 100),
+        "k3_config3": (gbuf, None, None, (mb3, *c3), 50),
+        "k3_config3_longest": (gbuf, None, None, (
+            cs.longest_list_bins(mb3)[0], *c3), 50),
+        "k2_config5": (fused, None, None, (p5.main_bins, p5.uniforms, None,
+                                           *c5), 20),
+        "k2_config5_longest": (fused, None, None, (
+            cs.longest_list_bins(p5.main_bins)[0], p5.uniforms, None, *c5),
+            20),
+        "k6_config5x2": (raster_cuda.render_fused_batch, None, None,
+                         (mb52, uni52, None, *c5), 20)}
+
+
 def sampler_cases(dev):
     """K7, K8 and K9 on the lookups of chip_smoke.py's phases 7, 8, 15 and
     19: config 4's shadow lookup and normal-map lookup, the shadow lookups
@@ -264,7 +327,7 @@ def sampler_cases(dev):
                        bits_ok, k9_args, 200)}
 
 
-def one(root, parts, only):
+def one(root, parts, splits, only):
     sys.path.insert(0, str(root))
     import torch
     cs = smoke()
@@ -274,37 +337,56 @@ def one(root, parts, only):
     dev = torch.device("cuda:0")
     cases = {}
     for group, build in ((RASTER, lambda: raster_cases(cs, dev)),
+                         (CONFIGS, lambda: config_cases(cs, dev)),
                          (SAMPLERS, lambda: sampler_cases(dev))):
-        if any(o[:2] in group for o in only):
+        if any(n.startswith(only) for n in group):
             cases.update(build())
     cases = {k: c for k, c in cases.items() if k.startswith(only)}
+    # The split walk's threshold and slice (raster_cuda.TILE_SPLIT_ABOVE,
+    # TILE_SPLIT_SLICE), in roots that have them: each K2/K3/K5/K6 case
+    # also at every (above, slice) of ``splits``.
+    auto_split = (getattr(raster_cuda, "TILE_SPLIT_ABOVE", None),
+                  getattr(raster_cuda, "TILE_SPLIT_SLICE", None))
+    split_forms = [None] + (splits if None not in auto_split else [])
     depth_forms = [("", {})]
     if "with_winner" in inspect.signature(raster_cuda.raster_depth).parameters:
         depth_forms.append(("_nw", {"with_winner": False}))
     auto_parts = getattr(raster_cuda, "_depth_parts", None)
-    splits = [None] + (parts if auto_parts is not None else [])
+    part_forms = [None] + (parts if auto_parts is not None else [])
     log = (_build.library_path().parent / "build.log").read_text()
     out = {"root": str(root),
            "ptxas": {k: v for k, v in cs.ptxas_summary(log).items()
                      if k.startswith(("render_fused", "raster_gbuffer_kernel",
                                       "raster_depth", "sample_"))}}
     for name, (kernel, plain, check, args, reps) in cases.items():
-        forms = [("", {}, None)]
+        forms = [("", {}, None, None)]
         if name[:2] in ("k1", "k4"):
-            forms = [(sfx + (f"_p{p}" if p else ""), kw, p)
-                     for p in splits for sfx, kw in depth_forms]
-        ref = plain(*args)
-        for suffix, kw, p in forms:
+            forms = [(sfx + (f"_p{p}" if p else ""), kw, p, None)
+                     for p in part_forms for sfx, kw in depth_forms]
+        elif name[:2] in ("k2", "k3", "k5", "k6"):
+            forms = [(f"_A{sp[0]}L{sp[1]}" if sp else "", {}, None, sp)
+                     for sp in split_forms]
+        ref = None if plain is None else plain(*args)
+        for suffix, kw, p, sp in forms:
             if auto_parts is not None:
                 raster_cuda._depth_parts = (auto_parts if p is None else
                                             lambda bins, frames, p=p: p)
+            if None not in auto_split:
+                (raster_cuda.TILE_SPLIT_ABOVE,
+                 raster_cuda.TILE_SPLIT_SLICE) = sp or auto_split
             res = kernel(*args, **kw)
-            ok = check(res, ref)
+            ok = None if check is None else check(res, ref)
             torch.cuda.synchronize()
             ms, dev_ms = cs.timings(lambda: kernel(*args, **kw), reps)
             out[name + suffix] = {"ok": ok, "ms": round(ms, 5),
                                   "device_ms": round(dev_ms, 5),
                                   "digest": digest(res)}
+            del res
+        del ref
+    if None not in auto_split:
+        raster_cuda.TILE_SPLIT_ABOVE, raster_cuda.TILE_SPLIT_SLICE = \
+            auto_split
+        out["split_above_slice"] = auto_split
     if auto_parts is not None and any(n[:2] in ("k1", "k4") for n in cases):
         raster_cuda._depth_parts = auto_parts
         out["parts"] = {n: auto_parts(cases[n][3][0], f)
@@ -316,15 +398,18 @@ def one(root, parts, only):
 
 def main():
     args = sys.argv[1:]
-    parts, only = [], RASTER + SAMPLERS
-    while args[:1] in (["--parts"], ["--cases"]):
+    parts, splits, only = [], [], RASTER + CONFIGS + SAMPLERS
+    while args[:1] in (["--parts"], ["--split"], ["--cases"]):
         if args[0] == "--parts":
             parts = [int(p) for p in args[1].split(",")]
+        elif args[0] == "--split":
+            splits = [tuple(int(v) for v in p.split(":"))
+                      for p in args[1].split(",")]
         else:
             only = tuple(args[1].split(","))
         args = args[2:]
     if args[:1] == ["--one"]:
-        return one(Path(args[1]).resolve(), parts, only)
+        return one(Path(args[1]).resolve(), parts, splits, only)
     roots = [Path(r).resolve() for r in args] or [HERE]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -332,6 +417,8 @@ def main():
     opts = ["--cases", ",".join(only)]
     if parts:
         opts += ["--parts", ",".join(map(str, parts))]
+    if splits:
+        opts += ["--split", ",".join(f"{a}:{l}" for a, l in splits)]
     rc = 0
     for root in roots + roots[::-1]:
         rc |= subprocess.run([sys.executable, __file__, *opts, "--one",

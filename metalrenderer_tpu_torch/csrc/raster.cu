@@ -24,7 +24,8 @@
 //    8x128.
 // K4, K5, K6 are the same three kernels over a frame batch, replacing the
 //    frame-folded Pallas launches raster_pallas.rasterize_depth_batch,
-//    rasterize_tiles_batch and render_fused_batch: blockIdx.z is the frame.
+//    rasterize_tiles_batch and render_fused_batch: blockIdx.z is the frame
+//    (in the split kernels of K5 and K6, each item's).
 //    Each block offsets its tables (vis, attr, tile_off, tile_tris, big_*),
 //    its uniforms, its shadow map and its outputs by its frame's base and
 //    then runs the per-frame code unchanged, so a batch frame is bit-equal
@@ -81,6 +82,13 @@
 // pixels store zeros in the same instructions, so every store of an
 // interior tile is a whole line.
 //
+// On long tile lists (a UV sphere's pole tile: 2,243 candidates at 1080p,
+// 8,750 at 3840x2160) one block walking a tile set K2's and K3's time: the
+// rest of the grid finished and the card waited on that block. So K2, K3,
+// K5 and K6 split such a tile's candidates over blocks (the split walk
+// below): a split kernel finds the long tiles on the device and walks them
+// in slices beside the tile kernel, merging each sample's winner exactly.
+//
 // K1 and K4 (raster_depth_kernel) replace rasterize_tiles(with_attrs=
 // False) (pallas_call raster_pallas.py:951) and rasterize_depth_batch
 // (:1184) on the same tile walk, with a fragment stage that stores the
@@ -108,6 +116,7 @@
 // rounds on its own, divisions and sqrtf are IEEE, as in the torch twins.
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <type_traits>
 
 namespace {
@@ -641,7 +650,8 @@ __device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
                      a * cf + U[kFuClear + 3] * keep);
 }
 
-// The tile walk of K1-K6: binning tile blockIdx.x of B. The tile's pixels
+// The tile walk of K1-K6: chunks [c_begin, c_end) of tile T's candidates
+// (all of them, or one item's slice of a split tile). The tile's pixels
 // are row segments of kSegW columns, one per warp and pass; a tile of any
 // shape takes ceil(tile_h * ceil(tile_w / kSegW) / kTileWarps) passes (one
 // for 8x128, eight for 64x128). The block walks part `part` of `n_parts`
@@ -650,15 +660,14 @@ __device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
 // chunk in every pass; every thread of the block calls stage_chunk, also
 // in warps with no segment left. Then, on each of the lane's pixels inside
 // the tile and the image, frag(zb, wb, px, py) with the pixel's per-sample
-// depth and winner.
+// depth and winner over those chunks, from (clear_depth, -1).
 template <int NS, class Frag>
 __device__ __forceinline__ void walk_tile(const Bins& B, const Samples& S,
                                           float clear_depth, int width,
-                                          int height, TileStage& st,
-                                          Frag&& frag, int part = 0,
-                                          int n_parts = 1) {
-  const TileRef T = tile_ref(B, blockIdx.x);
-  const int n_chunks = tile_chunks(T);
+                                          int height, const TileRef& T,
+                                          int c_begin, int c_end,
+                                          TileStage& st, Frag&& frag,
+                                          int part = 0, int n_parts = 1) {
   const int segs_per_row = (B.tile_w + kSegW - 1) / kSegW;
   const int n_segs = B.tile_h * segs_per_row;
   const int n_passes = (n_segs + kTileWarps - 1) / kTileWarps;
@@ -694,8 +703,9 @@ __device__ __forceinline__ void walk_tile(const Bins& B, const Samples& S,
       p.xlo[j] = __fadd_rn((float)(seg0 + 32 * j), oxl);
       p.xhi[j] = __fadd_rn((float)(seg0 + 32 * j + 31), oxh);
     }
-    for (int c = 0; c < n_chunks; ++c) {
-      if (n_chunks > 1 || g0 == g_begin) n_staged = stage_chunk(B, T, c, st);
+    for (int c = c_begin; c < c_end; ++c) {
+      if (c_end - c_begin > 1 || g0 == g_begin)
+        n_staged = stage_chunk(B, T, c, st);
       test_staged<NS>(st.tri, n_staged, p);
     }
     const int py = T.y0 + row;
@@ -710,88 +720,389 @@ __device__ __forceinline__ void walk_tile(const Bins& B, const Samples& S,
   }
 }
 
-// K2/K6: one block per binning tile (blockIdx.x) and frame (blockIdx.z),
-// the fused fragment stage on the tile walk.
+// ---- The split walk of K2/K6 and K3/K5: long tile lists over blocks. ----
+//
+// A tile of more than tc chunks (its list plus the live big list,
+// tile_chunks) is not walked by one block: it becomes ceil(chunks / lc)
+// items, each of which walks its slice of lc chunks (L = lc * kChunk
+// candidates) over every sample of the tile. A launch that may split runs
+// two kernels: the split kernel (WORKERS), whose blocks find the split
+// tiles on the device, queue their items and take them, and then the tile
+// kernel, one block per tile and frame as before, in which a split tile's
+// block exits at once. The tile kernel is the split kernel's programmatic
+// dependent (sm_90): it starts while the split kernel runs, so short
+// tiles and long tiles' items run side by side, and no list length
+// reaches the host. Its code is the one-block walk alone: the workers'
+// code in the same kernel raised its registers (120 -> 128 at 4 samples)
+// and its time (PERF.md).
+//
+// Visibility is order-free, so a sample's winner over the whole tile is
+// the lexicographic minimum of (z, -tid) over the items' own winners, each
+// taken from (clear_depth, -1): every item merges its winners into one
+// 64-bit key a sample with atomicMax (split_key), and the tile's last item
+// to finish (a per-tile count) reads the keys back, resets them and the
+// count to zero for the next launch, and runs the fragment stage on the
+// merged winners. The planes stay anchored on the binning tile, so every
+// item evaluates a candidate exactly as the one-block walk does.
+
+// The launch's split state: head's counters, keys and done are zero
+// between launches (the wrapper allocates them zeroed once; the split
+// kernel's last block resets the counters, a tile's last item its keys
+// and count). The items are written anew by every split launch.
+struct Split {
+  int tc;                      // a tile of more chunks is split
+  int lc;                      // chunks per item
+  int max_items, max_ranks;    // the wrapper's bounds
+  int* head;                   // counters (kHead*), then the int4 items
+  unsigned long long* keys;    // [ranks, NS, tile_h * tile_w]
+  int* done;                   // [ranks] items of the tile finished
+};
+
+// head's counters.
+constexpr int kHeadShare = 0;       // the next share of tiles to scan
+constexpr int kHeadScanned = 1;     // shares scanned
+constexpr int kHeadItems = 2;       // items queued
+constexpr int kHeadRanks = 3;       // split tiles queued
+constexpr int kHeadNext = 4;        // the next item to take
+constexpr int kHeadExited = 5;      // split kernel blocks finished
+constexpr int kHeadLastItems = 7;   // the last split launch's item count
+constexpr int kHeadInts = 8;        // the items start here (32 B aligned)
+
+__device__ __forceinline__ int4* split_items(const Split& X) {
+  return reinterpret_cast<int4*>(X.head + kHeadInts);
+}
+
+// Let the launch that depends on this one start, and wait for the launch
+// this one depends on to finish with its memory visible (programmatic
+// dependent launch; a no-op in a launch that depends on none).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_dependency() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// A winner (z, tid) as a key whose unsigned maximum is the lexicographic
+// minimum of (z, -tid): take admits only 0 <= z <= 1, whose bits order as
+// its values once -0.0 is folded onto +0.0 (take holds them equal); the
+// tid (< 2^24) breaks ties, the larger winning, and the low bit keeps z's
+// sign, so the merged depth is the winner's own z bits. 0 is no winner:
+// every real key is above it.
+__device__ __forceinline__ unsigned long long split_key(float z, int tid) {
+  const unsigned bits = __float_as_uint(z);
+  return ((unsigned long long)(0xffffffffu - (bits & 0x7fffffffu)) << 32) |
+         ((unsigned)tid << 1) | (bits >> 31);
+}
+
+__device__ __forceinline__ void split_unkey(unsigned long long key,
+                                            float clear_depth, float& z,
+                                            int& tid) {
+  if (key == 0ull) {
+    z = clear_depth;
+    tid = -1;
+    return;
+  }
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  z = __uint_as_float((0xffffffffu - hi) | (lo << 31));
+  tid = (int)(lo >> 1);
+}
+
+// The items of tile g = f * NT + t of the stacked bins: its chunks, as
+// tile_chunks counts them, in items of lc if there are more than tc; 0
+// where the tile is not split.
+__device__ __forceinline__ int tile_slices(const Bins& B0, int g, int tc,
+                                           int lc) {
+  const int f = g / B0.n_tiles;
+  const int t = g - f * B0.n_tiles;
+  const int* off = B0.tile_off + (size_t)f * (B0.n_tiles + 1);
+  const int chunks = (off[t + 1] - off[t] + B0.big_n[f] + kChunk - 1) / kChunk;
+  return chunks > tc ? (chunks + lc - 1) / lc : 0;
+}
+
+// The split kernel's first step, in every block: take shares of kTileThreads
+// tiles (all frames) until none is left, queue each split tile's items
+// (tile f * NT + t, slice, rank, slices) and count the share; then wait
+// until every share is scanned. A block only waits on shares that running
+// blocks took, so no block waits on one that has not started. Past the
+// wrapper's bounds it traps.
+__device__ __forceinline__ void split_schedule(const Bins& B0, int frames,
+                                               const Split& X) {
+  __shared__ int s_share;
+  const int total = B0.n_tiles * frames;
+  const int shares = (total + kTileThreads - 1) / kTileThreads;
+  int4* items = split_items(X);
+  for (;;) {
+    if (threadIdx.x == 0) s_share = atomicAdd(X.head + kHeadShare, 1);
+    __syncthreads();
+    const int sh = s_share;
+    __syncthreads();
+    if (sh >= shares) break;
+    const int g = sh * kTileThreads + threadIdx.x;
+    const int n = g < total ? tile_slices(B0, g, X.tc, X.lc) : 0;
+    if (n > 0) {
+      const int pos = atomicAdd(X.head + kHeadItems, n);
+      const int rank = atomicAdd(X.head + kHeadRanks, 1);
+      if (pos + n > X.max_items || rank >= X.max_ranks) __trap();
+      for (int k = 0; k < n; ++k) items[pos + k] = make_int4(g, k, rank, n);
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(X.head + kHeadScanned, 1);
+  }
+  if (threadIdx.x == 0) {
+    while (atomicAdd(X.head + kHeadScanned, 0) < shares) __nanosleep(100);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// f(px, py, p) on each pixel of tile T inside the image (p = row * tile_w
+// + column), with walk_tile's lanes.
+template <class F>
+__device__ __forceinline__ void for_tile_pixels(const Bins& B,
+                                                const TileRef& T, int width,
+                                                int height, F&& f) {
+  const int segs_per_row = (B.tile_w + kSegW - 1) / kSegW;
+  const int n_segs = B.tile_h * segs_per_row;
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < n_segs; g += kTileWarps) {
+    const int row = g / segs_per_row;
+    const int col = (g - row * segs_per_row) * kSegW + lane;
+    const int py = T.y0 + row;
+#pragma unroll
+    for (int j = 0; j < kPixPerLane; ++j) {
+      const int cx = col + 32 * j;
+      const int px = T.x0 + cx;
+      if (cx < B.tile_w && px < width && py < height) {
+        f(px, py, row * B.tile_w + cx);
+      }
+    }
+  }
+}
+
+// A split kernel block: the schedule, then items until none is left; walks
+// its slice, merges the winners into the tile's keys, and, as the tile's
+// last item, runs frame f's fragment stage make_frag(f)(zb, wb, px, py) on
+// the merged winners. The last block to finish resets the counters.
+template <int NS, class MakeFrag>
+__device__ __forceinline__ void split_worker(const Bins& B0, const Samples& S,
+                                             float clear_depth, int width,
+                                             int height, int frames,
+                                             const Split& X, TileStage& st,
+                                             MakeFrag&& make_frag) {
+  __shared__ int s_item, s_last;
+  launch_dependents();                       // the tile kernel may start
+  split_schedule(B0, frames, X);
+  const int n_items = __ldcg(X.head + kHeadItems);
+  const int4* items = split_items(X);
+  const int P = B0.tile_w * B0.tile_h;
+  for (;;) {
+    if (threadIdx.x == 0) s_item = atomicAdd(X.head + kHeadNext, 1);
+    __syncthreads();
+    const int i = s_item;
+    __syncthreads();
+    if (i >= n_items) break;
+    const int4 it = __ldcg(items + i);
+    const int f = it.x / B0.n_tiles;
+    const Bins B = frame_bins(B0, f);
+    const TileRef T = tile_ref(B, it.x - f * B0.n_tiles);
+    const int c0 = it.y * X.lc;
+    unsigned long long* __restrict__ K = X.keys + (size_t)it.z * NS * P;
+    walk_tile<NS>(B, S, clear_depth, width, height, T, c0,
+                  min(c0 + X.lc, tile_chunks(T)), st,
+                  [&](const float (&zb)[NS], const int (&wb)[NS], int px,
+                      int py) {
+                    const int p = (py - T.y0) * B.tile_w + (px - T.x0);
+#pragma unroll
+                    for (int s = 0; s < NS; ++s) {
+                      if (wb[s] >= 0) atomicMax(K + s * P + p,
+                                                split_key(zb[s], wb[s]));
+                    }
+                  });
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      s_last = atomicAdd(X.done + it.z, 1) == it.w - 1;
+      if (s_last) X.done[it.z] = 0;
+    }
+    __syncthreads();
+    if (s_last) {
+      __threadfence();
+      auto frag = make_frag(f);
+      for_tile_pixels(B, T, width, height, [&](int px, int py, int p) {
+        float zb[NS];
+        int wb[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          split_unkey(atomicExch(K + s * P + p, 0ull), clear_depth, zb[s],
+                      wb[s]);
+        }
+        frag(zb, wb, px, py);
+      });
+    }
+  }
+  if (threadIdx.x == 0 &&
+      atomicAdd(X.head + kHeadExited, 1) == (int)gridDim.x - 1) {
+    X.head[kHeadLastItems] = n_items;
+    for (int k = kHeadShare; k <= kHeadExited; ++k) X.head[k] = 0;
+  }
+}
+
+// A tile kernel block (t, 0, f): walks tile t of frame f unless the tile
+// is split (X.tc chunks; INT_MAX in a launch that splits none). In a split
+// launch the grid's last block waits, once done, for the split kernel: the
+// tile kernel then ends after it, so work after this launch finds every
+// tile's pixels written.
+template <int NS, class Frag>
+__device__ __forceinline__ void tile_block(const Bins& B0, const Samples& S,
+                                           float clear_depth, int width,
+                                           int height, const Split& X,
+                                           TileStage& st, Frag&& frag) {
+  const Bins B = frame_bins(B0, blockIdx.z);
+  const TileRef T = tile_ref(B, blockIdx.x);
+  const int n_chunks = tile_chunks(T);
+  if (n_chunks <= X.tc) {
+    walk_tile<NS>(B, S, clear_depth, width, height, T, 0, n_chunks, st,
+                  frag);
+  }
+  if (X.head != nullptr && threadIdx.x == 0 &&
+      blockIdx.x == gridDim.x - 1 && blockIdx.z == gridDim.z - 1) {
+    wait_for_dependency();
+  }
+}
+
+// K2/K6's fragment stage at pixel (px, py) of the frame whose tables SH
+// holds, stored at frame_o + py * width + px.
 template <int NS>
+__device__ __forceinline__ void store_fused(const int (&wb)[NS],
+                                            const Samples& S,
+                                            const Shading& SH,
+                                            size_t frame_o, int width,
+                                            int px, int py,
+                                            float4* __restrict__ rgba,
+                                            float* __restrict__ covf) {
+  float cf;
+  const float4 c = shade_fused<NS>(wb, S, SH, px, py, &cf);
+  const size_t o = frame_o + (size_t)py * width + px;
+  rgba[o] = c;
+  covf[o] = cf;
+}
+
+// K2/K6: the fused fragment stage on the tile walk, one block per binning
+// tile and frame; with WORKERS, the split kernel of the same launch.
+template <int NS, bool WORKERS>
 __global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
 render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
-                    int width, int height, float4* __restrict__ rgba,
-                    float* __restrict__ covf) {
+                    int width, int height, int frames,
+                    float4* __restrict__ rgba, float* __restrict__ covf,
+                    Split X) {
   __shared__ TileStage st;
-  const int fr = blockIdx.z;
-  const Shading SH = frame_shading(SH0, B0.n_tris, fr);
-  const size_t frame_o = (size_t)fr * width * height;
-  walk_tile<NS>(frame_bins(B0, fr), S, clear_depth, width, height, st,
-                [&](const float (&)[NS], const int (&wb)[NS], int px,
-                    int py) {
-                  float cf;
-                  const float4 c = shade_fused<NS>(wb, S, SH, px, py, &cf);
-                  const size_t o = frame_o + (size_t)py * width + px;
-                  rgba[o] = c;
-                  covf[o] = cf;
-                });
+  if constexpr (WORKERS) {
+    split_worker<NS>(B0, S, clear_depth, width, height, frames, X, st,
+                     [&](int fr) {
+      const Shading SH = frame_shading(SH0, B0.n_tris, fr);
+      const size_t frame_o = (size_t)fr * width * height;
+      return [=, &S](const float (&)[NS], const int (&wb)[NS], int px,
+                     int py) {
+        store_fused<NS>(wb, S, SH, frame_o, width, px, py, rgba, covf);
+      };
+    });
+  } else {
+    const int fr = blockIdx.z;
+    const Shading SH = frame_shading(SH0, B0.n_tris, fr);
+    const size_t frame_o = (size_t)fr * width * height;
+    tile_block<NS>(B0, S, clear_depth, width, height, X, st,
+                   [&](const float (&)[NS], const int (&wb)[NS], int px,
+                       int py) {
+                     store_fused<NS>(wb, S, SH, frame_o, width, px, py,
+                                     rgba, covf);
+                   });
+  }
+}
+
+// K3/K5's fragment stage at pixel (px, py) of frame fr, whose attribute
+// rows start at A0 and gout planes at G: the 16 gout rows and, where depth
+// is not null, the per-sample depth and winner.
+template <int NS>
+__device__ __forceinline__ void store_gbuffer(
+    const float (&zb)[NS], const int (&wb)[NS], const Samples& S,
+    const float* __restrict__ A0, float* __restrict__ G, int fr,
+    size_t plane, int width, int px, int py, float* __restrict__ depth,
+    int* __restrict__ winner) {
+  const size_t o = (size_t)py * width + px;
+  if (depth != nullptr) {
+    const size_t os = (size_t)fr * NS * plane + o;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      depth[s * plane + os] = zb[s];
+      winner[s * plane + os] = wb[s];
+    }
+  }
+  const Fragment f = first_covered<NS>(wb, S, px, py);
+  float v[kGoutRows - 1];
+#pragma unroll
+  for (int g = 0; g < kGoutRows - 1; ++g) v[g] = 0.0f;
+  if (f.cnt > 0) {
+    // The winner's 192-byte attribute row in 12 float4 loads (the wrapper
+    // checks the 16-byte alignment).
+    const float4* __restrict__ A4 =
+        reinterpret_cast<const float4*>(A0 + (size_t)f.tid * kAttr);
+    float a[kAttr];
+#pragma unroll
+    for (int q = 0; q < kAttr / 4; ++q) {
+      const float4 t = A4[q];
+      a[4 * q] = t.x;
+      a[4 * q + 1] = t.y;
+      a[4 * q + 2] = t.z;
+      a[4 * q + 3] = t.w;
+    }
+#pragma unroll
+    for (int g = 0; g < kGoutRows - 1; ++g) v[g] = attr_at(a, g, f.sx, f.sy);
+  }
+#pragma unroll
+  for (int g = 0; g < kGoutRows - 1; ++g) G[g * plane + o] = v[g];
+  G[(kGoutRows - 1) * plane + o] = (float)f.cnt;
 }
 
 // K3/K5: the per-pixel G-buffer (raster_pallas.rasterize_tiles with
 // attr_px=True, and rasterize_tiles_batch) on the tile walk, one block per
-// binning tile (blockIdx.x) and frame (blockIdx.z). gout rows 0-14 are the
-// first covered sample's winner's raw value/w planes (binning.py ROW_*) at
-// that sample's absolute position, row 15 the covered-sample count; an
-// uncovered pixel is all zeros, stored by the same instructions. The
-// per-sample depth and winner planes only when depth is not null.
-template <int NS>
+// binning tile and frame; with WORKERS, the split kernel of the same
+// launch. gout rows 0-14 are the first covered sample's winner's raw
+// value/w planes (binning.py ROW_*) at that sample's absolute position,
+// row 15 the covered-sample count; an uncovered pixel is all zeros, stored
+// by the same instructions. The per-sample depth and winner planes only
+// when depth is not null.
+template <int NS, bool WORKERS>
 __global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
 raster_gbuffer_kernel(Bins B0, Samples S, float clear_depth,
                       const float* __restrict__ attr, int width, int height,
-                      float* __restrict__ gout, float* __restrict__ depth,
-                      int* __restrict__ winner) {
+                      int frames, float* __restrict__ gout,
+                      float* __restrict__ depth, int* __restrict__ winner,
+                      Split X) {
   __shared__ TileStage st;
-  const int fr = blockIdx.z;
   const size_t plane = (size_t)width * height;
-  const float* __restrict__ A0 = attr + (size_t)fr * B0.n_tris * kAttr;
-  float* __restrict__ G = gout + (size_t)fr * kGoutRows * plane;
-  walk_tile<NS>(frame_bins(B0, fr), S, clear_depth, width, height, st,
-                [&](const float (&zb)[NS], const int (&wb)[NS], int px,
-                    int py) {
-                  const size_t o = (size_t)py * width + px;
-                  if (depth != nullptr) {
-                    const size_t os = (size_t)fr * NS * plane + o;
-#pragma unroll
-                    for (int s = 0; s < NS; ++s) {
-                      depth[s * plane + os] = zb[s];
-                      winner[s * plane + os] = wb[s];
-                    }
-                  }
-                  const Fragment f = first_covered<NS>(wb, S, px, py);
-                  float v[kGoutRows - 1];
-#pragma unroll
-                  for (int g = 0; g < kGoutRows - 1; ++g) v[g] = 0.0f;
-                  if (f.cnt > 0) {
-                    // The winner's 192-byte attribute row in 12 float4
-                    // loads (the wrapper checks the 16-byte alignment).
-                    const float4* __restrict__ A4 =
-                        reinterpret_cast<const float4*>(A0 + (size_t)f.tid *
-                                                                 kAttr);
-                    float a[kAttr];
-#pragma unroll
-                    for (int q = 0; q < kAttr / 4; ++q) {
-                      const float4 t = A4[q];
-                      a[4 * q] = t.x;
-                      a[4 * q + 1] = t.y;
-                      a[4 * q + 2] = t.z;
-                      a[4 * q + 3] = t.w;
-                    }
-#pragma unroll
-                    for (int g = 0; g < kGoutRows - 1; ++g) {
-                      v[g] = attr_at(a, g, f.sx, f.sy);
-                    }
-                  }
-#pragma unroll
-                  for (int g = 0; g < kGoutRows - 1; ++g) {
-                    G[g * plane + o] = v[g];
-                  }
-                  G[(kGoutRows - 1) * plane + o] = (float)f.cnt;
-                });
+  if constexpr (WORKERS) {
+    split_worker<NS>(B0, S, clear_depth, width, height, frames, X, st,
+                     [&](int fr) {
+      const float* A0 = attr + (size_t)fr * B0.n_tris * kAttr;
+      float* G = gout + (size_t)fr * kGoutRows * plane;
+      return [=, &S](const float (&zb)[NS], const int (&wb)[NS], int px,
+                     int py) {
+        store_gbuffer<NS>(zb, wb, S, A0, G, fr, plane, width, px, py, depth,
+                          winner);
+      };
+    });
+  } else {
+    const int fr = blockIdx.z;
+    const float* __restrict__ A0 = attr + (size_t)fr * B0.n_tris * kAttr;
+    float* __restrict__ G = gout + (size_t)fr * kGoutRows * plane;
+    tile_block<NS>(B0, S, clear_depth, width, height, X, st,
+                   [&](const float (&zb)[NS], const int (&wb)[NS], int px,
+                       int py) {
+                     store_gbuffer<NS>(zb, wb, S, A0, G, fr, plane, width,
+                                       px, py, depth, winner);
+                   });
+  }
 }
 
 // K1/K4 with one sample hold a small SegmentState, so their instance asks
@@ -813,7 +1124,9 @@ raster_depth_kernel(Bins B0, Samples S, float clear_depth, int width,
   const int fr = blockIdx.z;
   const size_t plane = (size_t)width * height;
   const size_t frame_o = (size_t)fr * NS * plane;
-  walk_tile<NS>(frame_bins(B0, fr), S, clear_depth, width, height, st,
+  const Bins B = frame_bins(B0, fr);
+  const TileRef T = tile_ref(B, blockIdx.x);
+  walk_tile<NS>(B, S, clear_depth, width, height, T, 0, tile_chunks(T), st,
                 [&](const float (&zb)[NS], const int (&wb)[NS], int px,
                     int py) {
                   const size_t o = frame_o + (size_t)py * width + px;
@@ -866,8 +1179,48 @@ int with_sample_count(int n, Launch&& launch) {
   }
 }
 
-// One block per binning tile and frame.
-dim3 tile_grid(const Bins& B, int frames) { return dim3(B.n_tiles, 1, frames); }
+// A K2/K3/K5/K6 launch: with split_workers > 0, the split kernel (that
+// many blocks), then the tile kernel as its dependent (programmatic
+// dependent launch: it starts as soon as every split block runs); with
+// none (no tile of these bins can exceed split_above chunks), the tile
+// kernel alone. The wrapper's bounds: max_items items, max_ranks split
+// tiles; split_head int[8 + 4 * max_items] (the counters, then the int4
+// items), split_keys u64[max_ranks, NS, tile_h * tile_w] and split_done
+// int[max_ranks], all zero.
+struct SplitArgs {
+  int above, chunks, max_items, max_ranks, workers;
+  void *head, *keys, *done;
+};
+
+template <class Workers, class Tiles, class... Args>
+int launch_tiles(Workers workers_kernel, Tiles tile_kernel, const Bins& B,
+                 int frames, const SplitArgs& A, cudaStream_t stream,
+                 Args... args) {
+  Split X{INT_MAX, 1, 0, 0, nullptr, nullptr, nullptr};
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  if (A.workers > 0) {
+    if (A.above < 1 || A.chunks < 1 || A.max_items < 1 || A.max_ranks < 1 ||
+        A.head == nullptr || A.keys == nullptr || A.done == nullptr)
+      return (int)cudaErrorInvalidValue;
+    X = Split{A.above,  A.chunks, A.max_items, A.max_ranks,
+              static_cast<int*>(A.head),
+              static_cast<unsigned long long*>(A.keys),
+              static_cast<int*>(A.done)};
+    cfg.gridDim = dim3(A.workers);
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, workers_kernel, args...,
+                                               X);
+    if (err != cudaSuccess) return (int)err;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  cfg.gridDim = dim3(B.n_tiles, 1, frames);
+  return (int)cudaLaunchKernelEx(&cfg, tile_kernel, args..., X);
+}
 
 }  // namespace
 
@@ -904,16 +1257,28 @@ extern "C" int mr_raster_depth(MR_BINS_PARAMS, int width, int height,
   });
 }
 
+// The split plan of a K2/K3/K5/K6 launch (launch_tiles).
+#define MR_SPLIT_PARAMS                                                    \
+  int split_above, int split_chunks, int split_max_items,                  \
+      int split_max_ranks, int split_workers, void *split_head,            \
+      void *split_keys, void *split_done
+#define MR_SPLIT_ARGS                                                      \
+  SplitArgs{split_above,     split_chunks, split_max_items,                \
+            split_max_ranks, split_workers, split_head,                    \
+            split_keys,      split_done}
+
 // depth/winner: nullptr unless the per-sample planes are wanted.
 extern "C" int mr_raster_gbuffer(MR_BINS_PARAMS, const float* attr, int width,
                                  int height, float* gout, float* depth,
-                                 int* winner, void* stream) {
+                                 int* winner, MR_SPLIT_PARAMS, void* stream) {
   MR_BINS_SETUP;
   return with_sample_count(n_samples, [&](auto ns) {
-    raster_gbuffer_kernel<decltype(ns)::value>
-        <<<tile_grid(B, frames), kTileThreads, 0, (cudaStream_t)stream>>>(
-            B, S, clear_depth, attr, width, height, gout, depth, winner);
-    return (int)cudaGetLastError();
+    constexpr int NS = decltype(ns)::value;
+    return launch_tiles(raster_gbuffer_kernel<NS, true>,
+                        raster_gbuffer_kernel<NS, false>, B, frames,
+                        MR_SPLIT_ARGS, (cudaStream_t)stream, B, S,
+                        clear_depth, attr, width, height, frames, gout,
+                        depth, winner);
   });
 }
 
@@ -935,14 +1300,16 @@ extern "C" int mr_raster_gbuffer_samples(MR_BINS_PARAMS, const float* attr,
 extern "C" int mr_render_fused(MR_BINS_PARAMS, const float* attr,
                                const float* uniforms, const float* shadow_map,
                                int tex_h, int tex_w, int width, int height,
-                               float* rgba, float* covf, void* stream) {
+                               float* rgba, float* covf, MR_SPLIT_PARAMS,
+                               void* stream) {
   MR_BINS_SETUP;
   const Shading SH{attr, uniforms, shadow_map, tex_h, tex_w};
   return with_sample_count(n_samples, [&](auto ns) {
-    render_fused_kernel<decltype(ns)::value>
-        <<<tile_grid(B, frames), kTileThreads, 0, (cudaStream_t)stream>>>(
-            B, S, clear_depth, SH, width, height,
-            reinterpret_cast<float4*>(rgba), covf);
-    return (int)cudaGetLastError();
+    constexpr int NS = decltype(ns)::value;
+    return launch_tiles(render_fused_kernel<NS, true>,
+                        render_fused_kernel<NS, false>, B, frames,
+                        MR_SPLIT_ARGS, (cudaStream_t)stream, B, S,
+                        clear_depth, SH, width, height, frames,
+                        reinterpret_cast<float4*>(rgba), covf);
   });
 }

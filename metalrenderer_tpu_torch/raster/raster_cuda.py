@@ -87,6 +87,24 @@ coalesced across the warp. K1 and K4 may split a tile's passes over
 several blocks (``_depth_parts``): the shadow pass's 1024^2 map has only
 128 tiles of 64x128.
 
+K2, K3, K5 and K6 also split a tile's candidates over blocks, so that no
+long list is walked by one block alone (a UV sphere's pole tile holds
+8,750 candidates at 3840x2160). A tile whose list and live big list hold
+more than ``TILE_SPLIT_ABOVE`` entries becomes items of
+``TILE_SPLIT_SLICE`` (L) in staging order; a small kernel builds the item
+list on the device, and worker blocks behind the one-block-a-tile grid
+walk one item each over every sample of the tile. Each item keeps its samples' winners from
+``(clear_depth, -1)``; since visibility is order-free, the tile's winner
+is their lexicographic minimum of ``(z, -tid)``, which the items merge
+with a 64-bit atomic maximum of a key that orders as that minimum and
+keeps the winner's own depth bits. The tile's last item runs the fragment
+stage on the merged winners. A shorter tile walks as before, in one block
+with no scratch and no atomic. The bounds of a launch come from the
+bins' shapes alone (``split_plan``); no list length reaches the host. The
+twin has the same split as an option (``split``, ``merge_order``), held
+bit-equal to its default walk by the CPU tests; the kernels are held
+against the default walk.
+
 The twins work on pieces of tile rows at a time, so they run at 1080p MSAA4
 on the card as well as on the CPU.
 """
@@ -120,6 +138,14 @@ MAX_SAMPLES = 4
 # Candidates the tile kernels (K2, K3, K5, K6) stage in shared memory per
 # pass (csrc/raster.cu kChunk); a tile with more is walked chunk by chunk.
 FUSED_STAGING_CHUNK = 256
+# K2, K3, K5 and K6 split a tile whose list and live big list hold more
+# than TILE_SPLIT_ABOVE entries into items of TILE_SPLIT_SLICE (L) that
+# blocks walk apart, merged per sample (csrc/raster.cu, the split walk);
+# both multiples of FUSED_STAGING_CHUNK. Measured on the H100 (PERF.md):
+# slices of one chunk finish the long tiles soonest; the threshold of two
+# bounds the merge scratch (split_plan) where a big list nears its cap.
+TILE_SPLIT_SLICE = 256
+TILE_SPLIT_ABOVE = 512
 # Samples evaluated per step of a twin (bounds its temporaries).
 _PLAIN_PIECE_SAMPLES = 1 << 21
 
@@ -200,9 +226,10 @@ def _tile_pixel_grid(bins: TileBins, sample_offsets, device):
     return xr, yr
 
 
-def _candidates(bins: TileBins, tiles):
-    """Candidate tids per tile: its list plus the AABB-gated live big list,
-    valid tids first, -1 padding. i64[n, L]."""
+def _staging_order(bins: TileBins, tiles):
+    """Each tile's candidates in the order the kernels stage them: its list,
+    then the live big list, -1 where an entry fails the big list's AABB gate
+    or past the tile's entries. i64[n, max list + live big list]."""
     dev = tiles.device
     off = bins.tile_offsets.to(torch.int64)
     beg = off[tiles]
@@ -224,21 +251,29 @@ def _candidates(bins: TileBins, tiles):
                                 rounding_mode="floor"), 0, bins.ntx - 1)
     gate = ov & (tx[:, None] >= sx0[None, :]) & (tx[:, None] <= sx1[None, :])
     cand_big = torch.where(gate, bins.big_ids[:nb].to(torch.int64)[None, :], -1)
-    cand = torch.cat([cand_list, cand_big], dim=1)
-    cand = torch.sort(cand, dim=1, descending=True).values
+    # A tile's big entries follow its own list: staging index n_list + k.
+    cand = torch.cat([cand_list, torch.full_like(cand_big, -1)], dim=1)
+    col = cnt[:, None] + torch.arange(nb, device=dev)[None, :]
+    return cand.scatter(1, col, cand_big)
+
+
+def _candidates(bins: TileBins, tiles):
+    """Candidate tids per tile: its list plus the AABB-gated live big list,
+    valid tids first, -1 padding. i64[n, L]."""
+    cand = torch.sort(_staging_order(bins, tiles), dim=1,
+                      descending=True).values
     return cand[:, :int((cand >= 0).sum(dim=1).max())]
 
 
-def _visibility_plain(bins: TileBins, tiles, xr, yr, clear_depth):
-    """Per-sample (depth, winner) for every pixel of ``tiles``: [n, S, P]."""
-    n = tiles.numel()
-    S, P = xr.shape
-    dev = xr.device
-    ox = ((tiles % bins.ntx) * bins.tile_w).to(torch.float32)
-    oy = ((tiles // bins.ntx) * bins.tile_h).to(torch.float32)
-    zb = torch.full((n, S, P), clear_depth, dtype=torch.float32, device=dev)
-    wb = torch.full((n, S, P), -1, dtype=torch.int64, device=dev)
-    cand = _candidates(bins, tiles)
+def _take(z, tid, zb, wb):
+    """take: (z, tid) wins over (zb, wb), the lexicographic order of
+    (z, -tid); ``z`` where a sample is not covered must not win."""
+    return (z < zb) | ((z == zb) & (tid > wb))
+
+
+def _walk(bins: TileBins, cand, ox, oy, xr, yr, zb, wb):
+    """Test candidates ``cand`` [n, l] (-1: none) on the tiles' samples,
+    updating per-sample (zb, wb) [n, S, P] with take."""
     for l in range(cand.shape[1]):
         tid = cand[:, l]
         present = tid >= 0
@@ -258,9 +293,49 @@ def _visibility_plain(bins: TileBins, tiles, xr, yr, clear_depth):
         z = plane(9)
         ok = ok & (z >= 0.0) & (z <= 1.0)
         tid3 = tid[:, None, None]
-        take = ok & ((z < zb) | ((z == zb) & (tid3 > wb)))
+        take = ok & _take(z, tid3, zb, wb)
         zb = torch.where(take, z, zb)
         wb = torch.where(take, tid3, wb)
+    return zb, wb
+
+
+def _visibility_plain(bins: TileBins, tiles, xr, yr, clear_depth,
+                      split=None, merge_order=None):
+    """Per-sample (depth, winner) for every pixel of ``tiles``: [n, S, P].
+
+    With ``split`` (L candidates), the kernels' split walk: each tile's
+    candidates in staging order (``_staging_order``) in slices of L, each
+    slice walked from (clear_depth, -1), the slices' winners then reduced
+    with take in ``merge_order(n_slices)`` (default: in order). Visibility
+    is order-free, so this equals the walk of all candidates at once."""
+    n = tiles.numel()
+    S, P = xr.shape
+    dev = xr.device
+    ox = ((tiles % bins.ntx) * bins.tile_w).to(torch.float32)
+    oy = ((tiles // bins.ntx) * bins.tile_h).to(torch.float32)
+
+    def clear():
+        return (torch.full((n, S, P), clear_depth, dtype=torch.float32,
+                           device=dev),
+                torch.full((n, S, P), -1, dtype=torch.int64, device=dev))
+
+    if split is None:
+        return _walk(bins, _candidates(bins, tiles), ox, oy, xr, yr, *clear())
+    cand = _staging_order(bins, tiles)
+    starts = range(0, max(cand.shape[1], 1), split)
+    order = range(len(starts)) if merge_order is None else \
+        merge_order(len(starts))
+    if sorted(order) != list(range(len(starts))):
+        raise ValueError(f"merge_order: not a permutation of {len(starts)} "
+                         "slices")
+    parts = [_walk(bins, cand[:, k:k + split], ox, oy, xr, yr, *clear())
+             for k in starts]
+    zb, wb = clear()
+    for k in order:
+        z, tid = parts[k]
+        take = _take(z, tid, zb, wb)
+        zb = torch.where(take, z, zb)
+        wb = torch.where(take, tid, wb)
     return zb, wb
 
 
@@ -373,9 +448,11 @@ def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
 
 
 def render_fused_plain(bins: TileBins, uniforms, shadow_map, width, height,
-                       sample_offsets, clear_depth=1.0):
+                       sample_offsets, clear_depth=1.0, split=None,
+                       merge_order=None):
     """Plain PyTorch twin of the ``render_fused`` kernel (same inputs, same
-    arithmetic). Returns (rgba f32[H,W,4], covered_frac f32[H,W])."""
+    arithmetic). Returns (rgba f32[H,W,4], covered_frac f32[H,W]).
+    ``split``, ``merge_order``: the split walk (``_visibility_plain``)."""
     dev = bins.vis.device
     S = len(sample_offsets)
     xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
@@ -383,7 +460,8 @@ def render_fused_plain(bins: TileBins, uniforms, shadow_map, width, height,
     rgba = torch.empty((4, hp, wp), dtype=torch.float32, device=dev)
     covf = torch.empty((hp, wp), dtype=torch.float32, device=dev)
     for tiles in _tile_pieces(bins, S, dev):
-        _, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth)
+        _, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth, split,
+                                  merge_order)
         c, f = _shade_pixels(bins, tiles, wb, sample_offsets, uniforms,
                              shadow_map)
         _place(c, bins, tiles, rgba)
@@ -393,10 +471,12 @@ def render_fused_plain(bins: TileBins, uniforms, shadow_map, width, height,
 
 
 def raster_gbuffer_plain(bins: TileBins, width, height, sample_offsets,
-                         clear_depth=1.0, with_samples=False):
+                         clear_depth=1.0, with_samples=False, split=None,
+                         merge_order=None):
     """Plain PyTorch twin of the ``raster_gbuffer`` kernel (same inputs, same
     arithmetic). Returns (gout f32[16,H,W], depth f32[S,H,W] or None,
-    winner i32[S,H,W] or None)."""
+    winner i32[S,H,W] or None). ``split``, ``merge_order``: the split walk
+    (``_visibility_plain``)."""
     dev = bins.vis.device
     S = len(sample_offsets)
     xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
@@ -406,7 +486,8 @@ def raster_gbuffer_plain(bins: TileBins, width, height, sample_offsets,
         depth = torch.empty((S, hp, wp), dtype=torch.float32, device=dev)
         winner = torch.empty((S, hp, wp), dtype=torch.int32, device=dev)
     for tiles in _tile_pieces(bins, S, dev):
-        zb, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth)
+        zb, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth, split,
+                                   merge_order)
         if with_samples:
             _place(zb, bins, tiles, depth)
             _place(wb.to(torch.int32), bins, tiles, winner)
@@ -561,6 +642,9 @@ _F = ctypes.c_float
 # tables, tile_w, tile_h, ntx, frames, T, L, cap
 _BINS_ARGS = [_P] * 6 + [_I] * 7
 _SAMPLE_ARGS = [_I] + [_F] * (2 * MAX_SAMPLES) + [_F]   # n, offsets, clear
+# threshold and item chunks, max items, max split tiles, workers; head,
+# keys, done
+_SPLIT_ARGS = [_I] * 5 + [_P] * 3
 
 
 @functools.cache
@@ -571,10 +655,11 @@ def _lib():
     lib.mr_raster_depth.restype = _I
     lib.mr_render_fused.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
                                     + [_P, _P, _P, _I, _I]
-                                    + [_I, _I, _P, _P, _P])
+                                    + [_I, _I, _P, _P] + _SPLIT_ARGS + [_P])
     lib.mr_render_fused.restype = _I
     lib.mr_raster_gbuffer.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
-                                      + [_P, _I, _I, _P, _P, _P, _P])
+                                      + [_P, _I, _I, _P, _P, _P]
+                                      + _SPLIT_ARGS + [_P])
     lib.mr_raster_gbuffer.restype = _I
     lib.mr_raster_gbuffer_samples.argtypes = (_BINS_ARGS + _SAMPLE_ARGS
                                               + [_P, _I, _I, _P, _P, _P, _P])
@@ -700,6 +785,133 @@ def raster_depth_batch(bins: TileBins, width, height, sample_offsets,
                          with_winner)
 
 
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """The bounds of a K2/K3/K5/K6 launch's split walk, from the bins'
+    shapes alone (no list length leaves the device): a tile of more than
+    ``above`` staging chunks is split into items of ``chunks``, at most
+    ``items`` items and ``tiles`` split tiles over all frames, taken by
+    ``workers`` worker blocks. None of them where no tile of such bins can
+    be split."""
+
+    above: int
+    chunks: int
+    items: int
+    tiles: int
+    workers: int
+
+
+def split_plan(bins: TileBins, frames=1):
+    """The ``SplitPlan`` of a launch on ``bins`` (``frames`` of them), or
+    None. A tile is split when its list and its live big list hold more
+    than A = TILE_SPLIT_ABOVE entries, into items of L = TILE_SPLIT_SLICE.
+    A frame's lists hold at most Lc entries together (``tile_tris``'
+    length) and its live big list at most cap (``big_ids``' length), so a
+    split tile holds at least A + 1 - cap list entries: a frame has at most
+    R = min(NT, Lc // (A + 1 - cap)) split tiles (NT where A < cap), whose
+    ceil((list + big) / L) items number at most
+    (Lc + R * (cap + L - 1)) // L."""
+    A, L = TILE_SPLIT_ABOVE, TILE_SPLIT_SLICE
+    for name, v in (("TILE_SPLIT_ABOVE", A), ("TILE_SPLIT_SLICE", L)):
+        if v <= 0 or v % FUSED_STAGING_CHUNK:
+            raise ValueError(f"{name} {v}: need a positive multiple of "
+                             f"{FUSED_STAGING_CHUNK}")
+    nt = bins.ntx * bins.nty
+    lc = bins.tile_tris.shape[-1]
+    cap = bins.big_ids.shape[-1]
+    need = A + 1 - cap
+    tiles = nt if need <= 0 else min(nt, lc // need)
+    if tiles == 0:
+        return None
+    items = min((lc + tiles * (cap + L - 1)) // L,
+                tiles * -(-(lc + cap) // L))
+    return SplitPlan(above=A // FUSED_STAGING_CHUNK,
+                     chunks=L // FUSED_STAGING_CHUNK, items=frames * items,
+                     tiles=frames * tiles,
+                     workers=min(frames * items, _split_workers(bins)))
+
+
+# Split kernel blocks per SM of the card: they take items until none is
+# left, beside the tile kernel's blocks.
+_SPLIT_WORKERS_PER_SM = 1
+
+
+def _split_workers(bins: TileBins):
+    """Blocks of a split kernel on ``bins``' card (1 on the CPU)."""
+    dev = bins.vis.device
+    if dev.type != "cuda":
+        return 1
+    return _SPLIT_WORKERS_PER_SM * _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The split walk's device scratch, per (device, stream): the merge keys
+# (u64 per split tile, sample and tile pixel), the per-tile counts and the
+# head's counters, all zero between launches (a tile's last item resets
+# its own keys and count, each kernel's last block its counters), and the
+# items after the counters, which every split launch writes anew.
+# Allocated zeroed by the wrapper and grown when a launch's plan needs
+# more; a launch allocates nothing.
+_SPLIT_SCRATCH = {}
+# The head's counters before its items (csrc/raster.cu kHeadInts), and
+# where the last split launch leaves its item count (kHeadLastItems).
+_HEAD_INTS = 8
+_HEAD_LAST_ITEMS = 7
+
+
+def _split_args(plan, bins: TileBins, n_samples, device, stream):
+    """The C arguments of a launch's split plan (``_SPLIT_ARGS``)."""
+    if plan is None:
+        return [0, 0, 0, 0, 0, None, None, None]
+    need = {"keys": plan.tiles * n_samples * bins.tile_w * bins.tile_h,
+            "done": plan.tiles, "head": _HEAD_INTS + 4 * plan.items}
+    key = (device, stream.value)
+    have = _SPLIT_SCRATCH.setdefault(key, {})
+    for k, n in need.items():
+        if k not in have or have[k].numel() < n:
+            have[k] = torch.zeros(n, dtype=torch.int64 if k == "keys"
+                                  else torch.int32, device=device)
+    return [plan.above, plan.chunks, plan.items, plan.tiles, plan.workers,
+            _build.ptr(have["head"]), _build.ptr(have["keys"]),
+            _build.ptr(have["done"])]
+
+
+def split_stats(bins: TileBins, n_samples):
+    """What the split walk does on ``bins`` (a frame or a ``stack_bins``
+    batch), counted on the host from the lists (it synchronises; the
+    wrappers never call it): split tiles, their items, the longest tile's
+    items, the merge keys those tiles use and what the plan allocates, in
+    bytes."""
+    frames = _frames(bins) if is_batch(bins) else 1
+    plan = split_plan(bins, frames)
+    off = bins.tile_offsets.reshape(frames, -1).to(torch.int64)
+    n = off[:, 1:] - off[:, :-1] + bins.big_n.reshape(frames, 1)
+    chunks = -(-n // FUSED_STAGING_CHUNK)
+    lc = TILE_SPLIT_SLICE // FUSED_STAGING_CHUNK
+    items = torch.where(chunks > TILE_SPLIT_ABOVE // FUSED_STAGING_CHUNK,
+                        -(-chunks // lc), 0)
+    tile_bytes = n_samples * bins.tile_w * bins.tile_h * 8
+    split = int((items > 0).sum())
+    return {"split_tiles": split, "items": int(items.sum()),
+            "max_items": int(items.max()), "merge_key_bytes":
+            split * tile_bytes,
+            "scratch_bytes": 0 if plan is None else
+            plan.tiles * (tile_bytes + 4) + (_HEAD_INTS + 4 * plan.items) * 4}
+
+
+def scheduled_items(device):
+    """The item count the last split launch on ``device``'s current stream
+    queued on the device (it synchronises), or None."""
+    have = _SPLIT_SCRATCH.get((torch.device(device), _build.stream(
+        device).value))
+    return None if have is None else int(have["head"][_HEAD_LAST_ITEMS])
+
+
 def _launch_gbuffer(name, bins, width, height, sample_offsets, clear_depth,
                     lead, with_samples=False):
     device = bins.vis.device
@@ -716,9 +928,12 @@ def _launch_gbuffer(name, bins, width, height, sample_offsets, clear_depth,
         shape = lead + (len(sample_offsets), height, width)
         depth = torch.empty(shape, dtype=torch.float32, device=device)
         winner = torch.empty(shape, dtype=torch.int32, device=device)
+    stream = _build.stream(device)
+    split = _split_args(split_plan(bins, lead[0] if lead else 1), bins,
+                        len(sample_offsets), device, stream)
     err = _lib().mr_raster_gbuffer(
         *args, _build.ptr(bins.attr), width, height, _build.ptr(gout),
-        _build.ptr(depth), _build.ptr(winner), _build.stream(device))
+        _build.ptr(depth), _build.ptr(winner), *split, stream)
     _build.raise_on(err, name)
     LAUNCHES[name] += 1
     return gout, depth, winner
@@ -802,10 +1017,13 @@ def _launch_fused(name, bins, uniforms, shadow_map, width, height,
                        device=device)
     covf = torch.empty(lead + (height, width), dtype=torch.float32,
                        device=device)
+    stream = _build.stream(device)
+    split = _split_args(split_plan(bins, lead[0] if lead else 1), bins,
+                        len(sample_offsets), device, stream)
     err = _lib().mr_render_fused(*args, _build.ptr(bins.attr),
                                  _build.ptr(uniforms), _build.ptr(shadow_map),
                                  tex_h, tex_w, width, height, _build.ptr(rgba),
-                                 _build.ptr(covf), _build.stream(device))
+                                 _build.ptr(covf), *split, stream)
     _build.raise_on(err, name)
     LAUNCHES[name] += 1
     return rgba, covf
