@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..passes.pipeline import resolve_device
+from ..utils.profiling import annotate
 
 FFT_SIZE = 1024            # AudioAnalyzer.hpp:58
 SPECTRUM_SIZE = FFT_SIZE // 2 + 1
@@ -228,7 +229,9 @@ def _analyze(state, rms, ch0, sample_rate, window):
     spectrum, windowed = compute_spectrum(ch0, window)
     pitch, conf = pitch_mpm(windowed, sample_rate)
     scalars = torch.stack([rms, *band_energies(spectrum, sample_rate)],
-                          dim=-1).cpu().numpy()             # the one copy out
+                          dim=-1)
+    with annotate("mr/track/sync"):
+        scalars = scalars.cpu().numpy()                     # the one copy out
     state, avg, smoothed = _carries(state, scalars[:, 0], scalars[:, 1:])
     back = torch.from_numpy(np.concatenate([avg[:, None], smoothed],
                                            axis=1)).to(dev)

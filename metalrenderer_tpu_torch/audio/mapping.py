@@ -28,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from .interpreter import MusicalContext
 
 REF_FREQ = 55.0                  # kRefFreq (mtl_engine.mm:719)
@@ -134,8 +135,9 @@ def map_audio_to_visual(state: VisualState, ctx: MusicalContext,
                       (one / 3.0).expand(3))
 
     raw = torch.minimum(one, (ctx.energy * 0.7 + ctx.brightness * 0.3) * 3.0)
-    env = _envelope(float(state.brightness_envelope),
-                    raw.reshape(-1).cpu().numpy())      # the one copy out
+    with annotate("mr/track/sync"):
+        raw_host = raw.reshape(-1).cpu().numpy()        # the one copy out
+    env = _envelope(float(state.brightness_envelope), raw_host)
     envelope = torch.from_numpy(env).to(dev).reshape(raw.shape)
     brightness = torch.clamp_min(envelope, BRIGHTNESS_FLOOR)
 

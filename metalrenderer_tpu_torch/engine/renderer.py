@@ -29,6 +29,7 @@ from ..passes.pipeline import (fused_batch_eligible, px_batch_eligible,
                                render_frame_batch_px, resolve_device)
 from ..scene.camera import PoseCamera
 from ..scene.lights import Lighting, PointLight
+from ..utils.profiling import annotate
 from . import audio_app
 
 
@@ -43,14 +44,15 @@ def audio_visual_track(samples, sample_rate,
     updateSharedTransformData mapping). Returns (analyzer_state,
     visual_state, VisualParams[batch], MusicalContext[batch]); the states
     carry a stream from one call to the next."""
-    a_state, results = analyzer.analyze_stream(samples, sample_rate,
-                                               analyzer_state, device)
-    ctxs = interpreter.interpret(results, sample_rate)
-    if visual_state is None:
-        visual_state = mapping.VisualState.init()
-    v_state, params = mapping.map_audio_to_visual(
-        visual_state, ctxs, results.rms, results.rolling_avg)
-    return a_state, v_state, params, ctxs
+    with annotate("mr/track"):
+        a_state, results = analyzer.analyze_stream(samples, sample_rate,
+                                                   analyzer_state, device)
+        ctxs = interpreter.interpret(results, sample_rate)
+        if visual_state is None:
+            visual_state = mapping.VisualState.init()
+        v_state, params = mapping.map_audio_to_visual(
+            visual_state, ctxs, results.rms, results.rolling_avg)
+        return a_state, v_state, params, ctxs
 
 
 def camera_path(key_poses, frames_per_segment=8):
@@ -132,8 +134,10 @@ class _SequenceRenderer:
         self.backend, self.device = backend, resolve_device(device)
 
     def scene_of(self, p: mapping.VisualParams):
-        return audio_app.build_scene(self.cube_position, self.light_position,
-                                     p.light_color, device=self.device)
+        with annotate("mr/scene"):
+            return audio_app.build_scene(self.cube_position,
+                                         self.light_position, p.light_color,
+                                         device=self.device)
 
     def lighting_of(self, p: mapping.VisualParams):
         return Lighting(
@@ -148,7 +152,8 @@ class _SequenceRenderer:
 
     def render(self, params: mapping.VisualParams, n, fused):
         """Frames 0..n-1 of ``params`` -> rgba f32[n, H, W, 4]."""
-        host = params.to("cpu")          # the one copy out: n x 5 floats
+        with annotate("mr/params/sync"):
+            host = params.to("cpu")      # the one copy out: n x 5 floats
         frames = [host.frame(i) for i in range(n)]
         if fused:
             # The serving shape: the whole sequence in two kernel launches

@@ -56,6 +56,7 @@ from ..raster.geometry import clip_near, guard_clip_xy, setup_triangles
 from ..scene import lights as lights_mod
 from ..scene.materials import BLINN_PHONG_SHADOW
 from ..scene.scene import Scene, bake, project
+from ..utils.profiling import annotate
 
 
 # The shadow pass bins with the JAX kernels' default span cap, whatever
@@ -211,74 +212,88 @@ def prepare_frame(scene: Scene, camera, lighting,
     soup from ``parallel.sharding.prune_to_band``) replaces the scene's
     geometry in the main pass only: the shadow pass always takes the whole
     scene, since a caster outside the camera's view still shadows it."""
-    device = resolve_device(device)
-    _check_supported(lighting, backend)
-    reference = backend == "reference"
-    scene = scene.to(device)
-    geom_full = bake(scene, displacement)
-    geom = geom_full if main_geom is None else main_geom
-    light = lighting.light
-    light_anchor = lights_mod.light_anchor_position(
-        light, shadow_target, shadow_config)
-    stats = {"num_triangles": torch.tensor(geom.num_triangles,
-                                           dtype=torch.int32, device=device)}
+    with annotate("mr/prep"):
+        device = resolve_device(device)
+        _check_supported(lighting, backend)
+        reference = backend == "reference"
+        scene = scene.to(device)
+        with annotate("mr/prep/bake"):
+            geom_full = bake(scene, displacement)
+        geom = geom_full if main_geom is None else main_geom
+        light = lighting.light
+        light_anchor = lights_mod.light_anchor_position(
+            light, shadow_target, shadow_config)
+        stats = {"num_triangles": torch.tensor(
+            geom.num_triangles, dtype=torch.int32, device=device)}
 
-    shadow_bins = shadow_setup = None
-    zero = torch.zeros((), dtype=torch.int32, device=device)
-    m = torch.zeros((4, 4), dtype=torch.float32)
-    if _wants_shadow(scene):
-        light_view = lights_mod.light_view_matrix(
-            light_anchor, torch.as_tensor(shadow_target, dtype=torch.float32))
-        light_proj = lights_mod.light_projection_matrix(shadow_config)
-        m = transforms.matmul(light_proj, light_view)
-        clip_l = project(geom_full.world, light_view, light_proj)
-        clip_l2, _, parent_l = clip_near(clip_l.reshape(-1, 3, 4))
-        size = config.shadow_map_size
-        setup_l = setup_triangles(clip_l2, size, size, cull_backfaces=False,
-                                  near_eps=config.near_eps)
-        # Only shadow casters contribute (the reference encodes only the
-        # cube into the shadow pass, mtl_engine.mm:785-787).
-        setup_l = setup_l.replace(valid=setup_l.valid & geom_full.cast_shadow[
-            parent_l.to(torch.int64)])
+        shadow_bins = shadow_setup = None
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        m = torch.zeros((4, 4), dtype=torch.float32)
+        if _wants_shadow(scene):
+            with annotate("mr/prep/shadow"):
+                light_view = lights_mod.light_view_matrix(
+                    light_anchor,
+                    torch.as_tensor(shadow_target, dtype=torch.float32))
+                light_proj = lights_mod.light_projection_matrix(
+                    shadow_config)
+                m = transforms.matmul(light_proj, light_view)
+                clip_l = project(geom_full.world, light_view, light_proj)
+                clip_l2, _, parent_l = clip_near(clip_l.reshape(-1, 3, 4))
+                size = config.shadow_map_size
+                setup_l = setup_triangles(clip_l2, size, size,
+                                          cull_backfaces=False,
+                                          near_eps=config.near_eps)
+                # Only shadow casters contribute (the reference encodes
+                # only the cube into the shadow pass,
+                # mtl_engine.mm:785-787).
+                setup_l = setup_l.replace(
+                    valid=setup_l.valid & geom_full.cast_shadow[
+                        parent_l.to(torch.int64)])
+            if reference:
+                shadow_setup = setup_l
+                stats["shadow_big_dropped"] = zero
+            else:
+                with annotate("mr/prep/shadow_bin"):
+                    shadow_bins = bin_triangles(
+                        setup_l, build_tri_fields(setup_l), size, size,
+                        config.shadow_tile_w, config.shadow_tile_h,
+                        span_cap=SHADOW_SPAN_CAP,
+                        big_capacity=config.big_capacity)
+                stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
+
+        with annotate("mr/prep/main"):
+            setup, pg, gstats = prepare_main_pass(
+                geom, camera.view_matrix(), camera.projection_matrix(),
+                config, with_stats=True)
+            stats["culled_triangles"] = (~setup.valid).sum().to(torch.int32)
+            stats.update(gstats)
+            stats["max_screen_coord"] = torch.amax(
+                torch.where(setup.valid[:, None, None],
+                            torch.abs(setup.screen),
+                            torch.zeros_like(setup.screen)))
+        main_bins = None
         if reference:
-            shadow_setup = setup_l
-            stats["shadow_big_dropped"] = zero
+            stats["big_dropped"] = zero
         else:
-            shadow_bins = bin_triangles(
-                setup_l, build_tri_fields(setup_l), size, size,
-                config.shadow_tile_w, config.shadow_tile_h,
-                span_cap=SHADOW_SPAN_CAP, big_capacity=config.big_capacity)
-            stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
-
-    setup, pg, gstats = prepare_main_pass(geom, camera.view_matrix(),
-                                          camera.projection_matrix(), config,
-                                          with_stats=True)
-    stats["culled_triangles"] = (~setup.valid).sum().to(torch.int32)
-    stats.update(gstats)
-    stats["max_screen_coord"] = torch.amax(
-        torch.where(setup.valid[:, None, None], torch.abs(setup.screen),
-                    torch.zeros_like(setup.screen)))
-    main_bins = None
-    if reference:
-        stats["big_dropped"] = zero
-    else:
-        main_bins = bin_triangles(
-            setup, build_tri_fields(setup), config.width, config.height,
-            config.tile_w, config.tile_h, span_cap=config.span_cap,
-            big_capacity=config.big_capacity,
-            attr_fields=build_attr_fields(setup, pg))
-        stats["big_dropped"] = main_bins.num_big_dropped
-    uniforms = _fused_uniforms(m, camera, light_anchor, light, lighting,
-                               config).to(device)
-    light_dir = None
-    if isinstance(light, lights_mod.DirectionalLight):
-        light_dir = torch.as_tensor(light.direction,
-                                    dtype=torch.float32).to(device)
-    return FramePrep(shadow_bins, main_bins, uniforms, light_dir,
-                     scene.textures,
-                     not reference and _fused_ok(scene, lighting, config),
-                     stats, backend, shadow_setup,
-                     *((setup, pg) if reference else (None, None)))
+            with annotate("mr/prep/main_bin"):
+                main_bins = bin_triangles(
+                    setup, build_tri_fields(setup), config.width,
+                    config.height, config.tile_w, config.tile_h,
+                    span_cap=config.span_cap,
+                    big_capacity=config.big_capacity,
+                    attr_fields=build_attr_fields(setup, pg))
+            stats["big_dropped"] = main_bins.num_big_dropped
+        uniforms = _fused_uniforms(m, camera, light_anchor, light, lighting,
+                                   config).to(device)
+        light_dir = None
+        if isinstance(light, lights_mod.DirectionalLight):
+            light_dir = torch.as_tensor(light.direction,
+                                        dtype=torch.float32).to(device)
+        return FramePrep(shadow_bins, main_bins, uniforms, light_dir,
+                         scene.textures,
+                         not reference and _fused_ok(scene, lighting, config),
+                         stats, backend, shadow_setup,
+                         *((setup, pg) if reference else (None, None)))
 
 
 def _shadow_pass(shadow_bins, config, stats):
@@ -288,17 +303,18 @@ def _shadow_pass(shadow_bins, config, stats):
     if shadow_bins is None:
         return None
     size = config.shadow_map_size
-    if raster_cuda.is_batch(shadow_bins):
-        depth, _ = raster_cuda.raster_depth_batch(
-            shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0,
-            with_winner=False)
-        shadow_map = depth[:, 0]
-    else:
-        depth, _ = raster_cuda.raster_depth(shadow_bins, size, size,
-                                            ((0.5, 0.5),), clear_depth=1.0,
-                                            with_winner=False)
-        shadow_map = depth[0]
-    stats["shadow_min_depth"] = torch.amin(shadow_map, dim=(-2, -1))
+    with annotate("mr/raster"):
+        if raster_cuda.is_batch(shadow_bins):
+            depth, _ = raster_cuda.raster_depth_batch(
+                shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0,
+                with_winner=False)
+            shadow_map = depth[:, 0]
+        else:
+            depth, _ = raster_cuda.raster_depth(
+                shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0,
+                with_winner=False)
+            shadow_map = depth[0]
+        stats["shadow_min_depth"] = torch.amin(shadow_map, dim=(-2, -1))
     return shadow_map
 
 
@@ -365,9 +381,10 @@ def _render_prepared(prep: FramePrep, config: RenderConfig):
     shadow_map = _shadow_pass(prep.shadow_bins, config, stats)
     samples = tuple(config.sample_positions)
     if prep.fused:
-        rgba, covf = raster_cuda.render_fused(
-            prep.main_bins, prep.uniforms, shadow_map, config.width,
-            config.height, samples, clear_depth=config.clear_depth)
+        with annotate("mr/raster"):
+            rgba, covf = raster_cuda.render_fused(
+                prep.main_bins, prep.uniforms, shadow_map, config.width,
+                config.height, samples, clear_depth=config.clear_depth)
         stats["covered_fraction"] = torch.mean(covf)
         return rgba, stats
     if _attr_px(config):
@@ -487,13 +504,14 @@ def _stack_preps(preps) -> BatchPrep:
     if any(b is None for b in shadow) and not all(b is None for b in shadow):
         raise ValueError("some frames of the batch have a shadow pass, "
                          "others not")
-    return BatchPrep(
-        shadow_bins=None if shadow[0] is None else
-        raster_cuda.stack_bins(shadow),
-        main_bins=raster_cuda.stack_bins([p.main_bins for p in preps]),
-        uniforms=torch.stack([p.uniforms for p in preps]),
-        light_dir=preps[0].light_dir, textures=preps[0].textures,
-        stats=_stack_stats([p.stats for p in preps]))
+    with annotate("mr/stack"):
+        return BatchPrep(
+            shadow_bins=None if shadow[0] is None else
+            raster_cuda.stack_bins(shadow),
+            main_bins=raster_cuda.stack_bins([p.main_bins for p in preps]),
+            uniforms=torch.stack([p.uniforms for p in preps]),
+            light_dir=preps[0].light_dir, textures=preps[0].textures,
+            stats=_stack_stats([p.stats for p in preps]))
 
 
 def _stack_stats(stats):
@@ -542,10 +560,11 @@ def render_frame_batch_fused(scene: Scene, camera, lighting,
     batch = _stack_preps(preps)
     stats = dict(batch.stats)
     shadow_maps = _shadow_pass(batch.shadow_bins, config, stats)
-    rgba, covf = raster_cuda.render_fused_batch(
-        batch.main_bins, batch.uniforms, shadow_maps, config.width,
-        config.height, tuple(config.sample_positions),
-        clear_depth=config.clear_depth)
+    with annotate("mr/raster"):
+        rgba, covf = raster_cuda.render_fused_batch(
+            batch.main_bins, batch.uniforms, shadow_maps, config.width,
+            config.height, tuple(config.sample_positions),
+            clear_depth=config.clear_depth)
     stats["covered_fraction"] = torch.mean(covf, dim=(1, 2))
     return rgba, stats
 

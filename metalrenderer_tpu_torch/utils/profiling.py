@@ -1,14 +1,23 @@
 """Profiling hooks (torch counterpart of
-``metalrenderer_tpu.utils.profiling``): a device trace, wall timing with
-device synchronization, and named spans."""
+``metalrenderer_tpu.utils.profiling``): a device trace and named spans.
+
+The frame path opens ``annotate`` spans named ``mr/...`` (the stages of
+``passes.pipeline.prepare_frame``, the audio track, the per-frame scene,
+the host reads of the track's parameters and the kernel launches). They
+are ``torch.profiler.record_function`` ranges in the same trace as the
+kernels, copies and runtime calls, and cost nothing but a flag test when
+no profiler is recording."""
 from __future__ import annotations
 
 import contextlib
 import pathlib
 import tempfile
-import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# The one context manager every span returns while no profiler records.
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -32,37 +41,10 @@ def device_trace(log_dir=None):
     prof.export_chrome_trace(str(prof.trace_path))
 
 
-def _sync(out):
-    """Wait for the device work behind ``out`` (a tensor, or a tuple, list
-    or dict of them) when any of it is on a GPU."""
-    stack = [out]
-    while stack:
-        x = stack.pop()
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-                return
-        elif isinstance(x, (tuple, list)):
-            stack.extend(x)
-        elif isinstance(x, dict):
-            stack.extend(x.values())
-
-
-def timed(fn, *args, iters=10, warmup=2, **kwargs):
-    """Wall-time ``fn(*args, **kwargs)`` over ``iters`` calls after
-    ``warmup`` calls, ending in a device synchronization when the output is
-    on a GPU. Returns (seconds_per_call, last_result)."""
-    out = None
-    for _ in range(warmup):
-        out = fn(*args, **kwargs)
-    _sync(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args, **kwargs)
-    _sync(out)
-    return (time.perf_counter() - t0) / iters, out
-
-
 def annotate(name):
-    """Named profiler span (shows up in the trace timeline)."""
-    return torch.profiler.record_function(name)
+    """Named profiler span (shows up in the trace timeline) while a
+    profiler records; otherwise a shared no-op context manager. ``name``
+    is a fixed string, so that every call of one span reads alike."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

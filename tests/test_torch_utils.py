@@ -264,10 +264,26 @@ def test_checkpoint_restores_onto_template_device_and_kinds(tmp_path):
 
 # --- profiling -------------------------------------------------------------
 
-def test_timed_returns_positive_seconds_and_result():
-    sec, out = profiling.timed(lambda x: torch.sum(x * 2.0),
-                               torch.ones(128, 128), iters=3, warmup=1)
-    assert sec > 0.0 and float(out) == 128 * 128 * 2.0
+def test_annotate_is_one_noop_while_no_profiler_records(tmp_path):
+    a, b = profiling.annotate("mr/a"), profiling.annotate("mr/b")
+    assert a is b
+    with profiling.device_trace(tmp_path / "trace") as prof:
+        with a:
+            torch.sum(torch.ones(64, 64) ** 2)
+    trace = json.loads(prof.trace_path.read_text())
+    assert "mr/a" not in {e.get("name") for e in trace["traceEvents"]}
+
+
+def test_annotate_records_its_span_while_a_profiler_records():
+    idle = profiling.annotate("mr/idle")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        span = profiling.annotate("mr/test")
+        with span:
+            torch.sum(torch.ones(64, 64) ** 2)
+    assert span is not idle
+    assert profiling.annotate("mr/after") is idle
+    assert "mr/test" in {e.name for e in prof.events()}
 
 
 def test_device_trace_writes_chrome_trace(tmp_path):
