@@ -210,6 +210,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
      from its unsharded frame likewise, tests/torch_band_witness.py), its
      PSNR (>= 40 dB) and the samples K3s covers otherwise than on the
      unsharded frame (<= BAND_FLIPS of them).
+ 25. the prep graph (pipeline.PREP_GRAPH, on the card the frame's prep
+     captured as a CUDA graph at its shape's second frame and replayed)
+     against the prep run op by op: the flagship frame, config 4 (the split
+     path) and config 5 (1M triangles, 3840x2160), each from an empty
+     cache and replayed at a second displacement and camera, and an
+     8-frame AudioApp batch through render_frame_batch_fused with eight
+     displacements and light colors: tables, stacked tables and frames
+     bit-equal; per case the prep's host ms, launch calls and device-busy
+     ms, op by op and graphed, the graph's device ms (its replays back to
+     back), the first frame's and the capture's ms, reserved memory (the
+     graph's pool) and peak; then a one-off render_frame of a new shape
+     and a session resized every frame through six sizes (frame ms,
+     captures).
 Then the run's seconds, one JSON line with each kernel's numbers (and a row
 for each of phase 21's cases, ``name<samples>@config``), the nvidia-smi
 line, and the result line {"ok": true, "device": {...}}.
@@ -2015,6 +2028,238 @@ def parallel_phase(dev, smi, path_launches):
     say("parallel", phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
+def prep_graph_phase(dev, smi):
+    """Phase 25: the prep graph (``pipeline.PREP_GRAPH``) against the prep
+    run op by op (``pipeline._prepare(..., graphed=False)``) on the card:
+    the flagship frame, config 4 (the split path) and config 5 (1M
+    triangles at 3840x2160), each from an empty cache (a shape's first
+    frame runs op by op, its second captures) and replayed at a second
+    displacement and camera, and an 8-frame AudioApp batch through
+    ``render_frame_batch_fused`` with eight displacements and light colors.
+    Every prep's tables, the batch's stacked tables and its frames are
+    bit-equal to the op-by-op prep's. Per case, op by op and graphed: the
+    prep's host ms (call to return, the device idle before; the graphed
+    prep as the render functions take it, uncopied), its launch calls and
+    device-busy ms under torch.profiler (the profiler's sum of device
+    event times); the graph's device ms (its replays back to back, CUDA
+    events; a frame's replays for the batch); the first frame's ms, the
+    capture's ms, the memory it reserved (the graph's pool with its static
+    inputs) and its peak. Then the costs the capture policy bounds: a
+    one-off ``render_frame`` of a new shape, and an interactive session
+    resized every frame through six sizes, three rounds (each frame's
+    ms, with its sync)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
+    from metalrenderer_tpu_torch.engine import audio_app, configs, session
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+    from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
+
+    def same(a, b):
+        ta, tb = pipeline._tables(a), pipeline._tables(b)
+        return len(ta) == len(tb) and all(
+            x.shape == y.shape and torch.equal(x.reshape(-1).view(
+                torch.int32), y.reshape(-1).view(torch.int32))
+            for x, y in zip(ta, tb))
+
+    def host_ms(fn, reps):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(ms)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def measure(eager, graphed, reps, replays):
+        e_prof = profile_frames(lambda _: eager(), [None] * 2)
+        g_prof = profile_frames(lambda _: graphed(), [None] * 2)
+        graph, = pipeline.PREP_GRAPH.graphs.values()
+
+        def replay():
+            for _ in range(replays):
+                graph.graph.replay()
+        return dict(
+            eager_host_ms=f"{host_ms(eager, reps):.4f}",
+            graph_host_ms=f"{host_ms(graphed, reps):.4f}",
+            eager_launch_calls=f"{e_prof['launch_calls']:.1f}",
+            graph_launch_calls=f"{g_prof['launch_calls']:.1f}",
+            eager_device_busy_ms=f"{e_prof['device_busy_ms']:.4f}",
+            graph_device_busy_ms=f"{g_prof['device_busy_ms']:.4f}",
+            graph_replay_ms=f"{cuda_ms(replay, reps):.4f}")
+
+    def fresh_capture(fn):
+        """fn() twice from an empty cache, the first op by op, the second
+        capturing: (the second's output, the first's ms, the second's ms,
+        reserved bytes the capture added, peak allocated bytes)."""
+        pipeline.PREP_GRAPH.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        c0 = pipeline.PREP_GRAPH.captures
+        _, first_ms = wall_ms(fn)
+        if pipeline.PREP_GRAPH.captures != c0:
+            fail("prep_graph: the first frame of a shape captured")
+        r0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = wall_ms(fn)
+        if pipeline.PREP_GRAPH.captures != c0 + 1:
+            fail("prep_graph: the second frame of a shape did not capture")
+        return (out, first_ms, ms, torch.cuda.memory_reserved() - r0,
+                torch.cuda.max_memory_allocated())
+
+    target = (0.0, 0.0, -1.0)
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=W / H)
+    cfg = RenderConfig(width=W, height=H, msaa=4, shadow_map_size=SHADOW)
+    light = Lighting(light=PointLight(), ambient_intensity=0.1,
+                     shininess=32.0)
+    cases = (
+        ("flagship", lambda: (audio_app.build_scene(device=dev), cam, light,
+                              cfg), target, (0.05, 0.3), 5),
+        ("config4", lambda: configs.config4_shadow_normal_map(
+            W, H, device=dev), (0.0, 0.0, 0.0), (0.0, 0.0), 5),
+        ("config5_4k", lambda: configs.config5_animated_high_poly(
+            target_tris=C5_TRIS, width=C5_W, height=C5_H, device=dev),
+         (0.0, 0.0, 0.0), (0.02, 0.04), 3))
+    for name, build, tg, (d0, d1), reps in cases:
+        sc, cm, lt, cf = build()
+        cams = (cm, dataclasses.replace(cm, theta=float(cm.theta) + 0.1))
+
+        def eager(d=d0, c=cams[0]):
+            return pipeline._prepare(sc, c, lt, cf, ShadowConfig(), d, tg,
+                                     "kernels", dev, None, graphed=False)
+
+        def graphed(d=d0, c=cams[0]):
+            with pipeline._handed_over():
+                return pipeline.prepare_frame(sc, c, lt, cf, displacement=d,
+                                              shadow_target=tg, device=dev)
+        g, first_ms, cap_ms, pool, peak = fresh_capture(graphed)
+        equal = [g.static and same(g, eager())]
+        r0 = pipeline.PREP_GRAPH.replays
+        equal.append(same(graphed(d1, cams[1]), eager(d1, cams[1])))
+        if pipeline.PREP_GRAPH.replays != r0 + 1:
+            fail(f"prep_graph: {name}'s third frame did not replay")
+        say("prep_graph", case=name, bit_equal=json.dumps(equal),
+            first_frame_ms=f"{first_ms:.1f}", capture_ms=f"{cap_ms:.1f}",
+            pool_reserved_bytes=pool, capture_peak_bytes=peak,
+            **measure(eager, graphed, reps, 1), card=repr(smi))
+        if not all(equal):
+            fail(f"prep_graph: {name}'s graphed prep differs from the "
+                 "op-by-op prep")
+        del g, sc, cm, lt, cf
+
+    # The AudioApp batch: 8 frames, 8 displacements and light colors.
+    colors = [(1.0, 1.0, 1.0), (1.0, 0.2, 0.1), (0.2, 1.0, 0.3),
+              (0.1, 0.3, 1.0), (0.9, 0.9, 0.1), (0.5, 0.5, 0.5),
+              (1.0, 0.6, 0.0), (0.3, 0.0, 0.8)]
+    scenes = [audio_app.build_scene(light_color=c, device=dev)
+              for c in colors]
+    lights = [Lighting(light=PointLight(color=c), ambient_intensity=0.1,
+                       shininess=32.0) for c in colors]
+    disps = [float(d) for d in np.linspace(0.0, 0.05, BATCH - 1)] + [5.0]
+    thetas = [2.5 + 0.02 * f for f in range(BATCH)]
+    cams = [dataclasses.replace(cam, theta=t) for t in thetas]
+
+    def batch():
+        return pipeline.render_frame_batch_fused(
+            scenes[0], cam, lights[0], cfg, ShadowConfig(), disps, thetas,
+            shadow_target=target, scene_fn=lambda f: scenes[f],
+            lighting_fn=lambda f: lights[f], frame_params=list(range(BATCH)),
+            device=dev)
+
+    def eager_preps():
+        return [pipeline._prepare(scenes[f], cams[f], lights[f], cfg,
+                                  ShadowConfig(), disps[f], target,
+                                  "kernels", dev, None, graphed=False)
+                for f in range(BATCH)]
+
+    def graphed_preps():
+        for f in range(BATCH):
+            with pipeline._handed_over():
+                yield pipeline.prepare_frame(
+                    scenes[f], cams[f], lights[f], cfg,
+                    displacement=disps[f], shadow_target=target, device=dev)
+
+    def graphed_stack():
+        return pipeline._stack_preps(graphed_preps(), BATCH)
+    pipeline.PREP_GRAPH.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = pipeline.PREP_GRAPH.captures
+    (rgba, _), batch_ms = wall_ms(batch)
+    pool, peak = (torch.cuda.memory_reserved() - r0,
+                  torch.cuda.max_memory_allocated())
+    if pipeline.PREP_GRAPH.captures != c0 + 1:
+        fail("prep_graph: the batch's frames did not capture one graph")
+    eagers = eager_preps()
+    frames_equal = all(
+        torch.equal(rgba[f], pipeline._render_prepared(eagers[f], cfg)[0])
+        for f in range(BATCH))
+    got, want = graphed_stack(), pipeline._stack_preps(eagers, BATCH)
+    tables_equal = torch.equal(got.uniforms, want.uniforms) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for b in ("shadow_bins", "main_bins") for k in pipeline._BIN_TABLES
+        for x, y in [(getattr(getattr(got, b), k),
+                      getattr(getattr(want, b), k))])
+    m = measure(lambda: pipeline._stack_preps(eager_preps(), BATCH),
+                graphed_stack, 5, BATCH)
+    say("prep_graph", case="audioapp_batch8", frames=BATCH,
+        frames_bit_equal=frames_equal, tables_bit_equal=tables_equal,
+        first_batch_ms=f"{batch_ms:.1f}", pool_reserved_bytes=pool,
+        capture_peak_bytes=peak, per="batch of 8 (prep and stack)", **m,
+        card=repr(smi))
+    if not (frames_equal and tables_equal):
+        fail("prep_graph: the graphed batch differs from the op-by-op preps")
+
+    # A one-off frame of a new shape: op by op, no capture.
+    pipeline.PREP_GRAPH.clear()
+    c0 = pipeline.PREP_GRAPH.captures
+    _, one_ms = wall_ms(lambda: pipeline.render_frame(
+        scenes[0], cam, lights[0], cfg, displacement=0.05,
+        shadow_target=target, device=dev))
+    one_captures = pipeline.PREP_GRAPH.captures - c0
+    pipeline.PREP_GRAPH.clear()
+    c0 = pipeline.PREP_GRAPH.captures
+    # A session resized every frame through six sizes, three rounds: the
+    # first round op by op, the second captures each size (freeing the
+    # two oldest graphs), the third replays four and runs two op by op.
+    sizes = [(W - 64 * k, H - 36 * k) for k in range(6)]
+    sess = session.InteractiveSession(
+        config=cfg, shadow_config=ShadowConfig(), device=dev)
+    rounds = []
+    for _ in range(3):
+        ms = []
+        for w, h in sizes:
+            sess.handle_event({"type": "resize", "width": w, "height": h})
+            _, t = wall_ms(sess.render_frame)
+            ms.append(round(t, 2))
+        rounds.append(ms)
+    say("prep_graph", case="one_off_and_resizes", one_off_frame_ms=(
+        f"{one_ms:.2f}"), one_off_captures=one_captures,
+        resize_round_ms=json.dumps(rounds),
+        session_captures=pipeline.PREP_GRAPH.captures - c0,
+        card=repr(smi))
+    if one_captures or pipeline.PREP_GRAPH.captures - c0 != len(sizes):
+        fail("prep_graph: the resized session did not capture each size "
+             "once")
+    pipeline.PREP_GRAPH.clear()
+
+
 def main():
     import torch
     start = time.perf_counter()
@@ -3294,6 +3539,9 @@ def main():
 
     # 24. multi-device rendering on one card ---------------------------------
     parallel_phase(dev, smi, path_launches)
+
+    # 25. the prep graph against the op-by-op prep ----------------------------
+    prep_graph_phase(dev, smi)
     say("time", seconds=f"{time.perf_counter() - start:.1f}", limit=900)
 
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),

@@ -30,7 +30,9 @@ mtl_engine.mm:767-770):
        sample, or supersampled with a box resolve.
 Everything between the kernels (vertex stage, clipping, triangle setup,
 binning, the split path's elementwise shading) is ordinary tensor code on
-the render device.
+the render device. On the card the frame's prep (``prepare_frame``: vertex
+stage to binning) runs as one CUDA graph per scene shape, captured at its
+second frame and replayed at every later one (``PREP_GRAPH``).
 
 The frame-batch API (``render_batch`` and the ``render_frame_batch_*``
 functions, as in the JAX package) runs the same frames through the batch
@@ -44,7 +46,11 @@ for the CPU; on a CUDA device the kernels run, on the CPU their plain twins.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import dataclasses
+import itertools
 
 import torch
 
@@ -55,7 +61,8 @@ from ..raster.binning import bin_triangles, build_attr_fields, build_tri_fields
 from ..raster.geometry import clip_near, guard_clip_xy, setup_triangles
 from ..scene import lights as lights_mod
 from ..scene.materials import BLINN_PHONG_SHADOW
-from ..scene.scene import Scene, bake, project
+from ..scene.mesh import Mesh
+from ..scene.scene import PackedGeometry, Scene, bake
 from ..utils.profiling import annotate
 
 
@@ -85,11 +92,11 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def prepare_main_pass(geom, view, proj, config: RenderConfig,
-                      with_stats=False):
-    """Project, near-clip, x/y guard-band clip (all with attribute
+def prepare_main_pass(geom, vp, config: RenderConfig, with_stats=False):
+    """Project (``vp``: the camera's P @ V, f32[4,4] on the geometry's
+    device), near-clip, x/y guard-band clip (all with attribute
     interpolation) and set up triangles for the camera pass."""
-    clip = project(geom.world, view, proj).reshape(-1, 3, 4)
+    clip = transforms.transform_points(vp, geom.world).reshape(-1, 3, 4)
     attrs = torch.cat([geom.world, geom.uvs, geom.normals],
                       dim=-1).reshape(-1, 3, 8)
     clip2, attrs2, parent = clip_near(clip, attrs)
@@ -196,6 +203,79 @@ class FramePrep:
     shadow_setup: object = None
     main_setup: object = None
     pass_geom: object = None
+    # The bins, uniforms and stats are a prep graph's outputs, which the
+    # next frame of its shape rewrites: only this module's render functions
+    # see such a prep (``_handed_over``).
+    static: bool = False
+
+
+def _copy_tables(prep: FramePrep) -> FramePrep:
+    """``prep`` reading a copy of its bins, uniforms and stats (one launch
+    on the card), which no replay rewrites."""
+    tables = _tables(prep)
+    copies = [torch.empty_like(t) for t in tables]
+    _copy_words(copies, tables)
+    return _with_tables(prep, copies)
+
+
+# The bins' tables in the order ``_tables`` lists them.
+_BIN_TABLES = ("vis", "attr", "tile_offsets", "tile_tris", "big_ids",
+               "big_aabb", "big_n", "num_big_dropped")
+
+
+def _tables(prep: FramePrep):
+    """The device tensors of a kernels prep that its kernels and stats read:
+    both passes' bins, the uniforms, the stats."""
+    out = []
+    for bins in (prep.shadow_bins, prep.main_bins):
+        if bins is not None:
+            out += [getattr(bins, k) for k in _BIN_TABLES
+                    if getattr(bins, k) is not None]
+    return out + [prep.uniforms, *prep.stats.values()]
+
+
+def _with_tables(prep: FramePrep, tables) -> FramePrep:
+    """``prep`` reading ``tables`` (in ``_tables``' order), no graph's."""
+    it = iter(tables)
+
+    def bins_of(bins):
+        return None if bins is None else dataclasses.replace(bins, **{
+            k: next(it) for k in _BIN_TABLES if getattr(bins, k) is not None})
+    shadow_bins = bins_of(prep.shadow_bins)
+    main_bins = bins_of(prep.main_bins)
+    uniforms = next(it)
+    return dataclasses.replace(
+        prep, shadow_bins=shadow_bins, main_bins=main_bins,
+        uniforms=uniforms, stats={k: next(it) for k in prep.stats},
+        static=False)
+
+
+def _copy_words(dst, src):
+    """Copy every tensor of ``src`` into its ``dst`` bit for bit, in one
+    launch on the card: both read as int32 words (a prep's tables all have
+    4- or 8-byte elements)."""
+    torch._foreach_copy_([d.reshape(-1).view(torch.int32) for d in dst],
+                         [s.reshape(-1).view(torch.int32) for s in src])
+
+
+def _host_side(scene, camera, lighting, config, shadow_config,
+               shadow_target):
+    """What the host forms for a frame's prep, on the CPU: (whether the
+    shadow pass runs, the light's P @ V (zeros without a shadow pass), the
+    camera's P @ V, the uniforms f32[FU_LEN])."""
+    light = lighting.light
+    light_anchor = lights_mod.light_anchor_position(
+        light, shadow_target, shadow_config)
+    shadow = _wants_shadow(scene)
+    m = torch.zeros((4, 4), dtype=torch.float32)
+    if shadow:
+        light_view = lights_mod.light_view_matrix(
+            light_anchor, torch.as_tensor(shadow_target, dtype=torch.float32))
+        m = transforms.matmul(
+            lights_mod.light_projection_matrix(shadow_config), light_view)
+    vp = transforms.matmul(camera.projection_matrix(), camera.view_matrix())
+    return shadow, m, vp, _fused_uniforms(m, camera, light_anchor, light,
+                                          lighting, config)
 
 
 def prepare_frame(scene: Scene, camera, lighting,
@@ -211,89 +291,362 @@ def prepare_frame(scene: Scene, camera, lighting,
     ``main_geom`` (a ``PackedGeometry`` on ``device``, e.g. a band's pruned
     soup from ``parallel.sharding.prune_to_band``) replaces the scene's
     geometry in the main pass only: the shadow pass always takes the whole
-    scene, since a caster outside the camera's view still shadows it."""
+    scene, since a caster outside the camera's view still shadows it.
+
+    On a CUDA device with the kernels backend the prep's device work is a
+    CUDA graph (``PREP_GRAPH``) from the second frame of its shape
+    (``prep_graph_key``) on: captured then, and replayed for every later
+    one, with the frame's displacement, matrices and uniforms sent up in
+    one upload and its geometry in one device copy. The tables returned
+    are then a copy of the graph's outputs (one launch), the caller's to
+    keep. Elsewhere (the CPU, the reference backend, a shape's first
+    frame) the prep runs op by op, with the same results."""
     with annotate("mr/prep"):
         device = resolve_device(device)
-        _check_supported(lighting, backend)
-        reference = backend == "reference"
-        scene = scene.to(device)
-        with annotate("mr/prep/bake"):
-            geom_full = bake(scene, displacement)
-        geom = geom_full if main_geom is None else main_geom
-        light = lighting.light
-        light_anchor = lights_mod.light_anchor_position(
-            light, shadow_target, shadow_config)
-        stats = {"num_triangles": torch.tensor(
-            geom.num_triangles, dtype=torch.int32, device=device)}
+        prep = _prepare(scene, camera, lighting, config, shadow_config,
+                        displacement, shadow_target, backend, device,
+                        main_geom, graphed=(device.type == "cuda"
+                                            and backend == "kernels"))
+        if prep.static and not _HAND_OVER.get():
+            prep = _copy_tables(prep)
+        return prep
 
-        shadow_bins = shadow_setup = None
-        zero = torch.zeros((), dtype=torch.int32, device=device)
-        m = torch.zeros((4, 4), dtype=torch.float32)
-        if _wants_shadow(scene):
-            with annotate("mr/prep/shadow"):
-                light_view = lights_mod.light_view_matrix(
-                    light_anchor,
-                    torch.as_tensor(shadow_target, dtype=torch.float32))
-                light_proj = lights_mod.light_projection_matrix(
-                    shadow_config)
-                m = transforms.matmul(light_proj, light_view)
-                clip_l = project(geom_full.world, light_view, light_proj)
-                clip_l2, _, parent_l = clip_near(clip_l.reshape(-1, 3, 4))
-                size = config.shadow_map_size
-                setup_l = setup_triangles(clip_l2, size, size,
-                                          cull_backfaces=False,
-                                          near_eps=config.near_eps)
-                # Only shadow casters contribute (the reference encodes
-                # only the cube into the shadow pass,
-                # mtl_engine.mm:785-787).
-                setup_l = setup_l.replace(
-                    valid=setup_l.valid & geom_full.cast_shadow[
-                        parent_l.to(torch.int64)])
-            if reference:
-                shadow_setup = setup_l
-                stats["shadow_big_dropped"] = zero
-            else:
-                with annotate("mr/prep/shadow_bin"):
-                    shadow_bins = bin_triangles(
-                        setup_l, build_tri_fields(setup_l), size, size,
-                        config.shadow_tile_w, config.shadow_tile_h,
-                        span_cap=SHADOW_SPAN_CAP,
-                        big_capacity=config.big_capacity)
-                stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
 
-        with annotate("mr/prep/main"):
-            setup, pg, gstats = prepare_main_pass(
-                geom, camera.view_matrix(), camera.projection_matrix(),
-                config, with_stats=True)
-            stats["culled_triangles"] = (~setup.valid).sum().to(torch.int32)
-            stats.update(gstats)
-            stats["max_screen_coord"] = torch.amax(
-                torch.where(setup.valid[:, None, None],
-                            torch.abs(setup.screen),
-                            torch.zeros_like(setup.screen)))
-        main_bins = None
+# Set while one of this module's render functions calls ``prepare_frame``:
+# each consumes or copies the prep before the next frame of its shape, so
+# ``prepare_frame`` hands it a prep graph's outputs uncopied.
+_HAND_OVER = contextvars.ContextVar("_HAND_OVER", default=False)
+
+
+@contextlib.contextmanager
+def _handed_over():
+    token = _HAND_OVER.set(True)
+    try:
+        yield
+    finally:
+        _HAND_OVER.reset(token)
+
+
+def _prepare(scene, camera, lighting, config, shadow_config, displacement,
+             shadow_target, backend, device, main_geom, graphed):
+    """``prepare_frame`` on a resolved ``device``, uncopied: through its
+    prep graph if ``graphed`` and the graph cache says so, else op by
+    op."""
+    _check_supported(lighting, backend)
+    scene = scene.to(device)
+    light = lighting.light
+    shadow, m, vp, uniforms = _host_side(scene, camera, lighting, config,
+                                         shadow_config, shadow_target)
+    n_tris = (scene if main_geom is None else main_geom).num_triangles
+    prep = None
+    if graphed:
+        prep = _graphed_prep(scene, displacement, vp, m, uniforms, shadow,
+                             config, device, main_geom, n_tris)
+    if prep is None:
+        prep = _prep_device(
+            scene, displacement, vp.to(device), m.to(device) if shadow
+            else None, uniforms.to(device), shadow, config,
+            backend == "reference", main_geom,
+            torch.tensor(n_tris, dtype=torch.int32, device=device))
+    light_dir = None
+    if isinstance(light, lights_mod.DirectionalLight):
+        light_dir = torch.as_tensor(light.direction,
+                                    dtype=torch.float32).to(device)
+    return dataclasses.replace(
+        prep, light_dir=light_dir, textures=scene.textures,
+        fused=backend != "reference" and _fused_ok(scene, lighting, config))
+
+
+def _prep_device(scene, displacement, vp, light_m, uniforms, shadow, config,
+                 reference, main_geom, n_tris) -> FramePrep:
+    """The prep's device work: bake, both passes' clipping and setup, the
+    binning (none for the reference backend) and the stats. ``displacement``:
+    a number or an f32[] on the device; ``vp``, ``light_m``: the camera's
+    and the light's P @ V, f32[4,4] on the device (``light_m`` None without
+    a shadow pass); ``uniforms`` f32[FU_LEN] and ``n_tris`` (the
+    ``num_triangles`` stat) on the device. It neither syncs nor uploads, so
+    a prep graph captures it whole. Returns the FramePrep without
+    ``light_dir``, ``textures`` and ``fused``."""
+    device = uniforms.device
+    zero = (torch.zeros((), dtype=torch.int32, device=device) if reference
+            else None)
+    with annotate("mr/prep/bake"):
+        geom_full = bake(scene, displacement)
+    geom = geom_full if main_geom is None else main_geom
+    stats = {"num_triangles": n_tris}
+
+    shadow_bins = shadow_setup = None
+    if shadow:
+        with annotate("mr/prep/shadow"):
+            clip_l = transforms.transform_points(light_m, geom_full.world)
+            clip_l2, _, parent_l = clip_near(clip_l.reshape(-1, 3, 4))
+            size = config.shadow_map_size
+            setup_l = setup_triangles(clip_l2, size, size,
+                                      cull_backfaces=False,
+                                      near_eps=config.near_eps)
+            # Only shadow casters contribute (the reference encodes only
+            # the cube into the shadow pass, mtl_engine.mm:785-787).
+            setup_l = setup_l.replace(
+                valid=setup_l.valid & geom_full.cast_shadow[
+                    parent_l.to(torch.int64)])
         if reference:
-            stats["big_dropped"] = zero
+            shadow_setup = setup_l
+            stats["shadow_big_dropped"] = zero
         else:
-            with annotate("mr/prep/main_bin"):
-                main_bins = bin_triangles(
-                    setup, build_tri_fields(setup), config.width,
-                    config.height, config.tile_w, config.tile_h,
-                    span_cap=config.span_cap,
-                    big_capacity=config.big_capacity,
-                    attr_fields=build_attr_fields(setup, pg))
-            stats["big_dropped"] = main_bins.num_big_dropped
-        uniforms = _fused_uniforms(m, camera, light_anchor, light, lighting,
-                                   config).to(device)
-        light_dir = None
-        if isinstance(light, lights_mod.DirectionalLight):
-            light_dir = torch.as_tensor(light.direction,
-                                        dtype=torch.float32).to(device)
-        return FramePrep(shadow_bins, main_bins, uniforms, light_dir,
-                         scene.textures,
-                         not reference and _fused_ok(scene, lighting, config),
-                         stats, backend, shadow_setup,
-                         *((setup, pg) if reference else (None, None)))
+            with annotate("mr/prep/shadow_bin"):
+                shadow_bins = bin_triangles(
+                    setup_l, build_tri_fields(setup_l), size, size,
+                    config.shadow_tile_w, config.shadow_tile_h,
+                    span_cap=SHADOW_SPAN_CAP,
+                    big_capacity=config.big_capacity)
+            stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
+
+    with annotate("mr/prep/main"):
+        setup, pg, gstats = prepare_main_pass(geom, vp, config,
+                                              with_stats=True)
+        stats["culled_triangles"] = (~setup.valid).sum().to(torch.int32)
+        stats.update(gstats)
+        stats["max_screen_coord"] = torch.amax(
+            torch.where(setup.valid[:, None, None],
+                        torch.abs(setup.screen),
+                        torch.zeros_like(setup.screen)))
+    main_bins = None
+    if reference:
+        stats["big_dropped"] = zero
+    else:
+        with annotate("mr/prep/main_bin"):
+            main_bins = bin_triangles(
+                setup, build_tri_fields(setup), config.width,
+                config.height, config.tile_w, config.tile_h,
+                span_cap=config.span_cap,
+                big_capacity=config.big_capacity,
+                attr_fields=build_attr_fields(setup, pg))
+        stats["big_dropped"] = main_bins.num_big_dropped
+    return FramePrep(shadow_bins, main_bins, uniforms, None, (), False,
+                     stats, "reference" if reference else "kernels",
+                     shadow_setup,
+                     *((setup, pg) if reference else (None, None)))
+
+
+# --------------------------------------------------------------------------
+# The prep graph
+# --------------------------------------------------------------------------
+#
+# Every shape in ``_prep_device`` follows from the scene's triangle counts,
+# the config and the tile grid, and no op in it syncs with the host, so on
+# the card it is captured once per shape as a CUDA graph and replayed: one
+# graph launch in place of ~930 kernel launches a frame. The graph reads
+# static inputs that each frame fills: the scene's tensors by one device
+# copy, and the displacement, both P @ V products (formed on the host as
+# the op-by-op prep forms them) and the uniforms by one upload from pinned
+# memory. Its outputs are the same tensors at every replay.
+
+# The RenderConfig fields the prep's device work reads (the rest reach it
+# through the uniforms, or not at all).
+_PREP_CONFIG_FIELDS = ("width", "height", "cull_backfaces", "near_eps",
+                       "xyclip_capacity", "guard_band_px", "shadow_map_size",
+                       "shadow_tile_w", "shadow_tile_h", "tile_w", "tile_h",
+                       "span_cap", "big_capacity")
+# A frame's upload: displacement, camera P @ V, light P @ V, uniforms.
+_UP_DISP, _UP_VP, _UP_LIGHT, _UP_UNIFORMS = 0, 1, 17, 33
+_UP_LEN = _UP_UNIFORMS + raster_cuda.FU_LEN
+
+
+def prep_graph_key(scene: Scene, config: RenderConfig, device,
+                   main_geom=None):
+    """What fixes a prep's shapes and control flow, so which prep graph a
+    frame replays: each instance's vertex and triangle counts, its
+    displacement and shadow flags and its material's kind and texture and
+    normal-map ids (the bake writes them per triangle), whether the shadow
+    pass runs, the config fields the prep reads, the device and
+    ``main_geom``'s vertex and triangle counts. Frames that differ in
+    displacement, camera, light or colors share a graph."""
+    instances = tuple(
+        (i.mesh.num_vertices, i.mesh.num_triangles, i.use_displacement,
+         i.cast_shadow, i.material.kind, i.material.texture_id,
+         i.material.normal_map_id) for i in scene.instances)
+    geom = (None if main_geom is None
+            else (main_geom.world.shape[0], main_geom.num_triangles))
+    return (str(torch.device(device)), instances, _wants_shadow(scene),
+            tuple(getattr(config, f) for f in _PREP_CONFIG_FIELDS), geom)
+
+
+def _geometry_tensors(scene: Scene, main_geom):
+    """The device tensors of a frame's geometry that its prep graph reads:
+    each instance's positions, uvs, normals, model matrix and material
+    color, then ``main_geom``'s fields."""
+    out = []
+    for inst in scene.instances:
+        out += [inst.mesh.positions, inst.mesh.uvs, inst.mesh.normals,
+                inst.model_matrix, inst.material.color]
+    if main_geom is not None:
+        out += [getattr(main_geom, f.name)
+                for f in dataclasses.fields(main_geom)]
+    return out
+
+
+def _with_geometry(scene: Scene, main_geom, tensors):
+    """(``scene`` without its textures, ``main_geom``) reading ``tensors``
+    (in ``_geometry_tensors``' order)."""
+    instances = []
+    for k, inst in enumerate(scene.instances):
+        pos, uvs, nrm, model, color = tensors[5 * k:5 * k + 5]
+        instances.append(dataclasses.replace(
+            inst, mesh=Mesh(pos, uvs, nrm), model_matrix=model,
+            material=dataclasses.replace(inst.material, color=color)))
+    rest = tensors[5 * len(instances):]
+    return (Scene(instances=tuple(instances)),
+            PackedGeometry(*rest) if main_geom is not None else None)
+
+
+def _upload(displacement, vp, light_m, uniforms):
+    """A frame's one upload, f32[_UP_LEN] on the host: the displacement
+    (taken as f32, as ``bake`` takes it), the camera's and the light's
+    P @ V, the uniforms."""
+    return torch.cat([torch.as_tensor(displacement, dtype=torch.float32)
+                      .reshape(1).cpu(), vp.reshape(-1), light_m.reshape(-1),
+                      uniforms])
+
+
+def _graph_body(scene, main_geom, upload, shadow, config, n_tris):
+    """``_prep_device`` as a prep graph runs it: on ``scene`` and
+    ``main_geom`` reading the static geometry and on the static ``upload``
+    (``_upload``'s layout, on the device)."""
+    return dataclasses.replace(_prep_device(
+        scene, upload[_UP_DISP], upload[_UP_VP:_UP_LIGHT].view(4, 4),
+        upload[_UP_LIGHT:_UP_UNIFORMS].view(4, 4) if shadow else None,
+        upload[_UP_UNIFORMS:], shadow, config, False, main_geom, n_tris),
+        static=True)
+
+
+class PrepGraph:
+    """One prep captured as a CUDA graph: its static inputs, the graph and
+    the ``FramePrep`` that every replay rewrites."""
+
+    def __init__(self, scene, shadow, config, device, main_geom, n_tris):
+        self.device, self.shadow, self.config = device, shadow, config
+        self.geometry = [torch.empty_like(t)
+                         for t in _geometry_tensors(scene, main_geom)]
+        self.scene, self.main_geom = _with_geometry(scene, main_geom,
+                                                    self.geometry)
+        self.upload = torch.empty(_UP_LEN, dtype=torch.float32,
+                                  device=device)
+        self.n_tris = torch.tensor(n_tris, dtype=torch.int32, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.prep = None
+
+    def fill(self, geometry, frame):
+        """Set the inputs: ``geometry`` (``_geometry_tensors``) copied on
+        the device, ``frame`` (``_upload``'s arguments) packed in pinned
+        memory and sent up in one asynchronous copy (PyTorch's pinned
+        memory cache keeps the block until the copy has run)."""
+        torch._foreach_copy_(self.geometry, geometry)
+        self.upload.copy_(_upload(*frame).pin_memory(), non_blocking=True)
+
+    def _run(self):
+        return _graph_body(self.scene, self.main_geom, self.upload,
+                           self.shadow, self.config, self.n_tris)
+
+    def capture(self):
+        """Run the prep on the filled inputs once op by op on a side stream
+        (PyTorch's warm-up before a capture), capture it, and replay it."""
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(self.graph):
+                self.prep = self._run()
+            self.graph.replay()
+
+
+class PrepGraphs:
+    """The prep graphs by ``prep_graph_key``, the least recently used
+    first, at most ``size`` (each graph's memory pool holds every
+    intermediate of its prep).
+
+    A shape is captured at its second frame (``due``); its first runs op
+    by op, so a one-off frame (a single render, a session's frame after a
+    resize) costs what it did before graphs, not a capture (tens of op-by-
+    op preps). A shape whose graph was freed runs op by op from then on,
+    so shapes taking turns beyond ``size`` never recapture in turn.
+    ``seen`` remembers the last ``remembered`` shapes without a graph;
+    ``captures`` and ``replays`` count the graphed frames."""
+
+    def __init__(self, size=4, remembered=64):
+        self.size, self.remembered = size, remembered
+        self.graphs = collections.OrderedDict()
+        # key -> frames run op by op, or None once its graph was freed.
+        self.seen = collections.OrderedDict()
+        self.captures = 0
+        self.replays = 0
+
+    def get(self, key):
+        graph = self.graphs.get(key)
+        if graph is not None:
+            self.graphs.move_to_end(key)
+        return graph
+
+    def due(self, key):
+        """Count a frame of ``key``, which has no graph: whether it
+        captures one (its second frame, if its graph was never freed)."""
+        frames = self.seen.pop(key, 0)
+        self.seen[key] = None if frames is None else frames + 1
+        while len(self.seen) > self.remembered:
+            self.seen.popitem(last=False)
+        return frames == 1
+
+    def add(self, key, make):
+        """Free the least recently used graphs beyond ``size - 1``, then
+        ``make()`` this key's graph and keep it."""
+        while len(self.graphs) >= self.size:
+            freed, _ = self.graphs.popitem(last=False)
+            self.seen.pop(freed, None)
+            self.seen[freed] = None
+        graph = self.graphs[key] = make()
+        self.captures += 1
+        return graph
+
+    def clear(self):
+        """Free every graph and forget every shape."""
+        self.graphs.clear()
+        self.seen.clear()
+
+
+# The process's prep graphs: every renderer of a process shares them, so a
+# stream's warm-up captures what its later frames replay.
+PREP_GRAPH = PrepGraphs()
+
+
+def _graphed_prep(scene, displacement, vp, light_m, uniforms, shadow,
+                  config, device, main_geom, n_tris):
+    """The frame's prep through its prep graph (a ``static`` FramePrep),
+    captured first at the shape's second frame; None where the frame runs
+    op by op (``PrepGraphs.due``)."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = prep_graph_key(scene, config, device, main_geom)
+    graph = PREP_GRAPH.get(key)
+    if graph is None and not PREP_GRAPH.due(key):
+        return None
+    frame = (displacement, vp, light_m, uniforms)
+    geometry = _geometry_tensors(scene, main_geom)
+    if graph is None:
+        with annotate("mr/prep/capture"):
+            def make():
+                g = PrepGraph(scene, shadow, config, device, main_geom,
+                              n_tris)
+                g.fill(geometry, frame)
+                g.capture()
+                return g
+            graph = PREP_GRAPH.add(key, make)
+    else:
+        with annotate("mr/prep/replay"):
+            graph.fill(geometry, frame)
+            graph.graph.replay()
+        PREP_GRAPH.replays += 1
+    return graph.prep
 
 
 def _shadow_pass(shadow_bins, config, stats):
@@ -378,6 +731,11 @@ def _render_prepared(prep: FramePrep, config: RenderConfig):
     if prep.backend != "kernels":
         return _render_reference(prep, config)
     stats = dict(prep.stats)
+    if prep.static:
+        # The caller keeps the stats: copies, which no replay rewrites.
+        copies = [torch.empty_like(v) for v in stats.values()]
+        _copy_words(copies, list(stats.values()))
+        stats = dict(zip(stats, copies))
     shadow_map = _shadow_pass(prep.shadow_bins, config, stats)
     samples = tuple(config.sample_positions)
     if prep.fused:
@@ -413,9 +771,10 @@ def render_frame(scene: Scene, camera, lighting,
     stats dict of 0-d tensors, both on ``device``). ``backend``:
     ``"kernels"`` or ``"reference"`` (module docstring); ``main_geom``: as
     ``prepare_frame``'s."""
-    prep = prepare_frame(scene, camera, lighting, config, shadow_config,
-                         displacement, shadow_target, backend, device,
-                         main_geom)
+    with _handed_over():
+        prep = prepare_frame(scene, camera, lighting, config, shadow_config,
+                             displacement, shadow_target, backend, device,
+                             main_geom)
     return _render_prepared(prep, config)
 
 
@@ -499,19 +858,41 @@ def _check_batch_backend(backend):
                          "render_batch renders the reference frame by frame")
 
 
-def _stack_preps(preps) -> BatchPrep:
-    shadow = [p.shadow_bins for p in preps]
-    if any(b is None for b in shadow) and not all(b is None for b in shadow):
-        raise ValueError("some frames of the batch have a shadow pass, "
-                         "others not")
-    with annotate("mr/stack"):
-        return BatchPrep(
-            shadow_bins=None if shadow[0] is None else
-            raster_cuda.stack_bins(shadow),
-            main_bins=raster_cuda.stack_bins([p.main_bins for p in preps]),
-            uniforms=torch.stack([p.uniforms for p in preps]),
-            light_dir=preps[0].light_dir, textures=preps[0].textures,
-            stats=_stack_stats([p.stats for p in preps]))
+def _stack_preps(preps, frames) -> BatchPrep:
+    """Stack a batch's ``frames`` preps for the batch kernels (the tables
+    of ``raster_cuda.stack_bins``). ``preps``, an iterable, is consumed
+    here: each prep is copied into its frame's slot of the stacked tables
+    (one launch on the card) as it comes, so that a graphed prep is kept
+    before the next frame's replay rewrites it."""
+    preps = iter(preps)
+    first = next(preps)
+    slots = [torch.empty((frames, *t.shape), dtype=t.dtype, device=t.device)
+             for t in _tables(first)]
+    n = 0
+    for f, prep in enumerate(itertools.chain([first], preps)):
+        if (prep.shadow_bins is None) != (first.shadow_bins is None):
+            raise ValueError("some frames of the batch have a shadow pass, "
+                             "others not")
+        tables = _tables(prep)
+        if f >= frames or [t.shape for t in tables] != [
+                s.shape[1:] for s in slots]:
+            raise ValueError(f"frame {f} of a batch of {frames}: its "
+                             "tables do not fit the batch's")
+        with annotate("mr/stack"):
+            _copy_words([s[f] for s in slots], tables)
+        n = f + 1
+    if n != frames:
+        raise ValueError(f"{n} preps for a batch of {frames} frames")
+    stacked = _with_tables(first, slots)
+
+    def batch_bins(bins):
+        return None if bins is None else dataclasses.replace(
+            bins, big_n=bins.big_n.reshape(frames))
+    return BatchPrep(
+        shadow_bins=batch_bins(stacked.shadow_bins),
+        main_bins=batch_bins(stacked.main_bins), uniforms=stacked.uniforms,
+        light_dir=first.light_dir, textures=first.textures,
+        stats=stacked.stats)
 
 
 def _stack_stats(stats):
@@ -550,14 +931,18 @@ def render_frame_batch_fused(scene: Scene, camera, lighting,
     if len(params) != len(disps):
         raise ValueError(f"{len(params)} frame_params for {len(disps)} "
                          "frames")
-    preps = [prepare_frame(scene_fn(p) if scene_fn else scene, cam,
-                           lighting_fn(p) if lighting_fn else lighting,
-                           config, shadow_config, d, shadow_target, backend,
-                           device)
-             for d, cam, p in zip(disps, cams, params)]
-    if not all(p.fused for p in preps):
-        raise ValueError("scene_fn/lighting_fn left the fused branch")
-    batch = _stack_preps(preps)
+    def preps():
+        for d, cam, p in zip(disps, cams, params):
+            with _handed_over():
+                prep = prepare_frame(
+                    scene_fn(p) if scene_fn else scene, cam,
+                    lighting_fn(p) if lighting_fn else lighting, config,
+                    shadow_config, d, shadow_target, backend, device)
+            if not prep.fused:
+                raise ValueError("scene_fn/lighting_fn left the fused "
+                                 "branch")
+            yield prep
+    batch = _stack_preps(preps(), len(disps))
     stats = dict(batch.stats)
     shadow_maps = _shadow_pass(batch.shadow_bins, config, stats)
     with annotate("mr/raster"):
@@ -588,10 +973,15 @@ def render_frame_batch_px(scene: Scene, camera, lighting,
         raise ValueError("the px batch needs per-pixel shading on 8x128 "
                          "main-pass tiles")
     disps, cams = _batch_frames(camera, displacements, thetas, cameras)
-    batch = _stack_preps([
-        prepare_frame(scene, cam, lighting, config, shadow_config, d,
-                      shadow_target, backend, device)
-        for d, cam in zip(disps, cams)])
+
+    def preps():
+        for d, cam in zip(disps, cams):
+            with _handed_over():
+                prep = prepare_frame(scene, cam, lighting, config,
+                                     shadow_config, d, shadow_target,
+                                     backend, device)
+            yield prep
+    batch = _stack_preps(preps(), len(disps))
     stats = dict(batch.stats)
     shadow_maps = _shadow_pass(batch.shadow_bins, config, stats)
     samples = tuple(config.sample_positions)

@@ -116,8 +116,9 @@ def setup_triangles(clip, width, height, cull_backfaces=True,
 
 
 def _lambda_planes(setup: TriangleSetup):
-    """Barycentric planes: lambda_0 <- e12, lambda_1 <- e20, lambda_2 <- e01."""
-    return setup.edge[:, (1, 2, 0), :] * setup.inv_area[:, None, None]
+    """Barycentric planes: lambda_0 <- e12, lambda_1 <- e20, lambda_2 <- e01
+    (the edges rolled by one: no index tensor to bring up from the host)."""
+    return torch.roll(setup.edge, -1, dims=1) * setup.inv_area[:, None, None]
 
 
 def attribute_planes(setup: TriangleSetup, vertex_values):
@@ -196,8 +197,10 @@ def clip_near(clip, attrs=None):
     tri1 = torch.stack([t1v0, t1v1, t1v2], dim=1)        # [T,3,K]
     tri2 = torch.stack([t2v0, t2v1, t2v2], dim=1)
     out = torch.stack([tri1, tri2], dim=1).reshape(2 * T, 3, -1)
+    # Each parent twice, by expand: no output size for the host to compute
+    # (prepare_frame's graph capture forbids a host sync).
     parent = torch.arange(T, dtype=torch.int32,
-                          device=clip.device).repeat_interleave(2)
+                          device=clip.device)[:, None].expand(T, 2).reshape(-1)
     if attrs is None:
         return out[..., :4], None, parent
     return out[..., :4], out[..., 4:], parent
@@ -324,7 +327,7 @@ def guard_clip_xy(clip2, attrs2, parent, width, height, cap=64,
     data = data.clone()
     data[ids] = killed
 
-    parent_fan = parent[ids].repeat_interleave(V - 3)
+    parent_fan = parent[ids][:, None].expand(cap, V - 3).reshape(-1)
     data_out = torch.cat([data, fan], dim=0)
     parent_out = torch.cat([parent, parent_fan], dim=0)
     n_over = oversize.to(torch.int32).sum()

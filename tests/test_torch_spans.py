@@ -74,18 +74,19 @@ def test_stream_holds_every_span_of_the_frame_path(runs):
     for stage in PREP_STAGES:
         assert len(named[stage]) == N_FRAMES
     # One track a chunk, its two host reads inside it; one read of the
-    # track's parameters, one stack and two raster launches (K4, K6) a
-    # chunk; a scene a frame and one more a chunk (the batch's template).
+    # track's parameters and two raster launches (K4, K6) a chunk; a stack
+    # a frame (its copy into the batch's slot, after its prep); a scene a
+    # frame and one more a chunk (the batch's template).
     assert len(named["mr/track"]) == n_chunks
     assert len(named["mr/track/sync"]) == 2 * n_chunks
     for sync in named["mr/track/sync"]:
         assert any(_inside(sync, t) for t in named["mr/track"])
     assert len(named["mr/params/sync"]) == n_chunks
-    assert len(named["mr/stack"]) == n_chunks
+    assert len(named["mr/stack"]) == N_FRAMES
     assert len(named["mr/raster"]) == 2 * n_chunks
     # The first chunk also builds a scene to choose the branch.
     assert len(named["mr/scene"]) == N_FRAMES + n_chunks + 1
-    for s in named["mr/scene"] + named["mr/params/sync"]:
+    for s in named["mr/scene"] + named["mr/params/sync"] + named["mr/stack"]:
         assert not any(_inside(s, p) for p in named["mr/prep"])
 
 
