@@ -17,7 +17,7 @@ Phases (one line each; any failure exits non-zero and prints no result):
      timed in the shadow path's depth-only form, the winner-carrying form
      beside it;
   3. K2 render_fused against its plain twin on the flagship main pass
-     (1920x1080, 4x MSAA) and on seeded soups with attribute planes
+     (1920x1080, 4x MSAA) and on seeded soups with attribute tables
      (fused_soup_bins: tile lists, one tile's candidates outgrowing the
      kernel's staging chunk, a big list near its cap, z-fighting coplanar
      pairs) at 1920x1080 and at the ragged 1000x601 on 8x128 tiles, and at
@@ -223,6 +223,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
      graph's pool) and peak; then a one-off render_frame of a new shape
      and a session resized every frame through six sizes (frame ms,
      captures).
+ 26. BASELINE config 5 at full size (1M triangles, 3840x2160, one sample)
+     over a sweep of displacements (SWEEP_DISPLACEMENTS: the one at which
+     K2<1> and K6<1> once shaded a pixel ~448x too bright, and SWEEP_N
+     more over [0, 0.05]) through render_frame and render_batch (two
+     frames a call), every frame held against the reference backend's by
+     the benchmark's numbers: frame_mae (mean |rgba - reference|) within
+     SWEEP_FRAME_MAE and tile_mae (the largest such mean over an 8x8-pixel
+     tile) within SWEEP_TILE_MAE, the sphere cells' limits; the largest
+     reading of each path; first, at that displacement, pixel (1879, 378):
+     the winner's tid, its screen vertices, area and 1/w, the 1/w plane
+     evaluated there, the bounded weights' 1/w, and both frames' rgba.
 Then the run's seconds, one JSON line with each kernel's numbers (and a row
 for each of phase 21's cases, ``name<samples>@config``), the nvidia-smi
 line, and the result line {"ok": true, "device": {...}}.
@@ -275,8 +286,10 @@ tensor read once, each output written once) over 3.35 TB/s and its FP32
 operations over 67 TFLOP/s (the H100 SXM's published rates at 700 W). The
 raster kernels' operations are counted from this run's bins: 16 per
 (candidate triangle, sample) — four plane evaluations of two multiplies
-and two adds — plus 60 per covered pixel for the 15 attribute planes
-(K2, K3), 60 per covered sample (K3s, whose bytes are 64 per sample of
+and two adds — plus 105 per covered pixel for the 15 attributes (K2,
+K3: the winner's three edge values at 8 each, their sum, a division and
+three multiplies for the weights, then 5 a group), 105 per covered sample
+(K3s, whose bytes are 64 per sample of
 gout plus the per-sample depth and winner planes); the samplers' per
 sampled pixel: 18 (K7), 94 (K9). The samplers read u, v (and K9 its
 LOD) only where the mask is set, so their bytes count 8 (K7, K8) or 12
@@ -306,6 +319,9 @@ RASTER_SRC = "metalrenderer_tpu_torch/csrc/raster.cu"
 SAMPLE_SRC = "metalrenderer_tpu_torch/csrc/sample.cu"
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 FP32_OPS_PER_MS = 67e9        # 67 TFLOP/s outside the tensor cores
+# A covered pixel's (or sample's) 15 attributes: its winner's weights (3 x
+# 8 for the edge values, 2 adds, 1 division, 3 multiplies), 5 a group.
+ATTR_OPS = 3 * 8 + 2 + 1 + 3 + 15 * 5
 SS_RGBA_TOL = 2e-4            # card vs CPU frames of the per-sample branch
 # Phase 21, BASELINE configs 2, 3 and 5 at full size: 24 objects and 100k
 # triangles at CW x CH, 1M at C5_W x C5_H; served CFG_FRAMES (2, 3) and
@@ -314,6 +330,13 @@ C2_OBJECTS, C3_TRIS, C5_TRIS = 24, 100_000, 1_000_000
 CW, CH, C5_W, C5_H = 1920, 1080, 3840, 2160
 CFG_FRAMES, C5_FRAMES = 8, 4
 C5_CPU = (960, 540, 100_000)
+# Phase 26: config 5's sweep. The displacement of the sliver fault (K2<1>
+# and K6<1> evaluated a pole triangle's attribute planes at pixel (1879,
+# 378); ROADMAP C13), SWEEP_N more over [0, 0.05], and the sphere cells'
+# limits.
+SWEEP_FAULT, SWEEP_PIXEL = 0.040847379714250565, (1879, 378)
+SWEEP_N = 199
+SWEEP_FRAME_MAE, SWEEP_TILE_MAE, SWEEP_TILE = 5e-5, 0.025, 8
 # Phase 24: the share of an assembled frame's samples that its bands may
 # cover otherwise than the unsharded frame, by K3s's winners (rounding at
 # edges and cracks).
@@ -473,7 +496,7 @@ def bins_bytes(bins, with_attr):
 
 def raster_ops(bins, width, height, n_samples, covered_px=0):
     """FP32 operations the raster kernels need on these bins: 16 per
-    (candidate, sample) of every pixel, 60 per covered pixel."""
+    (candidate, sample) of every pixel, ATTR_OPS per covered pixel."""
     import torch
     tiles = torch.arange(bins.ntx * bins.nty, device=bins.vis.device)
     cand = candidate_counts(bins)
@@ -481,7 +504,8 @@ def raster_ops(bins, width, height, n_samples, covered_px=0):
     y0 = (tiles // bins.ntx) * bins.tile_h
     npx = (torch.clamp(width - x0, max=bins.tile_w)
            * torch.clamp(height - y0, max=bins.tile_h))
-    return 16 * n_samples * int((cand * npx).sum()) + 60 * int(covered_px)
+    return (16 * n_samples * int((cand * npx).sum())
+            + ATTR_OPS * int(covered_px))
 
 
 def bound(n_bytes, ops):
@@ -544,7 +568,7 @@ def soup_setup(n, size, seed, device):
 
 def fused_soup_bins(width, height, seed, device, crowd=400, small=1200,
                     big=240, tile_w=128, tile_h=8, big_extent=150.0):
-    """A seeded main-pass soup with attribute planes, binned for K2 on
+    """A seeded main-pass soup with attribute tables, binned for K2 on
     ``tile_w`` x ``tile_h`` tiles (span cap 8, big-list cap 256):
     ``crowd`` triangles of a few pixels inside the tile at the image's
     center, whose list outgrows one staging chunk; ``small`` such triangles
@@ -2260,6 +2284,131 @@ def prep_graph_phase(dev, smi):
     pipeline.PREP_GRAPH.clear()
 
 
+def frame_gaps(img, ref, tile=SWEEP_TILE):
+    """(frame_mae, tile_mae) of an rgba frame f32[H, W, 4] against the
+    reference's, as the benchmark's check computes them."""
+    import torch
+    d = torch.abs(img.float() - ref.float())
+    tiles = torch.nn.functional.avg_pool2d(
+        d.permute(2, 0, 1)[None], tile, ceil_mode=True).mean(dim=1)
+    return float(d.mean()), float(tiles.max())
+
+
+def sliver_probe(scene, cam, light, cfg, dev, smi):
+    """Phase 26's first line: at SWEEP_FAULT, pixel SWEEP_PIXEL's winner
+    (K1's winner plane on the frame's main bins), its screen vertices, area
+    and per-vertex 1/w (the reference backend's setup, the same triangles),
+    the 1/w plane evaluated at the sample as (a*sx + b*sy) + c, the 1/w
+    that the edge weights give (the edge values anchored on the pixel, at
+    least 0, normalized by their sum), and the pixel of both frames."""
+    import torch
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.raster import geometry, raster_cuda
+    px, py = SWEEP_PIXEL
+    samples = tuple(cfg.sample_positions)
+    kw = dict(displacement=SWEEP_FAULT, device=dev)
+    prep = pipeline.prepare_frame(scene, cam, light, cfg, **kw)
+    _, win = raster_cuda.raster_depth(prep.main_bins, cfg.width, cfg.height,
+                                      samples)
+    tid = int(win[0, py, px])
+    del prep, win
+    s = pipeline.prepare_frame(scene, cam, light, cfg, backend="reference",
+                               **kw).main_setup
+    fb, _ = pipeline.render_frame(scene, cam, light, cfg, **kw)
+    ref, _ = pipeline.render_frame(scene, cam, light, cfg,
+                                   backend="reference", **kw)
+    f32 = torch.float32
+    offx, offy = samples[0]
+    sx = torch.tensor(px, dtype=f32) + offx
+    sy = torch.tensor(py, dtype=f32) + offy
+    a, b, c = geometry.scalar_planes(s, s.inv_w)[tid].cpu()
+    plane = (a * sx + b * sy) + c
+    x, y = torch.tensor(px, dtype=f32), torch.tensor(py, dtype=f32)
+    edge = s.edge[tid].cpu()
+    e = [torch.clamp_min((edge[k, 0] * offx + edge[k, 1] * offy)
+                         + ((edge[k, 2] + edge[k, 0] * x) + edge[k, 1] * y),
+                         0.0) for k in range(3)]
+    lam = torch.stack([e[1], e[2], e[0]]) / ((e[1] + e[2]) + e[0])
+    iw = s.inv_w[tid].cpu()
+    bounded = (lam[0] * iw[0] + lam[1] * iw[1]) + lam[2] * iw[2]
+    scr = s.screen[tid].cpu()
+    say("sphere_sweep", probe=f"displacement {SWEEP_FAULT!r}",
+        pixel=f"({px}, {py})", tid=tid, valid=bool(s.valid[tid]),
+        screen=json.dumps([[float(v) for v in p] for p in scr]),
+        area_px2=float(1.0 / s.inv_area[tid]) if float(s.inv_area[tid]) > 0
+        else 0.0,
+        inv_w=json.dumps([float(v) for v in iw]),
+        invw_plane=json.dumps([float(a), float(b), float(c)]),
+        invw_by_plane=float(plane),
+        edges_at_sample=json.dumps([float(v) for v in e]),
+        weights=json.dumps([float(v) for v in lam]),
+        invw_by_weights=float(bounded),
+        rgba=json.dumps([float(v) for v in fb[py, px]]),
+        reference_rgba=json.dumps([float(v) for v in ref[py, px]]),
+        card=repr(smi))
+
+
+def sphere_sweep_phase(dev, smi, n=SWEEP_N):
+    """Phase 26: BASELINE config 5 at full size over SWEEP_FAULT and n
+    displacements spread over [0, 0.05], through ``render_frame`` and
+    ``render_batch`` (two frames a call), each frame held against the
+    reference backend's at the sphere cells' limits; prints the frames
+    beyond them, then the largest readings. Fails at the end if any frame
+    is beyond a limit."""
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch import render_batch
+    from metalrenderer_tpu_torch.engine import configs
+    from metalrenderer_tpu_torch.passes import pipeline
+    t_phase = time.perf_counter()
+    scene, cam, light, cfg = configs.config5_animated_high_poly(
+        target_tris=C5_TRIS, width=C5_W, height=C5_H, device=dev)
+    sliver_probe(scene, cam, light, cfg, dev, smi)
+    disps = [SWEEP_FAULT] + [float(d) for d in
+                             np.linspace(0.0, 0.05, n).astype(np.float32)]
+    worst = {p: {"frame_mae": (0.0, None), "tile_mae": (0.0, None)}
+             for p in ("render_frame", "render_batch")}
+    beyond, ref_ms = [], []
+    for k in range(0, len(disps), 2):
+        pair = disps[k:k + 2]
+        rgba, _ = render_batch(scene, cam, light, pair, config=cfg,
+                               device=dev)
+        for j, d in enumerate(pair):
+            fb, _ = pipeline.render_frame(scene, cam, light, cfg,
+                                          displacement=d, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, _ = pipeline.render_frame(scene, cam, light, cfg,
+                                           displacement=d,
+                                           backend="reference", device=dev)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            for path, img in (("render_frame", fb), ("render_batch",
+                                                      rgba[j])):
+                fm, tm = frame_gaps(img, ref)
+                for name, v in (("frame_mae", fm), ("tile_mae", tm)):
+                    if not v <= worst[path][name][0]:
+                        worst[path][name] = (v, d)
+                if not (fm <= SWEEP_FRAME_MAE and tm <= SWEEP_TILE_MAE):
+                    beyond.append((path, d))
+                    say("sphere_sweep", beyond=path, displacement=repr(d),
+                        frame_mae=fm, tile_mae=tm)
+            del fb, ref
+        del rgba
+    for path, w in worst.items():
+        say("sphere_sweep", path=path, frames=len(disps),
+            max_frame_mae=w["frame_mae"][0],
+            at=repr(w["frame_mae"][1]), max_tile_mae=w["tile_mae"][0],
+            tile_at=repr(w["tile_mae"][1]), frame_mae_limit=SWEEP_FRAME_MAE,
+            tile_mae_limit=SWEEP_TILE_MAE)
+    say("sphere_sweep", frames_beyond=len(beyond),
+        reference_ms=f"{statistics.median(ref_ms):.1f}",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+    if beyond:
+        fail(f"config 5: {len(beyond)} frames beyond the sphere cells' "
+             f"limits: {beyond}")
+
+
 def main():
     import torch
     start = time.perf_counter()
@@ -3542,6 +3691,9 @@ def main():
 
     # 25. the prep graph against the op-by-op prep ----------------------------
     prep_graph_phase(dev, smi)
+
+    # 26. config 5 over a sweep of displacements ------------------------------
+    sphere_sweep_phase(dev, smi)
     say("time", seconds=f"{time.perf_counter() - start:.1f}", limit=900)
 
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),

@@ -8,18 +8,18 @@
 //    stores the per-sample depth and, where the caller asks, the winner.
 // K2 render_fused_kernel replaces its fused-shade specialization (launched
 //    by raster_pallas.render_fused): 4x MSAA visibility, the first covered
-//    sample's attribute planes, Blinn-Phong/emissive shading, the exact
+//    sample's attributes, Blinn-Phong/emissive shading, the exact
 //    REPEAT-bilinear shadow test and the coverage resolve: the main pass.
 // K3 raster_gbuffer_kernel replaces its per-pixel G-buffer specialization
 //    (_make_kernel(with_attrs=True, attr_px=True), launched by
 //    rasterize_tiles): K2's tile walk and fragment selection with another
 //    fragment stage, which writes the first covered sample's raw attribute
-//    planes and the covered count instead of shading them: the split
+//    value/w and the covered count instead of shading them: the split
 //    path's main pass.
 // K3s raster_gbuffer_samples_kernel replaces its per-sample G-buffer
 //    specialization (_make_kernel(with_attrs=True, attr_px=False), launched
 //    by rasterize_tiles): the same visibility, then for every sample its own
-//    winner's raw attribute planes at that sample's position and the
+//    winner's raw attribute value/w at that sample and the
 //    sample's depth: supersampled shading, and main-pass tiles other than
 //    8x128.
 // K4, K5, K6 are the same three kernels over a frame batch, replacing the
@@ -61,7 +61,7 @@
 // sample count a template parameter; a candidate that plane_max shows
 // outside the warp's row, or outside one lane column group of 32 pixels,
 // is skipped there exactly (test_staged). The fragment stage (attribute
-// planes, IEEE division and sqrt, powf, the shadow lookup) runs once per
+// weights, IEEE division and sqrt, powf, the shadow lookup) runs once per
 // pixel and stores rgba (float4) and the covered fraction coalesced
 // across the warp; on the H100 it takes about half of the kernel's time
 // at the flagship frame (PERF.md). No tensor core or TMA fits: there is
@@ -112,6 +112,13 @@
 //   take = ok && (z < zb || (z == zb && tid > wb)).
 // Planes are evaluated on the binning tile's anchor grid with the Pallas
 // kernel's association, c' = (c + a*ox) + b*oy, then (a*xr + b*yr) + c'.
+// Attributes are not planes: the attr table holds each vertex's value/w,
+// and a fragment weights its winner's three vertices by its edge values
+// at the sample, normalized by their sum (sample_weights). A
+// plane of value/w evaluated at an absolute position cancels on a sliver
+// triangle, whose coefficients scale with 1/area, and its 1/w then
+// divides a near-zero: the dense sphere's pole fans read hundreds of times
+// too bright at x ~ 1900 (ROADMAP C13). The weights lie in [0, 1].
 // Built with -fmad=false and without fast math: every multiply and add
 // rounds on its own, divisions and sqrtf are IEEE, as in the torch twins.
 #include <cuda_runtime.h>
@@ -123,9 +130,8 @@ namespace {
 
 constexpr int kMaxSamples = 4;
 constexpr int kVis = 17;        // vis table row: 3 edges, z plane, tl x3, valid, tid
-constexpr int kAttr = 48;       // attr table row: A[16] | B[16] | C[16]
-constexpr int kAttrB = 16;
-constexpr int kAttrC = 32;
+constexpr int kAttr = 48;       // attr table row: V0[16] | V1[16] | V2[16]
+constexpr int kAttrV = 16;      // a vertex's 16 value/w groups
 constexpr int kGoutRows = 16;   // 15 attribute groups + covered count
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
@@ -312,19 +318,48 @@ __device__ float bilinear_repeat_unit(const float* __restrict__ tex, int h,
   return top * (1.0f - fy) + bot * fy;
 }
 
+// The weights of a triangle's three vertices at a sample it covers, at
+// offset (ox, oy) in pixel (px, py): its edge values there (vis row f),
+// anchored on the pixel, (a*ox + b*oy) + ((c + a*px) + b*py), each at
+// least 0 (the walk, anchored on the binning tile, found the sample
+// inside every edge; anchored on the pixel, rounding may put it a hair
+// outside), normalized by their sum. lambda_0 takes e12, lambda_1 e20, lambda_2 e01
+// (binning.py's edge order). Each weight lies in [0, 1] and they sum to 1
+// within rounding, however thin the triangle, so an attribute
+// interpolated with them stays within its three vertex values; anchored
+// on the pixel, they do not depend on the tile grid.
+struct Weights {
+  float l0, l1, l2;
+};
+
+__device__ __forceinline__ Weights sample_weights(const float* __restrict__ f,
+                                                  int px, int py, float ox,
+                                                  float oy) {
+  const float x = (float)px, y = (float)py;
+  const float e0 = max0(plane_at(f[0], f[1], f[2], x, y, ox, oy));
+  const float e1 = max0(plane_at(f[3], f[4], f[5], x, y, ox, oy));
+  const float e2 = max0(plane_at(f[6], f[7], f[8], x, y, ox, oy));
+  const float sum = __fadd_rn(__fadd_rn(e1, e2), e0);
+  const float r = 1.0f / (sum > 0.0f ? sum : 1.0f);
+  return Weights{__fmul_rn(e1, r), __fmul_rn(e2, r), __fmul_rn(e0, r)};
+}
+
+// Attribute group g's value/w at the weights' sample, from the row a of
+// per-vertex value/w: (l0*v0 + l1*v1) + l2*v2.
 __device__ __forceinline__ float attr_at(const float* __restrict__ a, int g,
-                                         float sx, float sy) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a[g], sx), __fmul_rn(a[kAttrB + g], sy)),
-                   a[kAttrC + g]);
+                                         const Weights& w) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(w.l0, a[g]),
+                             __fmul_rn(w.l1, a[kAttrV + g])),
+                   __fmul_rn(w.l2, a[2 * kAttrV + g]));
 }
 
 // K3s: the per-sample G-buffer (raster_pallas.rasterize_tiles with
 // with_attrs=True, attr_px=False), one frame. gout[s] rows 0-14 are sample
-// s's winner's raw value/w planes at the sample's absolute position, row 15
-// the sample's depth; an uncovered sample is zeros with clear_depth in row
-// 15. The Pallas kernel rewrites a sample's rows each time a chunk's
-// triangle takes it; the order-free walk knows the final winner, so every
-// plane is evaluated once.
+// s's winner's raw value/w at the sample (sample_weights), row 15 the
+// sample's depth; an uncovered sample is zeros with clear_depth in row 15.
+// The Pallas kernel rewrites a sample's rows each time a chunk's triangle
+// takes it; the order-free walk knows the final winner, so every row is
+// interpolated once.
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 raster_gbuffer_samples_kernel(Bins B, Samples S, float clear_depth,
                               const float* __restrict__ attr, int width,
@@ -346,11 +381,11 @@ raster_gbuffer_samples_kernel(Bins B, Samples S, float clear_depth,
       float* __restrict__ G = gout + (size_t)s * kGoutRows * plane + o;
       if (p.wb[s] >= 0) {
         const float* __restrict__ A = attr + (size_t)p.wb[s] * kAttr;
-        const float sx = __fadd_rn((float)px, S.ox[s]);
-        const float sy = __fadd_rn((float)py, S.oy[s]);
+        const Weights w = sample_weights(B.vis + (size_t)p.wb[s] * kVis, px,
+                                         py, S.ox[s], S.oy[s]);
 #pragma unroll
         for (int g = 0; g < kGoutRows - 1; ++g) {
-          G[g * plane] = attr_at(A, g, sx, sy);
+          G[g * plane] = attr_at(A, g, w);
         }
       } else {
 #pragma unroll
@@ -540,66 +575,65 @@ __device__ __forceinline__ void test_staged(const StagedTri* st, int n,
 }
 
 // The pixel's fragment: the first covered sample (in sample order), its
-// winner and absolute position, and the covered-sample count.
+// winner and offset, and the covered-sample count.
 struct Fragment {
   int cnt, tid;
-  float sx, sy;
+  float offx, offy;
 };
 
 template <int NS>
 __device__ __forceinline__ Fragment first_covered(const int (&wb)[NS],
-                                                  const Samples& S, int px,
-                                                  int py) {
+                                                  const Samples& S) {
   Fragment f{0, -1, 0.0f, 0.0f};
-  float offx = 0.0f, offy = 0.0f;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     if (wb[s] >= 0) {
       if (f.cnt == 0) {
         f.tid = wb[s];
-        offx = S.ox[s];
-        offy = S.oy[s];
+        f.offx = S.ox[s];
+        f.offy = S.oy[s];
       }
       ++f.cnt;
     }
   }
-  f.sx = __fadd_rn((float)px, offx);
-  f.sy = __fadd_rn((float)py, offy);
   return f;
 }
 
-// The fused fragment stage of pixel (px, py) from its per-sample winners:
-// the first covered sample's winner's attribute/w planes, Blinn-Phong or
-// emissive, the shadow test, the coverage resolve. Returns rgba; *cf_out
-// the covered fraction.
+// The fused fragment stage of pixel (px, py) from its per-sample winners
+// (vis: the frame's visibility table): the first covered sample's
+// winner's attributes, Blinn-Phong or emissive, the shadow test, the
+// coverage resolve. Returns rgba; *cf_out the covered fraction.
 template <int NS>
 __device__ __forceinline__ float4 shade_fused(const int (&wb)[NS],
                                               const Samples& S,
-                                              const Shading& SH, int px,
-                                              int py, float* cf_out) {
+                                              const Shading& SH,
+                                              const float* __restrict__ vis,
+                                              int px, int py,
+                                              float* cf_out) {
   const float* __restrict__ U = SH.uni;
-  const Fragment f = first_covered<NS>(wb, S, px, py);
+  const Fragment f = first_covered<NS>(wb, S);
   if (f.cnt == 0) {
     *cf_out = 0.0f;
     return make_float4(U[kFuClear], U[kFuClear + 1], U[kFuClear + 2],
                        U[kFuClear + 3]);
   }
 
-  // The winner's attribute/w planes at the absolute sample position.
-  const float sx = f.sx, sy = f.sy;
+  // The winner's attribute/w at the sample, then / the interpolated 1/w.
+  const Weights w =
+      sample_weights(vis + (size_t)f.tid * kVis, px, py, f.offx, f.offy);
   const float* __restrict__ A = SH.attr + (size_t)f.tid * kAttr;
-  const float invw = attr_at(A, kRowInvW, sx, sy);
+  const float invw = attr_at(A, kRowInvW, w);
   const float inv = 1.0f / (invw > 0.0f ? invw : 1.0f);
-  const float wx = attr_at(A, kRowWorld, sx, sy) * inv;
-  const float wy = attr_at(A, kRowWorld + 1, sx, sy) * inv;
-  const float wz = attr_at(A, kRowWorld + 2, sx, sy) * inv;
-  const float nx = attr_at(A, kRowNormal, sx, sy) * inv;
-  const float ny = attr_at(A, kRowNormal + 1, sx, sy) * inv;
-  const float nz = attr_at(A, kRowNormal + 2, sx, sy) * inv;
-  const float cr = attr_at(A, kRowColor, sx, sy) * inv;
-  const float cg = attr_at(A, kRowColor + 1, sx, sy) * inv;
-  const float cb = attr_at(A, kRowColor + 2, sx, sy) * inv;
-  const float kf = floorf(attr_at(A, kRowMatKind, sx, sy) * inv + 0.5f);
+  const float wx = attr_at(A, kRowWorld, w) * inv;
+  const float wy = attr_at(A, kRowWorld + 1, w) * inv;
+  const float wz = attr_at(A, kRowWorld + 2, w) * inv;
+  const float nx = attr_at(A, kRowNormal, w) * inv;
+  const float ny = attr_at(A, kRowNormal + 1, w) * inv;
+  const float nz = attr_at(A, kRowNormal + 2, w) * inv;
+  const float cr = attr_at(A, kRowColor, w) * inv;
+  const float cg = attr_at(A, kRowColor + 1, w) * inv;
+  const float cb = attr_at(A, kRowColor + 2, w) * inv;
+  const float kf = floorf(attr_at(A, kRowMatKind, w) * inv + 0.5f);
   const bool emissive = kf == kEmissive;
   const bool receives = kf == kBlinnPhongShadow;
 
@@ -972,17 +1006,17 @@ __device__ __forceinline__ void tile_block(const Bins& B0, const Samples& S,
 }
 
 // K2/K6's fragment stage at pixel (px, py) of the frame whose tables SH
-// holds, stored at frame_o + py * width + px.
+// and B hold, stored at frame_o + py * width + px.
 template <int NS>
 __device__ __forceinline__ void store_fused(const int (&wb)[NS],
                                             const Samples& S,
-                                            const Shading& SH,
+                                            const Shading& SH, const Bins& B,
                                             size_t frame_o, int width,
                                             int px, int py,
                                             float4* __restrict__ rgba,
                                             float* __restrict__ covf) {
   float cf;
-  const float4 c = shade_fused<NS>(wb, S, SH, px, py, &cf);
+  const float4 c = shade_fused<NS>(wb, S, SH, B.vis, px, py, &cf);
   const size_t o = frame_o + (size_t)py * width + px;
   rgba[o] = c;
   covf[o] = cf;
@@ -1001,34 +1035,36 @@ render_fused_kernel(Bins B0, Samples S, float clear_depth, Shading SH0,
     split_worker<NS>(B0, S, clear_depth, width, height, frames, X, st,
                      [&](int fr) {
       const Shading SH = frame_shading(SH0, B0.n_tris, fr);
+      const Bins B = frame_bins(B0, fr);
       const size_t frame_o = (size_t)fr * width * height;
       return [=, &S](const float (&)[NS], const int (&wb)[NS], int px,
                      int py) {
-        store_fused<NS>(wb, S, SH, frame_o, width, px, py, rgba, covf);
+        store_fused<NS>(wb, S, SH, B, frame_o, width, px, py, rgba, covf);
       };
     });
   } else {
     const int fr = blockIdx.z;
     const Shading SH = frame_shading(SH0, B0.n_tris, fr);
+    const Bins B = frame_bins(B0, fr);
     const size_t frame_o = (size_t)fr * width * height;
     tile_block<NS>(B0, S, clear_depth, width, height, X, st,
                    [&](const float (&)[NS], const int (&wb)[NS], int px,
                        int py) {
-                     store_fused<NS>(wb, S, SH, frame_o, width, px, py,
+                     store_fused<NS>(wb, S, SH, B, frame_o, width, px, py,
                                      rgba, covf);
                    });
   }
 }
 
-// K3/K5's fragment stage at pixel (px, py) of frame fr, whose attribute
-// rows start at A0 and gout planes at G: the 16 gout rows and, where depth
-// is not null, the per-sample depth and winner.
+// K3/K5's fragment stage at pixel (px, py) of frame fr, whose bins are B,
+// attribute rows start at A0 and gout planes at G: the 16 gout rows and,
+// where depth is not null, the per-sample depth and winner.
 template <int NS>
 __device__ __forceinline__ void store_gbuffer(
     const float (&zb)[NS], const int (&wb)[NS], const Samples& S,
-    const float* __restrict__ A0, float* __restrict__ G, int fr,
-    size_t plane, int width, int px, int py, float* __restrict__ depth,
-    int* __restrict__ winner) {
+    const Bins& B, const float* __restrict__ A0, float* __restrict__ G,
+    int fr, size_t plane, int width, int px, int py,
+    float* __restrict__ depth, int* __restrict__ winner) {
   const size_t o = (size_t)py * width + px;
   if (depth != nullptr) {
     const size_t os = (size_t)fr * NS * plane + o;
@@ -1038,7 +1074,7 @@ __device__ __forceinline__ void store_gbuffer(
       winner[s * plane + os] = wb[s];
     }
   }
-  const Fragment f = first_covered<NS>(wb, S, px, py);
+  const Fragment f = first_covered<NS>(wb, S);
   float v[kGoutRows - 1];
 #pragma unroll
   for (int g = 0; g < kGoutRows - 1; ++g) v[g] = 0.0f;
@@ -1056,8 +1092,10 @@ __device__ __forceinline__ void store_gbuffer(
       a[4 * q + 2] = t.z;
       a[4 * q + 3] = t.w;
     }
+    const Weights w = sample_weights(B.vis + (size_t)f.tid * kVis, px, py,
+                                     f.offx, f.offy);
 #pragma unroll
-    for (int g = 0; g < kGoutRows - 1; ++g) v[g] = attr_at(a, g, f.sx, f.sy);
+    for (int g = 0; g < kGoutRows - 1; ++g) v[g] = attr_at(a, g, w);
   }
 #pragma unroll
   for (int g = 0; g < kGoutRows - 1; ++g) G[g * plane + o] = v[g];
@@ -1084,22 +1122,24 @@ raster_gbuffer_kernel(Bins B0, Samples S, float clear_depth,
   if constexpr (WORKERS) {
     split_worker<NS>(B0, S, clear_depth, width, height, frames, X, st,
                      [&](int fr) {
+      const Bins B = frame_bins(B0, fr);
       const float* A0 = attr + (size_t)fr * B0.n_tris * kAttr;
       float* G = gout + (size_t)fr * kGoutRows * plane;
       return [=, &S](const float (&zb)[NS], const int (&wb)[NS], int px,
                      int py) {
-        store_gbuffer<NS>(zb, wb, S, A0, G, fr, plane, width, px, py, depth,
-                          winner);
+        store_gbuffer<NS>(zb, wb, S, B, A0, G, fr, plane, width, px, py,
+                          depth, winner);
       };
     });
   } else {
     const int fr = blockIdx.z;
+    const Bins B = frame_bins(B0, fr);
     const float* __restrict__ A0 = attr + (size_t)fr * B0.n_tris * kAttr;
     float* __restrict__ G = gout + (size_t)fr * kGoutRows * plane;
     tile_block<NS>(B0, S, clear_depth, width, height, X, st,
                    [&](const float (&zb)[NS], const int (&wb)[NS], int px,
                        int py) {
-                     store_gbuffer<NS>(zb, wb, S, A0, G, fr, plane, width,
+                     store_gbuffer<NS>(zb, wb, S, B, A0, G, fr, plane, width,
                                        px, py, depth, winner);
                    });
   }

@@ -191,7 +191,7 @@ class FramePrep:
     device."""
 
     shadow_bins: object      # TileBins of the shadow pass, or None
-    main_bins: object        # TileBins (with attribute planes) of the main pass
+    main_bins: object        # TileBins (with attribute tables) of the main pass
     uniforms: torch.Tensor   # f32[FU_LEN] shading uniforms (FU_* layout)
     light_dir: torch.Tensor  # f32[3] a directional light's direction, or None
     textures: tuple          # the scene's mip chains on the device
@@ -771,11 +771,12 @@ def render_frame(scene: Scene, camera, lighting,
     stats dict of 0-d tensors, both on ``device``). ``backend``:
     ``"kernels"`` or ``"reference"`` (module docstring); ``main_geom``: as
     ``prepare_frame``'s."""
-    with _handed_over():
-        prep = prepare_frame(scene, camera, lighting, config, shadow_config,
-                             displacement, shadow_target, backend, device,
-                             main_geom)
-    return _render_prepared(prep, config)
+    with annotate("mr/frame"):
+        with _handed_over():
+            prep = prepare_frame(scene, camera, lighting, config,
+                                 shadow_config, displacement, shadow_target,
+                                 backend, device, main_geom)
+        return _render_prepared(prep, config)
 
 
 def render(scene: Scene, camera, lighting,
@@ -1083,31 +1084,32 @@ def render_batch(scene: Scene, camera, lighting,
     the frame count, to bound device memory; the frames are the same
     either way. Returns (rgba f32[F, H, W, 4], stats with per-frame
     leaves)."""
-    if not (chunk in ("auto", None) or (isinstance(chunk, int)
-                                        and chunk > 0)):
-        raise ValueError(f"chunk: 'auto', None or a positive int, not "
-                         f"{chunk!r}")
-    F = torch.as_tensor(displacements).numel()
-    if cameras is None and not hasattr(camera, "theta"):
-        cameras = [camera] * F
-    if thetas is None and cameras is None:
-        thetas = [camera.theta] * F
-    cam = camera if cameras is None else None
-    fused = fused_batch_eligible(scene, lighting, config, cam)
-    if backend == "kernels" and (fused or px_batch_eligible(
-            scene, lighting, config, cam)):
-        kw = dict(shadow_target=shadow_target, cameras=cameras,
-                  backend=backend, device=device)
-        if isinstance(chunk, int) and F > chunk and F % chunk == 0:
-            return render_frame_batch_chunked(
-                scene, camera, lighting, config, shadow_config,
-                displacements, thetas, chunk, **kw)
-        fn = render_frame_batch_fused if fused else render_frame_batch_px
-        return fn(scene, camera, lighting, config, shadow_config,
-                  displacements, thetas, **kw)
-    disps, cams = _batch_frames(camera, displacements, thetas, cameras)
-    outs = [render_frame(scene, c, lighting, config, shadow_config, d,
-                         shadow_target, backend, device)
-            for d, c in zip(disps, cams)]
-    return (torch.stack([fb for fb, _ in outs]),
-            _stack_stats([st for _, st in outs]))
+    with annotate("mr/batch"):
+        if not (chunk in ("auto", None) or (isinstance(chunk, int)
+                                            and chunk > 0)):
+            raise ValueError(f"chunk: 'auto', None or a positive int, not "
+                             f"{chunk!r}")
+        F = torch.as_tensor(displacements).numel()
+        if cameras is None and not hasattr(camera, "theta"):
+            cameras = [camera] * F
+        if thetas is None and cameras is None:
+            thetas = [camera.theta] * F
+        cam = camera if cameras is None else None
+        fused = fused_batch_eligible(scene, lighting, config, cam)
+        if backend == "kernels" and (fused or px_batch_eligible(
+                scene, lighting, config, cam)):
+            kw = dict(shadow_target=shadow_target, cameras=cameras,
+                      backend=backend, device=device)
+            if isinstance(chunk, int) and F > chunk and F % chunk == 0:
+                return render_frame_batch_chunked(
+                    scene, camera, lighting, config, shadow_config,
+                    displacements, thetas, chunk, **kw)
+            fn = render_frame_batch_fused if fused else render_frame_batch_px
+            return fn(scene, camera, lighting, config, shadow_config,
+                      displacements, thetas, **kw)
+        disps, cams = _batch_frames(camera, displacements, thetas, cameras)
+        outs = [render_frame(scene, c, lighting, config, shadow_config, d,
+                             shadow_target, backend, device)
+                for d, c in zip(disps, cams)]
+        return (torch.stack([fb for fb, _ in outs]),
+                _stack_stats([st for _, st in outs]))

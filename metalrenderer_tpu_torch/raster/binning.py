@@ -15,7 +15,8 @@ GPU. The semantics are the JAX binning's; the layout is not:
     tid, capped at ``big_capacity``; the overflow is counted in
     ``num_big_dropped`` and dropped, exactly as the JAX binning drops it.
   * Per-triangle field tables, read by the kernels by tid: visibility
-    ``vis`` [T, 17] and fused-shading attribute planes ``attr`` [T, 48].
+    ``vis`` [T, 17] and the attributes ``attr`` [T, 48], each vertex's
+    value/w, which a fragment weights by its sample's edge values.
 
 No host synchronisation: every shape depends only on T and the tile grid.
 """
@@ -25,14 +26,17 @@ import dataclasses
 
 import torch
 
-from .geometry import TriangleSetup, attribute_planes, scalar_planes
+from .geometry import TriangleSetup, scalar_planes
 
 VIS_FIELDS = 17
-# Attribute-plane groups (affine planes of value/w in screen space;
-# per-triangle constants ride as value * (1/w)-plane):
-#   0-2 world xyz, 3-4 uv, 5-7 normal, 8 inv_w, 9 mat_kind, 10 tex_id,
-#   11-13 color rgb, 14 normal_map_id. Padded to 16 groups, stored
-#   comp-major per triangle: [A of 16 groups | B of 16 | C of 16].
+# Attribute groups, each vertex's value/w (per-triangle constants ride as
+# value * 1/w): 0-2 world xyz, 3-4 uv, 5-7 normal, 8 inv_w, 9 mat_kind,
+# 10 tex_id, 11-13 color rgb, 14 normal_map_id. Padded to 16 groups,
+# stored vertex-major per triangle: [v0's 16 groups | v1's | v2's]. A
+# fragment interpolates group g as (l0*v0 + l1*v1) + l2*v2 with its
+# sample's weights (raster_cuda), never as a plane of the screen position:
+# on a sliver triangle a plane's coefficients scale with 1/area and cancel
+# far from the origin.
 ATTR_GROUPS = 15
 ATTR_GROUPS_PADDED = 16
 ATTR_FIELDS = ATTR_GROUPS_PADDED * 3    # 48
@@ -69,23 +73,22 @@ def build_tri_fields(setup: TriangleSetup) -> torch.Tensor:
 
 
 def build_attr_fields(setup: TriangleSetup, pg) -> torch.Tensor:
-    """Per-triangle attribute-plane fields [T, 48] (comp-major, see above).
-    ``pg``: the pass geometry (``vattrs`` [T,3,8], per-triangle material)."""
-    ap = attribute_planes(setup, pg.vattrs)          # [T, 8, 3]
-    iw = scalar_planes(setup, setup.inv_w)           # [T, 3]
+    """Per-triangle attribute fields [T, 48]: each vertex's value/w of the
+    16 groups, vertex-major (see above). ``pg``: the pass geometry
+    (``vattrs`` [T,3,8], per-triangle material)."""
+    iw = setup.inv_w[:, :, None]                     # [T, 3, 1]
     consts = torch.stack([
         pg.mat_kind.to(torch.float32),
         pg.tex_id.to(torch.float32),
         pg.mat_color[:, 0], pg.mat_color[:, 1], pg.mat_color[:, 2],
         pg.normal_map_id.to(torch.float32),
     ], dim=1)                                        # [T, 6]
-    const_planes = consts[:, :, None] * iw[:, None, :]  # [T, 6, 3]
-    t = ap.shape[0]
+    t = iw.shape[0]
     padded = torch.cat(
-        [ap, iw[:, None, :], const_planes,
-         torch.zeros((t, ATTR_GROUPS_PADDED - ATTR_GROUPS, 3),
-                     dtype=torch.float32, device=ap.device)], dim=1)
-    return padded.transpose(1, 2).reshape(t, ATTR_FIELDS).contiguous()
+        [pg.vattrs * iw, iw, consts[:, None, :] * iw,
+         torch.zeros((t, 3, ATTR_GROUPS_PADDED - ATTR_GROUPS),
+                     dtype=torch.float32, device=iw.device)], dim=2)
+    return padded.reshape(t, ATTR_FIELDS).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +100,7 @@ class TileBins:
     ntx: int
     nty: int
     vis: torch.Tensor            # f32[T, 17] visibility fields
-    attr: torch.Tensor           # f32[T, 48] attribute planes, or None
+    attr: torch.Tensor           # f32[T, 48] per-vertex value/w, or None
     tile_offsets: torch.Tensor   # i32[NT+1] CSR row pointers into tile_tris
     tile_tris: torch.Tensor      # i32[T*span_cap] tids, tile-major by tid
     big_ids: torch.Tensor        # i32[cap] big-list tids, live first by tid

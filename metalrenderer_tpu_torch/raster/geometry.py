@@ -121,19 +121,6 @@ def _lambda_planes(setup: TriangleSetup):
     return torch.roll(setup.edge, -1, dims=1) * setup.inv_area[:, None, None]
 
 
-def attribute_planes(setup: TriangleSetup, vertex_values):
-    """Screen-space planes of ``value/w`` for perspective-correct
-    interpolation. ``vertex_values``: f32[T, 3, D]. Returns f32[T, D, 3]:
-    (attr/w)(p) = A*sx + B*sy + C; dividing by the interpolated 1/w plane
-    recovers the attribute (Metal's default [[stage_in]] interpolation)."""
-    lam = _lambda_planes(setup)                        # [T,3(i),3(c)]
-    over_w = vertex_values * setup.inv_w[..., None]    # [T,3(i),D]
-    out = over_w[:, 0, :, None] * lam[:, 0, None, :]
-    for i in (1, 2):
-        out = out + over_w[:, i, :, None] * lam[:, i, None, :]
-    return out
-
-
 def scalar_planes(setup: TriangleSetup, vertex_scalars):
     """Planes of quantities interpolated WITHOUT perspective correction (NDC
     z and 1/w are affine in screen space). f32[T, 3] -> f32[T, 3] (A, B, C)."""

@@ -13,7 +13,7 @@ pass.
 
 ``render_fused`` (K2) — the fused-shade specialization (launched by
 ``raster_pallas.render_fused``): MSAA visibility, the first covered sample's
-attribute planes, Blinn-Phong/emissive shading, the shadow-map test and the
+attributes, Blinn-Phong/emissive shading, the shadow-map test and the
 coverage resolve. The fused main pass.
 
 ``raster_gbuffer`` (K3) — the per-pixel G-buffer specialization
@@ -58,18 +58,24 @@ What the kernels compute (and the twins, in the same operation order):
   independent of the CUDA block shape. No FMA contraction anywhere
   (``-fmad=false``; eager torch ops round every step).
 * The fragment stage takes, per pixel, the first sample (in sample order)
-  whose winner is >= 0 and evaluates that winner's 15 attribute/w planes at
-  the absolute sample position as ``(a*sx + b*sy) + c``. K3 stores them
-  (zeros for an uncovered pixel) with the covered-sample count in row
+  whose winner is >= 0 and interpolates that winner's 15 attribute/w
+  groups there: its edge values at the sample, anchored on the pixel and
+  at least 0 (the walk found the sample inside), normalized by their sum,
+  weight the three vertices' value/w (``_weights``: ``(l0*v0 + l1*v1) +
+  l2*v2``, the reference's barycentrics). Each weight lies in [0, 1], so a
+  value stays within its vertices' values on a sliver triangle too; the
+  JAX kernels' planes of value/w at the absolute position, ``(a*sx + b*sy)
+  + c``, cancel there (ROADMAP C13) and agree elsewhere to rounding. K3 stores
+  them (zeros for an uncovered pixel) with the covered-sample count in row
   ``ROW_DEPTH``. K2 shades them with the ``1/sqrt`` Blinn-Phong form, tests
   the shadow map with an exact REPEAT bilinear lookup over the whole map
   (``sampling.sample_bilinear`` semantics; the Pallas kernel's DMA windows
   and its "lit" fallback outside them are not reproduced — ROADMAP C1) and
-  blends with the clear color by the covered fraction. K3s evaluates, for
-  every covered sample, its winner's 15 planes at that sample's absolute
-  position, once: the Pallas kernel rewrites them whenever a chunk's
-  triangle takes the sample (``where(take8, val, old)``), which leaves the
-  final winner's values, the same thing.
+  blends with the clear color by the covered fraction. K3s interpolates,
+  for every covered sample, its winner's 15 groups at that sample, once:
+  the Pallas kernel rewrites them whenever a chunk's triangle takes the
+  sample (``where(take8, val, old)``), which leaves the final winner's
+  values, the same thing.
 
 On the H100 K3s writes 64 bytes per sample (531 MB at 1920x1080x4), which
 bound it; a thread per pixel walks its tile's candidate list serially
@@ -185,7 +191,7 @@ def stack_bins(frames) -> TileBins:
     tile_tris i32[F,L], big_ids i32[F,cap], big_aabb i32[F,cap,4], big_n and
     num_big_dropped i32[F]. Tids and CSR pointers stay frame-local. Raises
     ValueError unless every frame has the same tile grid, the same table
-    shapes and dtypes, and attribute planes in all frames or in none."""
+    shapes and dtypes, and attribute tables in all frames or in none."""
     frames = list(frames)
     if not frames:
         raise ValueError("stack_bins: no frames")
@@ -379,31 +385,55 @@ def raster_depth_plain(bins: TileBins, width, height, sample_offsets,
             winner[:, :height, :width].contiguous() if with_winner else None)
 
 
+def _weights(bins: TileBins, tid, px, py, ox, oy):
+    """The kernels' ``sample_weights``: triangle ``tid``'s (i64, >= 0)
+    vertex weights (l0, l1, l2) at offset (ox, oy) in pixel (px, py) (f32
+    of whole pixels), all broadcast: its edge values there anchored on the
+    pixel, ``(a*ox + b*oy) + ((c + a*px) + b*py)``, each at least 0,
+    normalized by their sum. Each lies in [0, 1]."""
+    f = bins.vis[tid]                                        # [..., 17]
+
+    def edge(k):
+        a, b, c = f[..., 3 * k], f[..., 3 * k + 1], f[..., 3 * k + 2]
+        e = (a * ox + b * oy) + ((c + a * px) + b * py)
+        return torch.where(e < 0.0, torch.zeros_like(e), e)
+
+    e0, e1, e2 = edge(0), edge(1), edge(2)
+    total = (e1 + e2) + e0
+    r = 1.0 / torch.where(total > 0.0, total, torch.ones_like(total))
+    return e1 * r, e2 * r, e0 * r
+
+
+def _pixels(bins: TileBins, tiles, P):
+    """The pixels of ``tiles``' P tile positions: (px, py) f32[n, P]."""
+    p = torch.arange(P, device=tiles.device)
+    px = (tiles % bins.ntx)[:, None] * bins.tile_w + (p % bins.tile_w)[None]
+    py = (tiles // bins.ntx)[:, None] * bins.tile_h + (p // bins.tile_w)[None]
+    return px.to(torch.float32), py.to(torch.float32)
+
+
 def _first_covered(bins: TileBins, tiles, wb, sample_offsets):
     """Per pixel of ``tiles`` (wb: i64[n, S, P] winners): the covered-sample
-    count, the first covered sample's absolute position (sx, sy), each
-    [n, P], and its winner's attribute-plane row A [n, P, 48] (triangle 0's
-    where no sample is covered)."""
+    count [n, P], the weights of the first covered sample's winner there
+    (``_weights``, each [n, P]) and its attribute row A [n, P, 48]
+    (triangle 0's where no sample is covered)."""
     dev = wb.device
     n, S, P = wb.shape
     covered_s = wb >= 0
     cnt = covered_s.sum(dim=1)                               # [n, P]
     first = torch.argmax(covered_s.to(torch.int32), dim=1)   # first covered
-    tid = torch.gather(wb, 1, first[:, None]).squeeze(1)    # [n, P]
+    tid = torch.clamp_min(torch.gather(wb, 1, first[:, None]).squeeze(1), 0)
     offs = torch.tensor(sample_offsets, dtype=torch.float32, device=dev)
-    p = torch.arange(P, device=dev)
-    px = (tiles % bins.ntx)[:, None] * bins.tile_w + (p % bins.tile_w)[None]
-    py = (tiles // bins.ntx)[:, None] * bins.tile_h + (p // bins.tile_w)[None]
-    sx = px.to(torch.float32) + offs[first, 0]
-    sy = py.to(torch.float32) + offs[first, 1]
-    A = bins.attr[torch.clamp_min(tid, 0)]                   # [n, P, 48]
-    return cnt, sx, sy, A
+    px, py = _pixels(bins, tiles, P)
+    lam = _weights(bins, tid, px, py, offs[first, 0], offs[first, 1])
+    return cnt, lam, bins.attr[tid]
 
 
-def _attr_plane(A, k, sx, sy):
-    """Attribute group ``k`` of rows ``A`` at (sx, sy): (a*sx + b*sy) + c."""
-    return (A[..., k] * sx + A[..., ATTR_GROUPS_PADDED + k] * sy) + \
-        A[..., 2 * ATTR_GROUPS_PADDED + k]
+def _attr_at(A, k, lam):
+    """Attribute group ``k`` of rows ``A`` (per-vertex value/w) at weights
+    ``lam``: (l0*v0 + l1*v1) + l2*v2."""
+    return (lam[0] * A[..., k] + lam[1] * A[..., ATTR_GROUPS_PADDED + k]) + \
+        lam[2] * A[..., 2 * ATTR_GROUPS_PADDED + k]
 
 
 def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
@@ -412,10 +442,10 @@ def _shade_pixels(bins: TileBins, tiles, wb, sample_offsets, uniforms,
     wb: i64[n, S, P] winners. Returns (rgba f32[n, 4, P], covf f32[n, P])."""
     S = wb.shape[1]
     u = uniforms
-    cnt, sx, sy, A = _first_covered(bins, tiles, wb, sample_offsets)
+    cnt, lam, A = _first_covered(bins, tiles, wb, sample_offsets)
 
     def g(k):
-        return _attr_plane(A, k, sx, sy)
+        return _attr_at(A, k, lam)
 
     invw = g(ROW_INVW)
     inv = 1.0 / torch.where(invw > 0.0, invw, torch.ones_like(invw))
@@ -491,10 +521,10 @@ def raster_gbuffer_plain(bins: TileBins, width, height, sample_offsets,
         if with_samples:
             _place(zb, bins, tiles, depth)
             _place(wb.to(torch.int32), bins, tiles, winner)
-        cnt, sx, sy, A = _first_covered(bins, tiles, wb, sample_offsets)
+        cnt, lam, A = _first_covered(bins, tiles, wb, sample_offsets)
         covered = cnt > 0
-        zero = torch.zeros_like(sx)
-        rows = [torch.where(covered, _attr_plane(A, k, sx, sy), zero)
+        zero = torch.zeros_like(lam[0])
+        rows = [torch.where(covered, _attr_at(A, k, lam), zero)
                 for k in range(GOUT_ROWS - 1)]
         rows.append(cnt.to(torch.float32))
         _place(torch.stack(rows, dim=1), bins, tiles, gout)
@@ -513,30 +543,27 @@ def raster_gbuffer_samples_plain(bins: TileBins, width, height,
     dev = bins.vis.device
     S = len(sample_offsets)
     xr, yr = _tile_pixel_grid(bins, sample_offsets, dev)
-    offs = torch.tensor(sample_offsets, dtype=torch.float32, device=dev)
     hp, wp = bins.nty * bins.tile_h, bins.ntx * bins.tile_w
     gout = torch.empty((S, GOUT_ROWS, hp, wp), dtype=torch.float32,
                        device=dev)
     depth = torch.empty((S, hp, wp), dtype=torch.float32, device=dev)
     winner = torch.empty((S, hp, wp), dtype=torch.int32, device=dev)
     coef = bins.attr.T.contiguous()                          # [48, T]
-    p = torch.arange(bins.tile_h * bins.tile_w, device=dev)
+    g = ATTR_GROUPS_PADDED
+    offs = torch.tensor(sample_offsets, dtype=torch.float32, device=dev)
     for tiles in _tile_pieces(bins, S, dev):
         zb, wb = _visibility_plain(bins, tiles, xr, yr, clear_depth)
         _place(zb, bins, tiles, depth)
         _place(wb.to(torch.int32), bins, tiles, winner)
-        px = (tiles % bins.ntx)[:, None] * bins.tile_w + (p % bins.tile_w)
-        py = (tiles // bins.ntx)[:, None] * bins.tile_h + (p // bins.tile_w)
-        sx = px.to(torch.float32)[:, None] + offs[:, 0, None]   # [n, S, P]
-        sy = py.to(torch.float32)[:, None] + offs[:, 1, None]
         covered = wb >= 0
-        tid = torch.clamp_min(wb, 0)
+        tid = torch.clamp_min(wb, 0)                         # [n, S, P]
+        px, py = _pixels(bins, tiles, wb.shape[2])
+        l0, l1, l2 = _weights(bins, tid, px[:, None], py[:, None],
+                              offs[:, 0, None], offs[:, 1, None])
         zero = torch.zeros_like(zb)
-        rows = [torch.where(
-            covered,
-            (coef[k][tid] * sx + coef[ATTR_GROUPS_PADDED + k][tid] * sy)
-            + coef[2 * ATTR_GROUPS_PADDED + k][tid], zero)
-            for k in range(GOUT_ROWS - 1)]
+        rows = [torch.where(covered, (l0 * coef[k][tid] + l1 * coef[g + k][tid])
+                            + l2 * coef[2 * g + k][tid], zero)
+                for k in range(GOUT_ROWS - 1)]
         rows.append(zb)
         _place(torch.stack(rows, dim=2), bins, tiles, gout)
     return (gout[..., :height, :width].contiguous(),

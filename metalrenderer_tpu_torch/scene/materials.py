@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-# Material kinds (values baked per triangle into the attribute planes).
+# Material kinds (values baked per triangle into the attribute table).
 BLINN_PHONG = 0          # lit, does not sample the shadow map
 BLINN_PHONG_SHADOW = 1   # lit + shadow-map test (BlinnPhong.metal:79-96)
 EMISSIVE = 2             # flat color

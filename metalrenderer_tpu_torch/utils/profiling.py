@@ -1,8 +1,9 @@
 """Profiling hooks (torch counterpart of
 ``metalrenderer_tpu.utils.profiling``): a device trace and named spans.
 
-The frame path opens ``annotate`` spans named ``mr/...`` (the stages of
-``passes.pipeline.prepare_frame``, the audio track, the per-frame scene,
+The frame path opens ``annotate`` spans named ``mr/...`` (the entries
+``passes.pipeline.render_frame`` and ``render_batch``, the stages of
+``prepare_frame``, the audio track, the per-frame scene,
 the host reads of the track's parameters and the kernel launches). They
 are ``torch.profiler.record_function`` ranges in the same trace as the
 kernels, copies and runtime calls, and cost nothing but a flag test when

@@ -437,8 +437,9 @@ def test_render_fused_batch_plain_matches_pallas():
         s, pg = _frame(setup_b, f), _frame(pg_b, f)
         bins.append(binning.bin_triangles(
             convert.setup_from_jax(s), convert.tensor(jb.build_tri_fields(s)),
-            W, H, 128, 8, attr_fields=convert.tensor(
-                jb.build_attr_fields(s, pg))))
+            W, H, 128, 8, attr_fields=binning.build_attr_fields(
+                convert.setup_from_jax(s),
+                convert.pass_geometry_from_jax(pg))))
     bb = raster_cuda.stack_bins(bins)
     before = dict(raster_cuda.LAUNCHES)
     rgba_p, covf_p = raster_cuda.render_fused_batch(

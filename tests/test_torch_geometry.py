@@ -1,5 +1,5 @@
-"""Port parity, triangle setup: clip_near, guard_clip_xy, setup_triangles,
-attribute_planes and scalar_planes of metalrenderer_tpu_torch against
+"""Port parity, triangle setup: clip_near, guard_clip_xy, setup_triangles
+and scalar_planes of metalrenderer_tpu_torch against
 metalrenderer_tpu, on the same seeded inputs.
 
 Integer and bool outputs (valid, top_left, parent, clip stats) must be
@@ -137,9 +137,5 @@ def test_attribute_and_scalar_planes_match():
     clip = _clip_soup(300, seed=6)
     s_j = _j_setup(jnp.asarray(clip), 200, 120, False)
     s_p = convert.setup_from_jax(s_j)           # same setup on both sides
-    vals = np.random.default_rng(8).standard_normal((300, 3, 8)) \
-        .astype(np.float32)
-    _close(pg.attribute_planes(s_p, torch.from_numpy(vals)),
-           jg.attribute_planes(s_j, jnp.asarray(vals)))
     _close(pg.scalar_planes(s_p, s_p.z), jg.scalar_planes(s_j, s_j.z))
     _close(pg.scalar_planes(s_p, s_p.inv_w), jg.scalar_planes(s_j, s_j.inv_w))

@@ -17,14 +17,21 @@ Tolerances, with their reasons:
     and FMA contraction; pixels that differ because the Pallas kernel falls
     back to "lit" outside its shadow-map window (ROADMAP C1) are counted;
   * K3 gout: covered counts and per-sample winners equal; attribute rows
-    within 1e-6 relative to their magnitude (the interpret-mode kernel's
-    ``a*sx + b*sy + c`` is FMA-contracted, ROADMAP C6), bit-equal to a
-    numpy evaluation that rounds every step;
+    bit-equal to a numpy evaluation that rounds every step; within 1e-6
+    relative to their magnitude of the interpret-mode kernel's (its
+    ``a*sx + b*sy + c`` is FMA-contracted, ROADMAP C6) but for a count of
+    values fixed per case at the count measured: on long guard-band
+    triangles the Pallas kernel's planes of value/w carry the f32 rounding
+    of their coefficients, up to 3.7e-5, and the port, which weights each
+    vertex's value/w by its edge values, does not (C13); and every value
+    within ``REF_TOL`` (1e-4) relative of the JAX package's brute-force
+    reference (``reference_cpu.interpolate_gbuffer``), whose own rounding
+    on those triangles reaches 4.2e-5 against the Pallas kernel;
   * K3s gout (every sample's winner's rows at that sample, on 8x128 and
     16x128 tiles, MSAA4 and MSAA1): winners equal, depth as K1's, the 15
     attribute rows as K3's (bit-equal to the no-FMA numpy evaluation,
-    1e-6 relative to their magnitude of the interpret-mode kernel), row 15
-    bit-equal to the twin's own depth;
+    against the interpret-mode kernel as K3's), row 15 bit-equal to the
+    twin's own depth and 1e-6 of the kernel's;
   * K1's, K2's and K3's twins with every tile's candidates permuted:
     bit-equal to themselves unpermuted (the order-free visibility that lets
     the kernels stage and chunk candidates in any order);
@@ -45,7 +52,8 @@ from metalrenderer_tpu.config import RenderConfig as JConfig
 from metalrenderer_tpu.engine import audio_app as j_app
 from metalrenderer_tpu.passes import pipeline as j_pipe
 from metalrenderer_tpu.raster import binning as jb
-from metalrenderer_tpu.raster import raster_pallas, sampling as j_sampling
+from metalrenderer_tpu.raster import raster_pallas, reference_cpu
+from metalrenderer_tpu.raster import sampling as j_sampling
 from metalrenderer_tpu.raster.geometry import clip_near, setup_triangles
 from metalrenderer_tpu.scene import lights as j_lights
 from metalrenderer_tpu.scene.camera import OrbitCamera as JCamera
@@ -131,12 +139,14 @@ def _numpy_anchored_depth(fields, width, height, tile_h, tile_w):
 
 
 def _bins(setup_j, width, height, tile_w, tile_h, pg=None):
-    """The port's bins for a JAX setup, carrying the JAX field tables."""
-    attr = (None if pg is None
-            else convert.tensor(jb.build_attr_fields(setup_j, pg)))
+    """The port's bins for a JAX setup, carrying the JAX visibility table
+    and the port's attribute table (each vertex's value/w, where the JAX
+    table holds planes) of the same setup and pass geometry."""
+    setup = convert.setup_from_jax(setup_j)
+    attr = (None if pg is None else binning.build_attr_fields(
+        setup, convert.pass_geometry_from_jax(pg)))
     return binning.bin_triangles(
-        convert.setup_from_jax(setup_j),
-        convert.tensor(jb.build_tri_fields(setup_j)), width, height,
+        setup, convert.tensor(jb.build_tri_fields(setup_j)), width, height,
         tile_w, tile_h, attr_fields=attr)
 
 
@@ -215,29 +225,112 @@ def _gbuffer_inputs(case, width=96, height=72):
                 cfg)
 
 
+def _numpy_weights(bins, tid, px, py, offx, offy):
+    """The vertex weights of triangles ``tid`` at offsets (offx, offy) in
+    pixels (px, py) in numpy f32, every multiply and add rounded on its
+    own: the edge values anchored on the pixel, at least 0, e12, e20, e01
+    over their sum."""
+    f32 = np.float32
+    f = np.asarray(bins.vis)[np.maximum(tid, 0)]
+    x, y = px.astype(f32), py.astype(f32)
+    e = [(f[..., 3 * k] * offx + f[..., 3 * k + 1] * offy)
+         + ((f[..., 3 * k + 2] + f[..., 3 * k] * x) + f[..., 3 * k + 1] * y)
+         for k in range(3)]
+    e = [np.where(v < 0, f32(0), v) for v in e]
+    total = (e[1] + e[2]) + e[0]
+    r = f32(1) / np.where(total > 0, total, f32(1))
+    return e[1] * r, e[2] * r, e[0] * r
+
+
+def _numpy_interp(attr, tid, lam, k):
+    """Group ``k`` of the per-vertex value/w rows of ``tid`` at weights
+    ``lam``: (l0*v0 + l1*v1) + l2*v2."""
+    A = np.asarray(attr)[np.maximum(tid, 0)]
+    return (lam[0] * A[..., k] + lam[1] * A[..., 16 + k]) + \
+        lam[2] * A[..., 32 + k]
+
+
 def _numpy_gout(bins, winner, sample_offsets):
     """gout from per-sample winners in numpy f32, every multiply and add
-    rounded on its own: (a*sx + b*sy) + c at the first covered sample."""
+    rounded on its own: the first covered sample's winner's groups at its
+    edge weights."""
     f32 = np.float32
     win = np.asarray(winner)
     S, H, W = win.shape
-    attr = np.asarray(bins.attr)
     cov = win >= 0
     first = np.argmax(cov, axis=0)
     cnt = cov.sum(axis=0)
     tid = np.take_along_axis(win, first[None], 0)[0]
     offs = np.asarray(sample_offsets, f32)
     py, px = np.mgrid[0:H, 0:W]
-    sx = px.astype(f32) + offs[first, 0]
-    sy = py.astype(f32) + offs[first, 1]
-    A = attr[np.maximum(tid, 0)]
-    rows = [np.where(cnt > 0, (A[..., k] * sx + A[..., 16 + k] * sy)
-                     + A[..., 32 + k], f32(0)) for k in range(15)]
+    with np.errstate(all="ignore"):
+        lam = _numpy_weights(bins, tid, px, py, offs[first, 0],
+                             offs[first, 1])
+        rows = [np.where(cnt > 0, _numpy_interp(bins.attr, tid, lam, k),
+                         f32(0)) for k in range(15)]
     return np.stack(rows + [cnt.astype(f32)])
 
 
-@pytest.mark.parametrize("case", ["flagship", "config4"])
-def test_raster_gbuffer_plain_matches_pallas(case):
+def _reference_gout(setup_j, pg, winner, sample_offsets, width, height):
+    """The 15 attribute rows of every sample's winner at that sample by the
+    JAX package's brute-force reference (``reference_cpu.
+    interpolate_gbuffer``: the three vertices weighted by edge value x 1/w
+    over their sum), as the kernels store them: each value over the
+    sample's w, and 1/w, where w is the reference's interpolation of the
+    vertices' w. f64[S, 15, H, W], zeros where uncovered."""
+    win = jnp.asarray(winner)
+
+    def interp(vattrs):
+        return reference_cpu.interpolate_gbuffer(
+            setup_j, win, width, height, sample_offsets, vattrs,
+            pg.mat_kind, pg.mat_color, pg.tex_id,
+            jnp.zeros(win.shape, jnp.float32), pg.normal_map_id)
+
+    g = interp(pg.vattrs)
+    w = interp(jnp.zeros_like(pg.vattrs).at[..., 0].set(
+        1.0 / setup_j.inv_w)).world[..., 0]
+    consts = jnp.stack([g.mat_kind, g.tex_id], axis=-1).astype(jnp.float32)
+    vals = jnp.concatenate(
+        [g.world, g.uv, g.normal, jnp.ones_like(w)[..., None], consts,
+         g.mat_color, g.normal_map_id[..., None].astype(jnp.float32)],
+        axis=-1)                                             # [S, H, W, 15]
+    cov = np.asarray(winner) >= 0
+    rows = np.moveaxis(np.asarray(vals, np.float64), -1, 1) / \
+        np.where(cov, np.asarray(w, np.float64), 1.0)[:, None]
+    return np.where(cov[:, None], rows, 0.0)
+
+
+def _first_sample(x, winner):
+    """x[S, ...rows, H, W] at each pixel's first covered sample."""
+    first = np.argmax(np.asarray(winner) >= 0, axis=0)
+    return np.take_along_axis(x, first[None, None], 0)[0]
+
+
+# Relative to its magnitude, how far the port's attribute rows may lie from
+# the JAX reference's: the reference evaluates its edge functions at the
+# absolute sample position and scales them by the f32 1/area, which rounds
+# by up to 4.2e-5 against the Pallas kernel, and 5.6e-5 against the port,
+# on the long guard-band triangles of these scenes.
+REF_TOL = 1e-4
+
+
+def _near_pallas(rows_p, rows_j, ref, most):
+    """Attribute rows of the port against the interpret-mode Pallas
+    kernel's and the JAX reference's (``_reference_gout``), relative to
+    their magnitude: within 1e-6 of the Pallas kernel's but for at most
+    ``most`` values (the count measured; they lie on long guard-band
+    triangles, where the Pallas kernel's planes of value/w carry the f32
+    rounding of their coefficients and the port's edge weights do not,
+    ROADMAP C13), and every one within REF_TOL of the reference's."""
+    scale = np.maximum(np.abs(rows_j), 1.0)
+    missed = int((np.abs(rows_p - rows_j) / scale > 1e-6).sum())
+    assert missed <= most, f"{missed} values beyond 1e-6 of the Pallas kernel"
+    off = np.abs(rows_p - ref) / np.maximum(np.abs(ref), 1.0)
+    assert float(off.max()) <= REF_TOL, float(off.max())
+
+
+@pytest.mark.parametrize("case,most", [("flagship", 383), ("config4", 383)])
+def test_raster_gbuffer_plain_matches_pallas(case, most):
     width, height = 96, 72
     setup, pg = _gbuffer_inputs(case)
     d_j, w_j, gout_j, _ = raster_pallas.rasterize_tiles(
@@ -254,12 +347,14 @@ def test_raster_gbuffer_plain_matches_pallas(case):
     cnt = gout_p[binning.ROW_DEPTH].numpy()
     np.testing.assert_array_equal(cnt, gout_j[binning.ROW_DEPTH])
     assert 0.3 < (cnt > 0).mean() < 1.0
-    # Bit-equal to the no-FMA numpy evaluation, 1e-6 of the FMA'd kernel.
+    # Bit-equal to the no-FMA numpy evaluation; near the FMA'd kernel and
+    # the JAX reference.
     np.testing.assert_array_equal(
         gout_p.numpy().view(np.int32),
         _numpy_gout(bins, w_p, MSAA4).view(np.int32))
-    scale = np.maximum(np.abs(gout_j), 1.0)
-    assert float((np.abs(gout_p.numpy() - gout_j) / scale).max()) <= 1e-6
+    ref = _first_sample(
+        _reference_gout(setup, pg, w_j, MSAA4, width, height), w_j)
+    _near_pallas(gout_p.numpy()[:15], gout_j[:15], ref, most)
     # channels_from_gout_px on the same gout: the same channels.
     ch_p = raster_cuda.channels_from_gout_px(torch.from_numpy(gout_j), 4)
     ch_j = raster_pallas.channels_from_gout_px(jnp.asarray(gout_j), 4)
@@ -276,29 +371,30 @@ def test_raster_gbuffer_plain_matches_pallas(case):
 
 def _numpy_gout_samples(bins, winner, depth, sample_offsets):
     """Per-sample gout in numpy f32, every multiply and add rounded on its
-    own: (a*sx + b*sy) + c of each sample's winner at that sample."""
+    own: each sample's winner's groups at its edge weights there."""
     f32 = np.float32
     win, S = np.asarray(winner), len(sample_offsets)
     _, H, W = win.shape
-    attr = np.asarray(bins.attr)
     py, px = np.mgrid[0:H, 0:W]
     out = np.zeros((S, 16, H, W), f32)
     for s, (ox, oy) in enumerate(sample_offsets):
-        sx, sy = px.astype(f32) + f32(ox), py.astype(f32) + f32(oy)
-        A = attr[np.maximum(win[s], 0)]
-        for k in range(15):
-            out[s, k] = np.where(win[s] >= 0, (A[..., k] * sx
-                                               + A[..., 16 + k] * sy)
-                                 + A[..., 32 + k], f32(0))
+        with np.errstate(all="ignore"):
+            lam = _numpy_weights(bins, win[s], px, py, f32(ox), f32(oy))
+            for k in range(15):
+                out[s, k] = np.where(win[s] >= 0,
+                                     _numpy_interp(bins.attr, win[s], lam, k),
+                                     f32(0))
         out[s, 15] = np.asarray(depth)[s]
     return out
 
 
-@pytest.mark.parametrize("case,tile_h,samples", [
-    ("flagship", 8, MSAA4), ("config4", 16, MSAA4), ("flagship", 8, CENTER)],
+@pytest.mark.parametrize("case,tile_h,samples,most", [
+    ("flagship", 8, MSAA4, 1208), ("config4", 16, MSAA4, 1208),
+    ("flagship", 8, CENTER, 319)],
     ids=["flagship_8x128_msaa4", "config4_16x128_msaa4",
          "flagship_8x128_msaa1"])
-def test_raster_gbuffer_samples_plain_matches_pallas(case, tile_h, samples):
+def test_raster_gbuffer_samples_plain_matches_pallas(case, tile_h, samples,
+                                                     most):
     width, height = 96, 72
     setup, pg = _gbuffer_inputs(case)
     d_j, w_j, gout_j, _ = raster_pallas.rasterize_tiles(
@@ -319,12 +415,17 @@ def test_raster_gbuffer_samples_plain_matches_pallas(case, tile_h, samples):
     assert torch.equal(gout_p[:, binning.ROW_DEPTH], d_p)
     assert bool((d_p[w_p < 0] == 1.0).all())
     assert bool((gout_p[:, :15].permute(1, 0, 2, 3)[:, w_p < 0] == 0).all())
-    # Bit-equal to the no-FMA numpy evaluation, 1e-6 of the FMA'd kernel.
+    # Bit-equal to the no-FMA numpy evaluation; near the FMA'd kernel and
+    # the JAX reference.
     np.testing.assert_array_equal(
         gout_p.numpy().view(np.int32),
         _numpy_gout_samples(bins, w_p, d_p, samples).view(np.int32))
-    scale = np.maximum(np.abs(gout_j), 1.0)
-    assert float((np.abs(gout_p.numpy() - gout_j) / scale).max()) <= 1e-6
+    _near_pallas(gout_p.numpy()[:, :15], gout_j[:, :15],
+                 _reference_gout(setup, pg, w_j, samples, width, height),
+                 most)
+    scale = np.maximum(np.abs(gout_j[:, 15]), 1.0)
+    assert float((np.abs(gout_p.numpy()[:, 15] - gout_j[:, 15])
+                  / scale).max()) <= 1e-6
     # channels_from_gout on the same gout and winners: the same channels,
     # each a contiguous [S, H, W] plane (what K7 and K9 take).
     ch_p = raster_cuda.channels_from_gout(torch.from_numpy(gout_j),

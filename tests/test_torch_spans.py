@@ -98,3 +98,42 @@ def test_stream_is_bit_equal_traced_and_untraced(runs):
         assert set(ta) == set(tb)
         for k in ta:
             assert torch.equal(ta[k], tb[k]), k
+
+
+def _entry(name):
+    """One call of the entry ``name`` on a 2-frame AudioApp scene."""
+    from metalrenderer_tpu_torch import render_batch
+    from metalrenderer_tpu_torch.engine import audio_app
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.scene.lights import Lighting
+    scene = audio_app.build_scene(device="cpu")
+    if name == "mr/frame":
+        return pipeline.render_frame(scene, CAM, Lighting.default(), CFG,
+                                     displacement=0.02, device="cpu")[0]
+    return render_batch(scene, CAM, Lighting.default(), [0.0, 0.02],
+                        config=CFG, device="cpu")[0]
+
+
+@pytest.mark.parametrize("name,frames", [("mr/frame", 1), ("mr/batch", 2)])
+def test_entry_span_holds_the_call(name, frames, tmp_path):
+    """``render_frame`` opens one ``mr/frame`` span and ``render_batch`` one
+    ``mr/batch`` span around their bodies: every other span of the call
+    (each frame's prep, the raster launches) lies inside it, and the
+    frames are bit-equal traced and untraced."""
+    plain = _entry(name)
+    with profiling.device_trace(tmp_path) as prof:
+        traced = _entry(name)
+    events = json.loads(prof.trace_path.read_text())["traceEvents"]
+    spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e["name"].startswith("mr/")]
+    outer = [s for s in spans if s[0] == name]
+    assert len(outer) == 1
+    assert not any(s[0] in ("mr/frame", "mr/batch") and s[0] != name
+                   for s in spans)
+    inner = [s for s in spans if s[0] != name]
+    assert sum(s[0] == "mr/prep" for s in inner) == frames
+    assert any(s[0] == "mr/raster" for s in inner)
+    assert all(_inside(s, outer[0]) for s in inner)
+    assert torch.equal(plain, traced)
