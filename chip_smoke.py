@@ -234,6 +234,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
      reading of each path; first, at that displacement, pixel (1879, 378):
      the winner's tid, its screen vertices, area and 1/w, the 1/w plane
      evaluated there, the bounded weights' 1/w, and both frames' rgba.
+ 27. the main pass's geometry front end (raster/setup_cuda.py, kernel
+     csrc/setup.cu) on config 5 at full size and the flagship frame: the
+     op-by-op prep's device ms by mr/prep/* span, the prep graph's device
+     ms a frame and its pool; the kernel's tables and stats against the
+     plain chain's (bit-equal), its device ms host ahead with the guard
+     band off (the tables pass alone) and on, beside its byte bound and
+     the plain chain's ms; its launch counter.
 Then the run's seconds, one JSON line with each kernel's numbers (and a row
 for each of phase 21's cases, ``name<samples>@config``), the nvidia-smi
 line, and the result line {"ok": true, "device": {...}}.
@@ -2409,6 +2416,181 @@ def sphere_sweep_phase(dev, smi, n=SWEEP_N):
              f"limits: {beyond}")
 
 
+
+def span_device_ms(fn, prefix="mr/prep"):
+    """fn() once under torch.profiler: the device ms of the kernels and
+    copies launched inside each span whose name starts with ``prefix``
+    (the span's device_time_total: its own and its children's), and every
+    device event's ms in the window."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    events = prof.events()
+    for e in events:
+        if e.name.startswith(prefix):
+            out[e.name] += e.device_time_total / 1e3
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA) / 1e3
+    return {k: round(v, 4) for k, v in sorted(out.items())}, total
+
+
+def setup_kernel_phase(dev, smi):
+    """Phase 27: the main pass's geometry front end on config 5 at full
+    size (1M triangles, 3840x2160) and the flagship frame (1920x1080).
+    Per case: the op-by-op prep's device ms by ``mr/prep/*`` span (the
+    bake, the light pass, the main pass's front end, each pass's binning)
+    under torch.profiler, beside every device event's ms; the prep
+    graph's device ms a frame (its replays back to back, and with the host
+    ahead) and its pool. Where the package has the kernel
+    (``raster/setup_cuda.py``, ``csrc/setup.cu``): its tables and stats
+    against the plain chain's on the card (bit-equal), the kernel's device
+    ms host ahead with the guard band off (the tables pass alone) and on
+    (its three launches, the sort and the fan code between them), beside
+    its byte bound and the plain chain's ms, and the launch counter over
+    one op-by-op prep, one capture and a replay. Loaded by path with
+    another checkout first on ``sys.path``, it measures that checkout's
+    package (a package without the kernel prints the prep's lines
+    alone)."""
+    import gc
+
+    import torch
+    from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
+    from metalrenderer_tpu_torch.engine import audio_app, configs
+    from metalrenderer_tpu_torch.math import transforms
+    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.scene.camera import OrbitCamera
+    from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
+    from metalrenderer_tpu_torch.scene.scene import bake
+    try:
+        from metalrenderer_tpu_torch.raster import setup_cuda
+    except ImportError:
+        setup_cuda = None
+    import metalrenderer_tpu_torch
+    pkg = str(Path(metalrenderer_tpu_torch.__file__).parent)
+
+    def captured(fn):
+        """fn() captured as a CUDA graph (after a warm-up on a side
+        stream): the graph's replay."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        keep.append(graph)
+        return graph.replay
+
+    keep = []
+    cam = OrbitCamera(radius=5.0, theta=2.5, phi=1.2, aspect=W / H)
+    cases = (
+        ("config5_4k", lambda: configs.config5_animated_high_poly(
+            target_tris=C5_TRIS, width=C5_W, height=C5_H, device=dev),
+         (0.0, 0.0, 0.0), 0.025, 5),
+        ("flagship", lambda: (audio_app.build_scene(device=dev), cam,
+                              Lighting(light=PointLight(),
+                                       ambient_intensity=0.1,
+                                       shininess=32.0),
+                              RenderConfig(width=W, height=H, msaa=4,
+                                           shadow_map_size=SHADOW)),
+         (0.0, 0.0, -1.0), 0.05, 50))
+    for name, build, target, disp, reps in cases:
+        scene, cm, lt, cf = build()
+
+        def eager():
+            return pipeline._prepare(scene, cm, lt, cf, ShadowConfig(), disp,
+                                     target, "kernels", dev, None,
+                                     graphed=False)
+        eager()
+        spans, total = span_device_ms(eager)
+        say("setup_kernel", case=name, package=pkg,
+            eager_span_device_ms=json.dumps(spans),
+            eager_device_ms=f"{total:.4f}", card=repr(smi))
+
+        pipeline.PREP_GRAPH.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if setup_cuda is not None:
+            setup_cuda.reset_launch_counts()
+        c0, n0 = pipeline.PREP_GRAPH.captures, pipeline.PREP_GRAPH.replays
+        r0 = torch.cuda.memory_reserved()
+        for _ in range(3):      # op by op, capture, replay
+            with pipeline._handed_over():
+                pipeline.prepare_frame(scene, cm, lt, cf, displacement=disp,
+                                       shadow_target=target, device=dev)
+        torch.cuda.synchronize()
+        pool = torch.cuda.memory_reserved() - r0
+        graph, = pipeline.PREP_GRAPH.graphs.values()
+        replay_ms, replay_dev_ms = timings(graph.graph.replay, reps)
+        line = dict(case=name, graph_replay_ms=f"{replay_ms:.4f}",
+                    graph_replay_device_ms=f"{replay_dev_ms:.4f}",
+                    pool_reserved_bytes=pool,
+                    captures=pipeline.PREP_GRAPH.captures - c0,
+                    replays=pipeline.PREP_GRAPH.replays - n0)
+        if setup_cuda is not None:
+            line["launches"] = json.dumps(setup_cuda.LAUNCHES)
+        say("setup_kernel", **line, card=repr(smi))
+        pipeline.PREP_GRAPH.clear()
+        if setup_cuda is None:
+            continue
+
+        geom = bake(scene, disp)
+        vp = transforms.matmul(cm.projection_matrix(),
+                               cm.view_matrix()).to(dev)
+        n, cap = geom.num_triangles, min(cf.xyclip_capacity,
+                                         2 * geom.num_triangles)
+        equal = {}
+        for guard, c in (("on", cf), ("off", cf.replace(xyclip_capacity=0))):
+            got = setup_cuda.main_pass_tables(geom, vp, c)
+            want = setup_cuda.main_pass_tables_plain(geom, vp, c)
+            equal[guard] = all(
+                torch.equal(getattr(got, k).reshape(-1).view(torch.uint8),
+                            getattr(want, k).reshape(-1).view(torch.uint8))
+                for k in ("vis", "attr", "aabb", "valid")) and all(
+                got.stats[k].dtype == want.stats[k].dtype
+                and torch.equal(got.stats[k].reshape(1).view(torch.uint8),
+                                want.stats[k].reshape(1).view(torch.uint8))
+                for k in want.stats) and list(got.stats) == list(want.stats)
+        stats = {k: float(v) for k, v in want.stats.items()}
+        del got, want
+        slots_off = 2 * n
+        read = 96 * n + 24 * n + 64
+        bytes_off = read + slots_off * (4 * (17 + 48 + 4) + 1)
+        # The keys written and read again, and the fan pieces' rows.
+        bytes_on = bytes_off + 4 * n + 5 * cap * (4 * (17 + 48 + 4) + 1)
+        # Each form captured as a CUDA graph, as the prep graph runs it,
+        # and timed by its replays (allocation stays out of the window).
+        k_off, k_on = (timings(captured(lambda c=c: setup_cuda.
+                                        main_pass_tables(geom, vp, c)), reps)
+                       for c in (cf.replace(xyclip_capacity=0), cf))
+        plain_ms = cuda_ms(lambda: setup_cuda.main_pass_tables_plain(
+            geom, vp, cf), max(1, reps // 5))
+        say("setup_kernel", case=name, triangles=n, slots=2 * n + 5 * cap,
+            bit_equal=json.dumps(equal), stats=json.dumps(stats),
+            tables_ms=f"{k_off[0]:.4f}", tables_device_ms=f"{k_off[1]:.4f}",
+            tables_bound_ms=f"{bytes_off / HBM_BYTES_PER_MS:.4f}",
+            guarded_ms=f"{k_on[0]:.4f}", guarded_device_ms=f"{k_on[1]:.4f}",
+            guarded_bound_ms=f"{bytes_on / HBM_BYTES_PER_MS:.4f}",
+            bound_by="bytes", plain_ms=f"{plain_ms:.4f}", card=repr(smi))
+        if not all(equal.values()):
+            fail(f"setup_kernel: {name}'s kernel tables differ from the "
+                 "plain chain's")
+        del geom, scene
+        keep.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     start = time.perf_counter()
@@ -3694,6 +3876,9 @@ def main():
 
     # 26. config 5 over a sweep of displacements ------------------------------
     sphere_sweep_phase(dev, smi)
+
+    # 27. the main pass's geometry front end ---------------------------------
+    setup_kernel_phase(dev, smi)
     say("time", seconds=f"{time.perf_counter() - start:.1f}", limit=900)
 
     meta = {"raster_depth": (RASTER_SRC, "raster_pallas.py:865"),

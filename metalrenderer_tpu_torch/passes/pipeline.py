@@ -30,9 +30,11 @@ mtl_engine.mm:767-770):
        sample, or supersampled with a box resolve.
 Everything between the kernels (vertex stage, clipping, triangle setup,
 binning, the split path's elementwise shading) is ordinary tensor code on
-the render device. On the card the frame's prep (``prepare_frame``: vertex
-stage to binning) runs as one CUDA graph per scene shape, captured at its
-second frame and replayed at every later one (``PREP_GRAPH``).
+the render device, but for the main pass's front end (projection, clipping,
+setup and its tables), which on the card is one more kernel
+(``raster/setup_cuda``). On the card the frame's prep (``prepare_frame``:
+vertex stage to binning) runs as one CUDA graph per scene shape, captured
+at its second frame and replayed at every later one (``PREP_GRAPH``).
 
 The frame-batch API (``render_batch`` and the ``render_frame_batch_*``
 functions, as in the JAX package) runs the same frames through the batch
@@ -56,9 +58,10 @@ import torch
 
 from ..config import RenderConfig, ShadowConfig
 from ..math import transforms
-from ..raster import raster_cuda, reference_cpu, shade
-from ..raster.binning import bin_triangles, build_attr_fields, build_tri_fields
-from ..raster.geometry import clip_near, guard_clip_xy, setup_triangles
+from ..raster import raster_cuda, reference_cpu, setup_cuda, shade
+from ..raster.binning import bin_triangles, build_tri_fields
+from ..raster.geometry import clip_near, setup_triangles
+from ..raster.setup_cuda import PassGeometry, prepare_main_pass
 from ..scene import lights as lights_mod
 from ..scene.materials import BLINN_PHONG_SHADOW
 from ..scene.mesh import Mesh
@@ -72,17 +75,6 @@ from ..utils.profiling import annotate
 SHADOW_SPAN_CAP = 8
 
 
-@dataclasses.dataclass(frozen=True)
-class PassGeometry:
-    """Post-clip, per-pass triangle data consumed by the raster kernels."""
-
-    vattrs: torch.Tensor     # f32[T_clipped, 3, 8] world | uv | normal
-    mat_kind: torch.Tensor   # i32[T_clipped]
-    mat_color: torch.Tensor  # f32[T_clipped, 3]
-    tex_id: torch.Tensor     # i32[T_clipped]
-    normal_map_id: torch.Tensor  # i32[T_clipped]
-
-
 def resolve_device(device) -> torch.device:
     """The render device; a CUDA device without CUDA raises (no fallback)."""
     device = torch.device(device)
@@ -90,38 +82,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device={device} requested but "
                            "torch.cuda.is_available() is false")
     return device
-
-
-def prepare_main_pass(geom, vp, config: RenderConfig, with_stats=False):
-    """Project (``vp``: the camera's P @ V, f32[4,4] on the geometry's
-    device), near-clip, x/y guard-band clip (all with attribute
-    interpolation) and set up triangles for the camera pass."""
-    clip = transforms.transform_points(vp, geom.world).reshape(-1, 3, 4)
-    attrs = torch.cat([geom.world, geom.uvs, geom.normals],
-                      dim=-1).reshape(-1, 3, 8)
-    clip2, attrs2, parent = clip_near(clip, attrs)
-    if config.xyclip_capacity > 0:
-        clip2, attrs2, parent, gstats = guard_clip_xy(
-            clip2, attrs2, parent, config.width, config.height,
-            cap=config.xyclip_capacity, guard_px=config.guard_band_px)
-    else:
-        zero = torch.zeros((), dtype=torch.int32, device=clip.device)
-        gstats = {"xyclip_triangles": zero, "xyclip_dropped": zero}
-    setup = setup_triangles(
-        clip2, config.width, config.height,
-        cull_backfaces=config.cull_backfaces, near_eps=config.near_eps,
-    )
-    p = parent.to(torch.int64)
-    pg = PassGeometry(
-        vattrs=attrs2,
-        mat_kind=geom.mat_kind[p],
-        mat_color=geom.mat_color[p],
-        tex_id=geom.tex_id[p],
-        normal_map_id=geom.normal_map_id[p],
-    )
-    if with_stats:
-        return setup, pg, gstats
-    return setup, pg
 
 
 def _wants_shadow(scene: Scene):
@@ -401,26 +361,24 @@ def _prep_device(scene, displacement, vp, light_m, uniforms, shadow, config,
                     big_capacity=config.big_capacity)
             stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
 
-    with annotate("mr/prep/main"):
-        setup, pg, gstats = prepare_main_pass(geom, vp, config,
-                                              with_stats=True)
-        stats["culled_triangles"] = (~setup.valid).sum().to(torch.int32)
-        stats.update(gstats)
-        stats["max_screen_coord"] = torch.amax(
-            torch.where(setup.valid[:, None, None],
-                        torch.abs(setup.screen),
-                        torch.zeros_like(setup.screen)))
     main_bins = None
+    with annotate("mr/prep/main"):
+        if reference:
+            setup, pg, gstats = prepare_main_pass(geom, vp, config,
+                                                  with_stats=True)
+            stats.update(setup_cuda.main_pass_stats(setup, gstats))
+        else:
+            # The kernel on the card (the chain, its twin, elsewhere).
+            tables = setup_cuda.main_pass_tables(geom, vp, config)
+            stats.update(tables.stats)
     if reference:
         stats["big_dropped"] = zero
     else:
         with annotate("mr/prep/main_bin"):
             main_bins = bin_triangles(
-                setup, build_tri_fields(setup), config.width,
-                config.height, config.tile_w, config.tile_h,
-                span_cap=config.span_cap,
-                big_capacity=config.big_capacity,
-                attr_fields=build_attr_fields(setup, pg))
+                tables, tables.vis, config.width, config.height,
+                config.tile_w, config.tile_h, span_cap=config.span_cap,
+                big_capacity=config.big_capacity, attr_fields=tables.attr)
         stats["big_dropped"] = main_bins.num_big_dropped
     return FramePrep(shadow_bins, main_bins, uniforms, None, (), False,
                      stats, "reference" if reference else "kernels",

@@ -257,6 +257,12 @@ def _sh_clip_plane(verts, vcount, dist):
     return out[:, :V], out_count
 
 
+# A triangle cut by the four guard planes keeps at most 7 vertices (padded
+# to 8), so it fans into at most 5 pieces: the side list's 5 a slot.
+POLY_VERTS = 8
+FAN_PIECES = POLY_VERTS - 3
+
+
 def guard_clip_xy(clip2, attrs2, parent, width, height, cap=64,
                   guard_px=32768.0):
     """True homogeneous x/y clipping for beyond-envelope triangles.
@@ -289,8 +295,8 @@ def guard_clip_xy(clip2, attrs2, parent, width, height, cap=64,
     data = clip2 if attrs2 is None else torch.cat([clip2, attrs2], dim=-1)
     K = data.shape[-1]
     polys = data[ids]                                          # [cap, 3, K]
-    V = 8
-    verts = torch.cat([polys, torch.zeros((cap, V - 3, K), dtype=data.dtype,
+    verts = torch.cat([polys, torch.zeros((cap, POLY_VERTS - 3, K),
+                                          dtype=data.dtype,
                                           device=data.device)], dim=1)
     vcount = torch.where(live, 3, 0).to(torch.int32)
 
@@ -302,19 +308,19 @@ def guard_clip_xy(clip2, attrs2, parent, width, height, cap=64,
 
     # Fan triangulation: (v0, v_{k+1}, v_{k+2}) for k in 0..4.
     fans = []
-    for k in range(V - 3):
+    for k in range(FAN_PIECES):
         tri = torch.stack([verts[:, 0], verts[:, k + 1], verts[:, k + 2]],
                           dim=1)                               # [cap, 3, K]
         ok = (vcount >= k + 3)[:, None, None]
         fans.append(torch.where(ok, tri, torch.zeros_like(tri)))
-    fan = torch.stack(fans, dim=1).reshape(cap * (V - 3), 3, K)
+    fan = torch.stack(fans, dim=1).reshape(cap * FAN_PIECES, 3, K)
 
     # Kill the clipped originals in the main list.
     killed = torch.where(live[:, None, None], torch.zeros_like(polys), polys)
     data = data.clone()
     data[ids] = killed
 
-    parent_fan = parent[ids][:, None].expand(cap, V - 3).reshape(-1)
+    parent_fan = parent[ids][:, None].expand(cap, FAN_PIECES).reshape(-1)
     data_out = torch.cat([data, fan], dim=0)
     parent_out = torch.cat([parent, parent_fan], dim=0)
     n_over = oversize.to(torch.int32).sum()
