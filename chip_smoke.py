@@ -210,7 +210,7 @@ Phases (one line each; any failure exits non-zero and prints no result):
      from its unsharded frame likewise, tests/torch_band_witness.py), its
      PSNR (>= 40 dB) and the samples K3s covers otherwise than on the
      unsharded frame (<= BAND_FLIPS of them).
- 25. the prep graph (pipeline.PREP_GRAPH, on the card the frame's prep
+ 25. the prep graph (prep.PREP_GRAPH, on the card the frame's prep
      captured as a CUDA graph at its shape's second frame and replayed)
      against the prep run op by op: the flagship frame, config 4 (the split
      path) and config 5 (1M triangles, 3840x2160), each from an empty
@@ -1950,10 +1950,10 @@ def parallel_phase(dev, smi, path_launches):
         def prep_full():
             return pipeline.prepare_frame(sc, cm, lt, cf, shadow_target=tg,
                                           device=dev)
-        fb_full, _ = pipeline._render_prepared(prep_full(), cf)   # warm-up
+        fb_full, _ = pipeline.render_prepared(prep_full(), cf)   # warm-up
         prep, prep_ms = timed_once(prep_full)
         (fb_full, _), render_ms = timed_once(
-            lambda: pipeline._render_prepared(prep, cf))
+            lambda: pipeline.render_prepared(prep, cf))
         reset_counts()
         bands, preps, rows = [], [], []
         for b in range(n):
@@ -1961,7 +1961,7 @@ def parallel_phase(dev, smi, path_launches):
                 lambda: sharding.prepare_band(sc, cm, lt, b, n, cf,
                                               shadow_target=tg, device=dev))
             (fb_b, _), brender_ms = timed_once(
-                lambda: pipeline._render_prepared(bprep, bcfg))
+                lambda: pipeline.render_prepared(bprep, bcfg))
             bands.append(fb_b)
             preps.append((bprep, bcfg))
             off = bprep.main_bins.tile_offsets
@@ -1990,7 +1990,7 @@ def parallel_phase(dev, smi, path_launches):
         for b, ((bprep, bcfg), row) in enumerate(zip(preps, rows)):
             what = f"{name}x{n}_band{b}"
             (fb_b, _), calls = recorded_calls(
-                lambda: pipeline._render_prepared(bprep, bcfg))
+                lambda: pipeline.render_prepared(bprep, bcfg))
             checked, twin_err = twins_hold(what, calls)
             if checked != per or not torch.equal(fb_b, bands[b]):
                 fail(f"{what}: the band's kernels {checked} (want {per}), "
@@ -1999,7 +1999,7 @@ def parallel_phase(dev, smi, path_launches):
                 sc, cm, lt, b, n, cf, shadow_target=tg, backend="reference",
                 device=dev)
             reset_counts()
-            fb_r, _ = pipeline._render_prepared(rprep, bcfg)
+            fb_r, _ = pipeline.render_prepared(rprep, bcfg)
             check_launches(f"{what} on the reference backend", read_counts(),
                            {})
             psnr_r = psnr_frames(fb_r, bands[b])
@@ -2060,8 +2060,8 @@ def parallel_phase(dev, smi, path_launches):
 
 
 def prep_graph_phase(dev, smi):
-    """Phase 25: the prep graph (``pipeline.PREP_GRAPH``) against the prep
-    run op by op (``pipeline._prepare(..., graphed=False)``) on the card:
+    """Phase 25: the prep graph (``prep.PREP_GRAPH``) against the prep run
+    op by op (``prep.prepare(..., graphed=False)``) on the card:
     the flagship frame, config 4 (the split path) and config 5 (1M
     triangles at 3840x2160), each from an empty cache (a shape's first
     frame runs op by op, its second captures) and replayed at a second
@@ -2086,11 +2086,13 @@ def prep_graph_phase(dev, smi):
     from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
     from metalrenderer_tpu_torch.engine import audio_app, configs, session
     from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.passes import prep as frame_prep
+    from metalrenderer_tpu_torch.raster.binning import TileBins
     from metalrenderer_tpu_torch.scene.camera import OrbitCamera
     from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
 
     def same(a, b):
-        ta, tb = pipeline._tables(a), pipeline._tables(b)
+        ta, tb = frame_prep.tables(a), frame_prep.tables(b)
         return len(ta) == len(tb) and all(
             x.shape == y.shape and torch.equal(x.reshape(-1).view(
                 torch.int32), y.reshape(-1).view(torch.int32))
@@ -2116,7 +2118,7 @@ def prep_graph_phase(dev, smi):
     def measure(eager, graphed, reps, replays):
         e_prof = profile_frames(lambda _: eager(), [None] * 2)
         g_prof = profile_frames(lambda _: graphed(), [None] * 2)
-        graph, = pipeline.PREP_GRAPH.graphs.values()
+        graph, = frame_prep.PREP_GRAPH.graphs.values()
 
         def replay():
             for _ in range(replays):
@@ -2134,18 +2136,18 @@ def prep_graph_phase(dev, smi):
         """fn() twice from an empty cache, the first op by op, the second
         capturing: (the second's output, the first's ms, the second's ms,
         reserved bytes the capture added, peak allocated bytes)."""
-        pipeline.PREP_GRAPH.clear()
+        frame_prep.PREP_GRAPH.clear()
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        c0 = pipeline.PREP_GRAPH.captures
+        c0 = frame_prep.PREP_GRAPH.captures
         _, first_ms = wall_ms(fn)
-        if pipeline.PREP_GRAPH.captures != c0:
+        if frame_prep.PREP_GRAPH.captures != c0:
             fail("prep_graph: the first frame of a shape captured")
         r0 = torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
         out, ms = wall_ms(fn)
-        if pipeline.PREP_GRAPH.captures != c0 + 1:
+        if frame_prep.PREP_GRAPH.captures != c0 + 1:
             fail("prep_graph: the second frame of a shape did not capture")
         return (out, first_ms, ms, torch.cuda.memory_reserved() - r0,
                 torch.cuda.max_memory_allocated())
@@ -2168,18 +2170,17 @@ def prep_graph_phase(dev, smi):
         cams = (cm, dataclasses.replace(cm, theta=float(cm.theta) + 0.1))
 
         def eager(d=d0, c=cams[0]):
-            return pipeline._prepare(sc, c, lt, cf, ShadowConfig(), d, tg,
-                                     "kernels", dev, None, graphed=False)
+            return frame_prep.prepare(sc, c, lt, cf, ShadowConfig(), d, tg,
+                                      dev, None, graphed=False)
 
         def graphed(d=d0, c=cams[0]):
-            with pipeline._handed_over():
-                return pipeline.prepare_frame(sc, c, lt, cf, displacement=d,
-                                              shadow_target=tg, device=dev)
+            return frame_prep.prepare(sc, c, lt, cf, ShadowConfig(), d, tg,
+                                      dev, None, graphed=True)
         g, first_ms, cap_ms, pool, peak = fresh_capture(graphed)
         equal = [g.static and same(g, eager())]
-        r0 = pipeline.PREP_GRAPH.replays
+        r0 = frame_prep.PREP_GRAPH.replays
         equal.append(same(graphed(d1, cams[1]), eager(d1, cams[1])))
-        if pipeline.PREP_GRAPH.replays != r0 + 1:
+        if frame_prep.PREP_GRAPH.replays != r0 + 1:
             fail(f"prep_graph: {name}'s third frame did not replay")
         say("prep_graph", case=name, bit_equal=json.dumps(equal),
             first_frame_ms=f"{first_ms:.1f}", capture_ms=f"{cap_ms:.1f}",
@@ -2210,44 +2211,43 @@ def prep_graph_phase(dev, smi):
             device=dev)
 
     def eager_preps():
-        return [pipeline._prepare(scenes[f], cams[f], lights[f], cfg,
-                                  ShadowConfig(), disps[f], target,
-                                  "kernels", dev, None, graphed=False)
+        return [frame_prep.prepare(scenes[f], cams[f], lights[f], cfg,
+                                   ShadowConfig(), disps[f], target, dev,
+                                   None, graphed=False)
                 for f in range(BATCH)]
 
     def graphed_preps():
         for f in range(BATCH):
-            with pipeline._handed_over():
-                yield pipeline.prepare_frame(
-                    scenes[f], cams[f], lights[f], cfg,
-                    displacement=disps[f], shadow_target=target, device=dev)
+            yield frame_prep.prepare(scenes[f], cams[f], lights[f], cfg,
+                                     ShadowConfig(), disps[f], target, dev,
+                                     None, graphed=True)
 
     def graphed_stack():
-        return pipeline._stack_preps(graphed_preps(), BATCH)
-    pipeline.PREP_GRAPH.clear()
+        return pipeline.stack_preps(graphed_preps(), BATCH)
+    frame_prep.PREP_GRAPH.clear()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     r0 = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
-    c0 = pipeline.PREP_GRAPH.captures
+    c0 = frame_prep.PREP_GRAPH.captures
     (rgba, _), batch_ms = wall_ms(batch)
     pool, peak = (torch.cuda.memory_reserved() - r0,
                   torch.cuda.max_memory_allocated())
-    if pipeline.PREP_GRAPH.captures != c0 + 1:
+    if frame_prep.PREP_GRAPH.captures != c0 + 1:
         fail("prep_graph: the batch's frames did not capture one graph")
     eagers = eager_preps()
     frames_equal = all(
-        torch.equal(rgba[f], pipeline._render_prepared(eagers[f], cfg)[0])
+        torch.equal(rgba[f], pipeline.render_prepared(eagers[f], cfg)[0])
         for f in range(BATCH))
-    got, want = graphed_stack(), pipeline._stack_preps(eagers, BATCH)
+    got, want = graphed_stack(), pipeline.stack_preps(eagers, BATCH)
     tables_equal = torch.equal(got.uniforms, want.uniforms) and all(
         (x is None and y is None) or (x is not None and y is not None
                                       and torch.equal(x, y))
-        for b in ("shadow_bins", "main_bins") for k in pipeline._BIN_TABLES
+        for b in ("shadow_bins", "main_bins") for k in TileBins.TABLES
         for x, y in [(getattr(getattr(got, b), k),
                       getattr(getattr(want, b), k))])
-    m = measure(lambda: pipeline._stack_preps(eager_preps(), BATCH),
+    m = measure(lambda: pipeline.stack_preps(eager_preps(), BATCH),
                 graphed_stack, 5, BATCH)
     say("prep_graph", case="audioapp_batch8", frames=BATCH,
         frames_bit_equal=frames_equal, tables_bit_equal=tables_equal,
@@ -2258,14 +2258,14 @@ def prep_graph_phase(dev, smi):
         fail("prep_graph: the graphed batch differs from the op-by-op preps")
 
     # A one-off frame of a new shape: op by op, no capture.
-    pipeline.PREP_GRAPH.clear()
-    c0 = pipeline.PREP_GRAPH.captures
+    frame_prep.PREP_GRAPH.clear()
+    c0 = frame_prep.PREP_GRAPH.captures
     _, one_ms = wall_ms(lambda: pipeline.render_frame(
         scenes[0], cam, lights[0], cfg, displacement=0.05,
         shadow_target=target, device=dev))
-    one_captures = pipeline.PREP_GRAPH.captures - c0
-    pipeline.PREP_GRAPH.clear()
-    c0 = pipeline.PREP_GRAPH.captures
+    one_captures = frame_prep.PREP_GRAPH.captures - c0
+    frame_prep.PREP_GRAPH.clear()
+    c0 = frame_prep.PREP_GRAPH.captures
     # A session resized every frame through six sizes, three rounds: the
     # first round op by op, the second captures each size (freeing the
     # two oldest graphs), the third replays four and runs two op by op.
@@ -2283,12 +2283,12 @@ def prep_graph_phase(dev, smi):
     say("prep_graph", case="one_off_and_resizes", one_off_frame_ms=(
         f"{one_ms:.2f}"), one_off_captures=one_captures,
         resize_round_ms=json.dumps(rounds),
-        session_captures=pipeline.PREP_GRAPH.captures - c0,
+        session_captures=frame_prep.PREP_GRAPH.captures - c0,
         card=repr(smi))
-    if one_captures or pipeline.PREP_GRAPH.captures - c0 != len(sizes):
+    if one_captures or frame_prep.PREP_GRAPH.captures - c0 != len(sizes):
         fail("prep_graph: the resized session did not capture each size "
              "once")
-    pipeline.PREP_GRAPH.clear()
+    frame_prep.PREP_GRAPH.clear()
 
 
 def frame_gaps(img, ref, tile=SWEEP_TILE):
@@ -2444,35 +2444,31 @@ def span_device_ms(fn, prefix="mr/prep"):
 
 def setup_kernel_phase(dev, smi):
     """Phase 27: the main pass's geometry front end on config 5 at full
-    size (1M triangles, 3840x2160) and the flagship frame (1920x1080).
-    Per case: the op-by-op prep's device ms by ``mr/prep/*`` span (the
-    bake, the light pass, the main pass's front end, each pass's binning)
-    under torch.profiler, beside every device event's ms; the prep
-    graph's device ms a frame (its replays back to back, and with the host
-    ahead) and its pool. Where the package has the kernel
-    (``raster/setup_cuda.py``, ``csrc/setup.cu``): its tables and stats
-    against the plain chain's on the card (bit-equal), the kernel's device
-    ms host ahead with the guard band off (the tables pass alone) and on
-    (its three launches, the sort and the fan code between them), beside
-    its byte bound and the plain chain's ms, and the launch counter over
-    one op-by-op prep, one capture and a replay. Loaded by path with
-    another checkout first on ``sys.path``, it measures that checkout's
-    package (a package without the kernel prints the prep's lines
-    alone)."""
+    size (1M triangles, 3840x2160) and the flagship frame (1920x1080). Per
+    case: the op-by-op prep's device ms by ``mr/prep/*`` span (the bake,
+    the light pass, the main pass's front end, each pass's binning) under
+    torch.profiler, beside every device event's ms; the prep graph's
+    device ms a frame (its replays back to back, and with the host ahead)
+    and its pool. Then the kernel (``raster/setup_cuda.py``,
+    ``csrc/setup.cu``): its tables and stats against the plain chain's on
+    the card (bit-equal), the kernel's device ms host ahead with the guard
+    band off (the tables pass alone) and on (its three launches, the sort
+    and the fan code between them), beside its byte bound and the plain
+    chain's ms, and the launch counter over one op-by-op prep, one capture
+    and a replay. Loaded by path with another checkout first on
+    ``sys.path``, it measures that checkout's package, which needs the
+    kernel and ``passes/prep.py``."""
     import gc
 
     import torch
     from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
     from metalrenderer_tpu_torch.engine import audio_app, configs
     from metalrenderer_tpu_torch.math import transforms
-    from metalrenderer_tpu_torch.passes import pipeline
+    from metalrenderer_tpu_torch.passes import prep as frame_prep
     from metalrenderer_tpu_torch.scene.camera import OrbitCamera
     from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
     from metalrenderer_tpu_torch.scene.scene import bake
-    try:
-        from metalrenderer_tpu_torch.raster import setup_cuda
-    except ImportError:
-        setup_cuda = None
+    from metalrenderer_tpu_torch.raster import setup_cuda
     import metalrenderer_tpu_torch
     pkg = str(Path(metalrenderer_tpu_torch.__file__).parent)
 
@@ -2507,42 +2503,35 @@ def setup_kernel_phase(dev, smi):
         scene, cm, lt, cf = build()
 
         def eager():
-            return pipeline._prepare(scene, cm, lt, cf, ShadowConfig(), disp,
-                                     target, "kernels", dev, None,
-                                     graphed=False)
+            return frame_prep.prepare(scene, cm, lt, cf, ShadowConfig(),
+                                      disp, target, dev, None, graphed=False)
         eager()
         spans, total = span_device_ms(eager)
         say("setup_kernel", case=name, package=pkg,
             eager_span_device_ms=json.dumps(spans),
             eager_device_ms=f"{total:.4f}", card=repr(smi))
 
-        pipeline.PREP_GRAPH.clear()
+        graphs = frame_prep.PREP_GRAPH
+        graphs.clear()
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        if setup_cuda is not None:
-            setup_cuda.reset_launch_counts()
-        c0, n0 = pipeline.PREP_GRAPH.captures, pipeline.PREP_GRAPH.replays
+        setup_cuda.reset_launch_counts()
+        c0, n0 = graphs.captures, graphs.replays
         r0 = torch.cuda.memory_reserved()
         for _ in range(3):      # op by op, capture, replay
-            with pipeline._handed_over():
-                pipeline.prepare_frame(scene, cm, lt, cf, displacement=disp,
-                                       shadow_target=target, device=dev)
+            frame_prep.prepare(scene, cm, lt, cf, ShadowConfig(), disp,
+                               target, dev, None, graphed=True)
         torch.cuda.synchronize()
         pool = torch.cuda.memory_reserved() - r0
-        graph, = pipeline.PREP_GRAPH.graphs.values()
+        graph, = graphs.graphs.values()
         replay_ms, replay_dev_ms = timings(graph.graph.replay, reps)
-        line = dict(case=name, graph_replay_ms=f"{replay_ms:.4f}",
-                    graph_replay_device_ms=f"{replay_dev_ms:.4f}",
-                    pool_reserved_bytes=pool,
-                    captures=pipeline.PREP_GRAPH.captures - c0,
-                    replays=pipeline.PREP_GRAPH.replays - n0)
-        if setup_cuda is not None:
-            line["launches"] = json.dumps(setup_cuda.LAUNCHES)
-        say("setup_kernel", **line, card=repr(smi))
-        pipeline.PREP_GRAPH.clear()
-        if setup_cuda is None:
-            continue
+        say("setup_kernel", case=name, graph_replay_ms=f"{replay_ms:.4f}",
+            graph_replay_device_ms=f"{replay_dev_ms:.4f}",
+            pool_reserved_bytes=pool, captures=graphs.captures - c0,
+            replays=graphs.replays - n0,
+            launches=json.dumps(setup_cuda.LAUNCHES), card=repr(smi))
+        graphs.clear()
 
         geom = bake(scene, disp)
         vp = transforms.matmul(cm.projection_matrix(),

@@ -19,9 +19,9 @@ import torch
 
 from .audio.analyzer import AnalyzerState
 from .audio.mapping import VisualParams, VisualState
-from .passes.pipeline import PassGeometry
 from .math import transforms
 from .raster.geometry import TriangleSetup
+from .raster.setup_cuda import PassGeometry
 from .raster.shade import GBuffer, ShadowContext
 from .scene.camera import OrbitCamera, PoseCamera
 from .scene.lights import DirectionalLight, Lighting, PointLight

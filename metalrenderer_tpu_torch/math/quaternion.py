@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .transforms import cross
+
 F32 = torch.float32
 
 
@@ -30,14 +32,6 @@ def _sum_last(p):
 def _norm(v, keepdim=False):
     n = torch.sqrt(_sum_last(v * v))
     return n.unsqueeze(-1) if keepdim else n
-
-
-def _cross(a, b):
-    return torch.stack([
-        a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
-    ], dim=-1)
 
 
 def identity():
@@ -101,8 +95,8 @@ def rotate_vector(q, v):
     """quaternion_rotate_vector: v' = q v q*."""
     qv = q[..., :3]
     w = q[..., 3:4]
-    t = 2.0 * _cross(qv, v)
-    return v + w * t + _cross(qv, t)
+    t = 2.0 * cross(qv, v)
+    return v + w * t + cross(qv, t)
 
 
 def axis(q):

@@ -235,7 +235,7 @@ def render_band(scene, camera, lighting, band, n_bands,
     prep, band_cfg, n_in, dropped = prepare_band(
         scene, camera, lighting, band, n_bands, config, shadow_config,
         displacement, shadow_target, backend, band_slack, device)
-    fb, _ = pipeline._render_prepared(prep, band_cfg)
+    fb, _ = pipeline.render_prepared(prep, band_cfg)
     return fb, n_in, dropped
 
 

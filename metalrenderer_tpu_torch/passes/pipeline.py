@@ -33,8 +33,8 @@ binning, the split path's elementwise shading) is ordinary tensor code on
 the render device, but for the main pass's front end (projection, clipping,
 setup and its tables), which on the card is one more kernel
 (``raster/setup_cuda``). On the card the frame's prep (``prepare_frame``:
-vertex stage to binning) runs as one CUDA graph per scene shape, captured
-at its second frame and replayed at every later one (``PREP_GRAPH``).
+vertex stage to binning, ``passes.prep``) runs as one CUDA graph per scene
+shape, captured at its second frame and replayed at every later one.
 
 The frame-batch API (``render_batch`` and the ``render_frame_batch_*``
 functions, as in the JAX package) runs the same frames through the batch
@@ -48,7 +48,6 @@ for the CPU; on a CUDA device the kernels run, on the CPU their plain twins.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import contextvars
 import dataclasses
@@ -57,22 +56,12 @@ import itertools
 import torch
 
 from ..config import RenderConfig, ShadowConfig
-from ..math import transforms
-from ..raster import raster_cuda, reference_cpu, setup_cuda, shade
-from ..raster.binning import bin_triangles, build_tri_fields
-from ..raster.geometry import clip_near, setup_triangles
+from ..raster import raster_cuda, reference_cpu, shade
 from ..raster.setup_cuda import PassGeometry, prepare_main_pass
 from ..scene import lights as lights_mod
-from ..scene.materials import BLINN_PHONG_SHADOW
-from ..scene.mesh import Mesh
-from ..scene.scene import PackedGeometry, Scene, bake
+from ..scene.scene import Scene, bake
 from ..utils.profiling import annotate
-
-
-# The shadow pass bins with the JAX kernels' default span cap, whatever
-# config.span_cap says: every JAX shadow pass (rasterize_tiles,
-# rasterize_depth_batch) leaves span_cap at its default of 8.
-SHADOW_SPAN_CAP = 8
+from . import prep as frame_prep
 
 
 def resolve_device(device) -> torch.device:
@@ -82,42 +71,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device={device} requested but "
                            "torch.cuda.is_available() is false")
     return device
-
-
-def _wants_shadow(scene: Scene):
-    """Does any instance cast AND any instance receive shadows?"""
-    casts = any(i.cast_shadow for i in scene.instances)
-    receives = any(
-        i.material.kind == BLINN_PHONG_SHADOW for i in scene.instances
-    )
-    return casts and receives
-
-
-def _fused_uniforms(m, camera, light_anchor, light, lighting, config):
-    """Pack the shading uniforms (raster_cuda.FU_* layout: the fused
-    kernel's, read by the split path's shading too), f32[33] on the CPU."""
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32).reshape(-1)
-    return torch.cat([
-        f32(m), f32(camera.position), f32(light_anchor), f32(light.color),
-        f32(lighting.ambient_intensity), f32(lighting.shininess),
-        f32(config.clear_color), f32(config.shadow_bias),
-        f32(config.shadow_factor),
-    ])
-
-
-def _raster_gbuffer_reference(setup, pg: PassGeometry, config: RenderConfig):
-    """The reference backend's main pass: brute-force visibility anchored
-    at the main-pass tiles (so z-fighting samples resolve as the kernels
-    resolve them) and the per-sample G-buffer."""
-    samples = tuple(config.sample_positions)
-    depth, winner = reference_cpu.rasterize_brute_force(
-        setup, config.width, config.height, samples,
-        anchor=(config.tile_w, config.tile_h))
-    return reference_cpu.interpolate_gbuffer(
-        setup, winner, config.width, config.height, samples, pg.vattrs,
-        pg.mat_kind, pg.mat_color, pg.tex_id, depth,
-        normal_map_id=pg.normal_map_id)
 
 
 def _check_supported(lighting, backend):
@@ -130,112 +83,45 @@ def _check_supported(lighting, backend):
         raise TypeError(f"unknown light type {type(lighting.light)!r}")
 
 
-def _attr_px(config):
-    """The JAX pipeline's ``attr_px``: the per-pixel G-buffer (K2, K3 and
-    their batches) needs per-pixel shading on 8x128 main-pass tiles; every
-    other configuration takes the per-sample G-buffer (K3s)."""
-    return (config.shading_per_pixel
-            and (config.tile_h, config.tile_w) == (8, 128))
-
-
-def _fused_ok(scene, lighting, config):
-    """The JAX pipeline's ``fused_ok``: untextured scene, point light."""
-    return (_attr_px(config) and config.fused_shade
-            and len(scene.textures) == 0
-            and isinstance(lighting.light, lights_mod.PointLight))
-
-
 @dataclasses.dataclass(frozen=True)
-class FramePrep:
-    """Everything a frame's kernel launches and shading read, built on the
-    device."""
+class ReferencePrep:
+    """The reference backend's frame, prepared on the device: the passes'
+    triangle setups in place of bins."""
 
-    shadow_bins: object      # TileBins of the shadow pass, or None
-    main_bins: object        # TileBins (with attribute tables) of the main pass
+    shadow_setup: object     # TriangleSetup of the shadow pass, or None
+    main_setup: object       # TriangleSetup of the main pass
+    pass_geom: PassGeometry  # the main pass's per-vertex attributes
     uniforms: torch.Tensor   # f32[FU_LEN] shading uniforms (FU_* layout)
     light_dir: torch.Tensor  # f32[3] a directional light's direction, or None
     textures: tuple          # the scene's mip chains on the device
-    fused: bool              # the main pass takes the fused kernel (K2)
     stats: dict              # prep-side stats (0-d tensors)
-    backend: str = "kernels"
-    # The reference backend's inputs in place of the bins: the shadow
-    # pass's TriangleSetup (or None), the main pass's and its PassGeometry.
-    shadow_setup: object = None
-    main_setup: object = None
-    pass_geom: object = None
-    # The bins, uniforms and stats are a prep graph's outputs, which the
-    # next frame of its shape rewrites: only this module's render functions
-    # see such a prep (``_handed_over``).
-    static: bool = False
 
 
-def _copy_tables(prep: FramePrep) -> FramePrep:
-    """``prep`` reading a copy of its bins, uniforms and stats (one launch
-    on the card), which no replay rewrites."""
-    tables = _tables(prep)
-    copies = [torch.empty_like(t) for t in tables]
-    _copy_words(copies, tables)
-    return _with_tables(prep, copies)
-
-
-# The bins' tables in the order ``_tables`` lists them.
-_BIN_TABLES = ("vis", "attr", "tile_offsets", "tile_tris", "big_ids",
-               "big_aabb", "big_n", "num_big_dropped")
-
-
-def _tables(prep: FramePrep):
-    """The device tensors of a kernels prep that its kernels and stats read:
-    both passes' bins, the uniforms, the stats."""
-    out = []
-    for bins in (prep.shadow_bins, prep.main_bins):
-        if bins is not None:
-            out += [getattr(bins, k) for k in _BIN_TABLES
-                    if getattr(bins, k) is not None]
-    return out + [prep.uniforms, *prep.stats.values()]
-
-
-def _with_tables(prep: FramePrep, tables) -> FramePrep:
-    """``prep`` reading ``tables`` (in ``_tables``' order), no graph's."""
-    it = iter(tables)
-
-    def bins_of(bins):
-        return None if bins is None else dataclasses.replace(bins, **{
-            k: next(it) for k in _BIN_TABLES if getattr(bins, k) is not None})
-    shadow_bins = bins_of(prep.shadow_bins)
-    main_bins = bins_of(prep.main_bins)
-    uniforms = next(it)
-    return dataclasses.replace(
-        prep, shadow_bins=shadow_bins, main_bins=main_bins,
-        uniforms=uniforms, stats={k: next(it) for k in prep.stats},
-        static=False)
-
-
-def _copy_words(dst, src):
-    """Copy every tensor of ``src`` into its ``dst`` bit for bit, in one
-    launch on the card: both read as int32 words (a prep's tables all have
-    4- or 8-byte elements)."""
-    torch._foreach_copy_([d.reshape(-1).view(torch.int32) for d in dst],
-                         [s.reshape(-1).view(torch.int32) for s in src])
-
-
-def _host_side(scene, camera, lighting, config, shadow_config,
-               shadow_target):
-    """What the host forms for a frame's prep, on the CPU: (whether the
-    shadow pass runs, the light's P @ V (zeros without a shadow pass), the
-    camera's P @ V, the uniforms f32[FU_LEN])."""
-    light = lighting.light
-    light_anchor = lights_mod.light_anchor_position(
-        light, shadow_target, shadow_config)
-    shadow = _wants_shadow(scene)
-    m = torch.zeros((4, 4), dtype=torch.float32)
+def _prepare_reference(scene, camera, lighting, config, shadow_config,
+                       displacement, shadow_target, device, main_geom):
+    """The reference backend's prep on a resolved ``device``: the kernels'
+    host side, bake and light pass, the main pass's setup, no binning (its
+    ``big_dropped`` stats are zero)."""
+    scene = scene.to(device)
+    shadow, m, vp, uniforms = frame_prep.host_side(
+        scene, camera, lighting, config, shadow_config, shadow_target)
+    with annotate("mr/prep/bake"):
+        geom_full = bake(scene, displacement)
+    geom = geom_full if main_geom is None else main_geom
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    stats = {"num_triangles": torch.tensor(geom.num_triangles,
+                                           dtype=torch.int32, device=device)}
+    shadow_setup = None
     if shadow:
-        light_view = lights_mod.light_view_matrix(
-            light_anchor, torch.as_tensor(shadow_target, dtype=torch.float32))
-        m = transforms.matmul(
-            lights_mod.light_projection_matrix(shadow_config), light_view)
-    vp = transforms.matmul(camera.projection_matrix(), camera.view_matrix())
-    return shadow, m, vp, _fused_uniforms(m, camera, light_anchor, light,
-                                          lighting, config)
+        shadow_setup = frame_prep.light_pass(geom_full, m.to(device), config)
+        stats["shadow_big_dropped"] = zero
+    with annotate("mr/prep/main"):
+        setup, pg, main_stats = prepare_main_pass(geom, vp.to(device), config)
+        stats.update(main_stats)
+    stats["big_dropped"] = zero
+    return ReferencePrep(shadow_setup, setup, pg, uniforms.to(device),
+                         frame_prep.light_direction(lighting, device),
+                         scene.textures, stats)
 
 
 def prepare_frame(scene: Scene, camera, lighting,
@@ -243,10 +129,10 @@ def prepare_frame(scene: Scene, camera, lighting,
                   shadow_config: ShadowConfig = ShadowConfig(),
                   displacement=0.0, shadow_target=(0.0, 0.0, 0.0),
                   backend="kernels", device="cuda",
-                  main_geom=None) -> FramePrep:
+                  main_geom=None):
     """The host-side part of a frame: vertex stage, clipping, triangle
-    setup and binning of both passes (the reference backend bins nothing),
-    and the uniforms. No kernel runs.
+    setup and binning of both passes, and the uniforms: a ``FramePrep``,
+    or the reference backend's ``ReferencePrep`` (no bins). No kernel runs.
 
     ``main_geom`` (a ``PackedGeometry`` on ``device``, e.g. a band's pruned
     soup from ``parallel.sharding.prune_to_band``) replaces the scene's
@@ -254,21 +140,26 @@ def prepare_frame(scene: Scene, camera, lighting,
     scene, since a caster outside the camera's view still shadows it.
 
     On a CUDA device with the kernels backend the prep's device work is a
-    CUDA graph (``PREP_GRAPH``) from the second frame of its shape
-    (``prep_graph_key``) on: captured then, and replayed for every later
-    one, with the frame's displacement, matrices and uniforms sent up in
-    one upload and its geometry in one device copy. The tables returned
+    CUDA graph (``passes.prep``) from the second frame of its shape
+    (``prep.prep_graph_key``) on: captured then, and replayed for every
+    later one, with the frame's displacement, matrices and uniforms sent up
+    in one upload and its geometry in one device copy. The tables returned
     are then a copy of the graph's outputs (one launch), the caller's to
-    keep. Elsewhere (the CPU, the reference backend, a shape's first
-    frame) the prep runs op by op, with the same results."""
+    keep. Elsewhere (the CPU, the reference backend, a shape's first frame)
+    the prep runs op by op, with the same results."""
     with annotate("mr/prep"):
         device = resolve_device(device)
-        prep = _prepare(scene, camera, lighting, config, shadow_config,
-                        displacement, shadow_target, backend, device,
-                        main_geom, graphed=(device.type == "cuda"
-                                            and backend == "kernels"))
+        _check_supported(lighting, backend)
+        if backend == "reference":
+            return _prepare_reference(scene, camera, lighting, config,
+                                      shadow_config, displacement,
+                                      shadow_target, device, main_geom)
+        prep = frame_prep.prepare(scene, camera, lighting, config,
+                                  shadow_config, displacement, shadow_target,
+                                  device, main_geom,
+                                  graphed=device.type == "cuda")
         if prep.static and not _HAND_OVER.get():
-            prep = _copy_tables(prep)
+            prep = frame_prep.copy_tables(prep)
         return prep
 
 
@@ -287,326 +178,6 @@ def _handed_over():
         _HAND_OVER.reset(token)
 
 
-def _prepare(scene, camera, lighting, config, shadow_config, displacement,
-             shadow_target, backend, device, main_geom, graphed):
-    """``prepare_frame`` on a resolved ``device``, uncopied: through its
-    prep graph if ``graphed`` and the graph cache says so, else op by
-    op."""
-    _check_supported(lighting, backend)
-    scene = scene.to(device)
-    light = lighting.light
-    shadow, m, vp, uniforms = _host_side(scene, camera, lighting, config,
-                                         shadow_config, shadow_target)
-    n_tris = (scene if main_geom is None else main_geom).num_triangles
-    prep = None
-    if graphed:
-        prep = _graphed_prep(scene, displacement, vp, m, uniforms, shadow,
-                             config, device, main_geom, n_tris)
-    if prep is None:
-        prep = _prep_device(
-            scene, displacement, vp.to(device), m.to(device) if shadow
-            else None, uniforms.to(device), shadow, config,
-            backend == "reference", main_geom,
-            torch.tensor(n_tris, dtype=torch.int32, device=device))
-    light_dir = None
-    if isinstance(light, lights_mod.DirectionalLight):
-        light_dir = torch.as_tensor(light.direction,
-                                    dtype=torch.float32).to(device)
-    return dataclasses.replace(
-        prep, light_dir=light_dir, textures=scene.textures,
-        fused=backend != "reference" and _fused_ok(scene, lighting, config))
-
-
-def _prep_device(scene, displacement, vp, light_m, uniforms, shadow, config,
-                 reference, main_geom, n_tris) -> FramePrep:
-    """The prep's device work: bake, both passes' clipping and setup, the
-    binning (none for the reference backend) and the stats. ``displacement``:
-    a number or an f32[] on the device; ``vp``, ``light_m``: the camera's
-    and the light's P @ V, f32[4,4] on the device (``light_m`` None without
-    a shadow pass); ``uniforms`` f32[FU_LEN] and ``n_tris`` (the
-    ``num_triangles`` stat) on the device. It neither syncs nor uploads, so
-    a prep graph captures it whole. Returns the FramePrep without
-    ``light_dir``, ``textures`` and ``fused``."""
-    device = uniforms.device
-    zero = (torch.zeros((), dtype=torch.int32, device=device) if reference
-            else None)
-    with annotate("mr/prep/bake"):
-        geom_full = bake(scene, displacement)
-    geom = geom_full if main_geom is None else main_geom
-    stats = {"num_triangles": n_tris}
-
-    shadow_bins = shadow_setup = None
-    if shadow:
-        with annotate("mr/prep/shadow"):
-            clip_l = transforms.transform_points(light_m, geom_full.world)
-            clip_l2, _, parent_l = clip_near(clip_l.reshape(-1, 3, 4))
-            size = config.shadow_map_size
-            setup_l = setup_triangles(clip_l2, size, size,
-                                      cull_backfaces=False,
-                                      near_eps=config.near_eps)
-            # Only shadow casters contribute (the reference encodes only
-            # the cube into the shadow pass, mtl_engine.mm:785-787).
-            setup_l = setup_l.replace(
-                valid=setup_l.valid & geom_full.cast_shadow[
-                    parent_l.to(torch.int64)])
-        if reference:
-            shadow_setup = setup_l
-            stats["shadow_big_dropped"] = zero
-        else:
-            with annotate("mr/prep/shadow_bin"):
-                shadow_bins = bin_triangles(
-                    setup_l, build_tri_fields(setup_l), size, size,
-                    config.shadow_tile_w, config.shadow_tile_h,
-                    span_cap=SHADOW_SPAN_CAP,
-                    big_capacity=config.big_capacity)
-            stats["shadow_big_dropped"] = shadow_bins.num_big_dropped
-
-    main_bins = None
-    with annotate("mr/prep/main"):
-        if reference:
-            setup, pg, gstats = prepare_main_pass(geom, vp, config,
-                                                  with_stats=True)
-            stats.update(setup_cuda.main_pass_stats(setup, gstats))
-        else:
-            # The kernel on the card (the chain, its twin, elsewhere).
-            tables = setup_cuda.main_pass_tables(geom, vp, config)
-            stats.update(tables.stats)
-    if reference:
-        stats["big_dropped"] = zero
-    else:
-        with annotate("mr/prep/main_bin"):
-            main_bins = bin_triangles(
-                tables, tables.vis, config.width, config.height,
-                config.tile_w, config.tile_h, span_cap=config.span_cap,
-                big_capacity=config.big_capacity, attr_fields=tables.attr)
-        stats["big_dropped"] = main_bins.num_big_dropped
-    return FramePrep(shadow_bins, main_bins, uniforms, None, (), False,
-                     stats, "reference" if reference else "kernels",
-                     shadow_setup,
-                     *((setup, pg) if reference else (None, None)))
-
-
-# --------------------------------------------------------------------------
-# The prep graph
-# --------------------------------------------------------------------------
-#
-# Every shape in ``_prep_device`` follows from the scene's triangle counts,
-# the config and the tile grid, and no op in it syncs with the host, so on
-# the card it is captured once per shape as a CUDA graph and replayed: one
-# graph launch in place of ~930 kernel launches a frame. The graph reads
-# static inputs that each frame fills: the scene's tensors by one device
-# copy, and the displacement, both P @ V products (formed on the host as
-# the op-by-op prep forms them) and the uniforms by one upload from pinned
-# memory. Its outputs are the same tensors at every replay.
-
-# The RenderConfig fields the prep's device work reads (the rest reach it
-# through the uniforms, or not at all).
-_PREP_CONFIG_FIELDS = ("width", "height", "cull_backfaces", "near_eps",
-                       "xyclip_capacity", "guard_band_px", "shadow_map_size",
-                       "shadow_tile_w", "shadow_tile_h", "tile_w", "tile_h",
-                       "span_cap", "big_capacity")
-# A frame's upload: displacement, camera P @ V, light P @ V, uniforms.
-_UP_DISP, _UP_VP, _UP_LIGHT, _UP_UNIFORMS = 0, 1, 17, 33
-_UP_LEN = _UP_UNIFORMS + raster_cuda.FU_LEN
-
-
-def prep_graph_key(scene: Scene, config: RenderConfig, device,
-                   main_geom=None):
-    """What fixes a prep's shapes and control flow, so which prep graph a
-    frame replays: each instance's vertex and triangle counts, its
-    displacement and shadow flags and its material's kind and texture and
-    normal-map ids (the bake writes them per triangle), whether the shadow
-    pass runs, the config fields the prep reads, the device and
-    ``main_geom``'s vertex and triangle counts. Frames that differ in
-    displacement, camera, light or colors share a graph."""
-    instances = tuple(
-        (i.mesh.num_vertices, i.mesh.num_triangles, i.use_displacement,
-         i.cast_shadow, i.material.kind, i.material.texture_id,
-         i.material.normal_map_id) for i in scene.instances)
-    geom = (None if main_geom is None
-            else (main_geom.world.shape[0], main_geom.num_triangles))
-    return (str(torch.device(device)), instances, _wants_shadow(scene),
-            tuple(getattr(config, f) for f in _PREP_CONFIG_FIELDS), geom)
-
-
-def _geometry_tensors(scene: Scene, main_geom):
-    """The device tensors of a frame's geometry that its prep graph reads:
-    each instance's positions, uvs, normals, model matrix and material
-    color, then ``main_geom``'s fields."""
-    out = []
-    for inst in scene.instances:
-        out += [inst.mesh.positions, inst.mesh.uvs, inst.mesh.normals,
-                inst.model_matrix, inst.material.color]
-    if main_geom is not None:
-        out += [getattr(main_geom, f.name)
-                for f in dataclasses.fields(main_geom)]
-    return out
-
-
-def _with_geometry(scene: Scene, main_geom, tensors):
-    """(``scene`` without its textures, ``main_geom``) reading ``tensors``
-    (in ``_geometry_tensors``' order)."""
-    instances = []
-    for k, inst in enumerate(scene.instances):
-        pos, uvs, nrm, model, color = tensors[5 * k:5 * k + 5]
-        instances.append(dataclasses.replace(
-            inst, mesh=Mesh(pos, uvs, nrm), model_matrix=model,
-            material=dataclasses.replace(inst.material, color=color)))
-    rest = tensors[5 * len(instances):]
-    return (Scene(instances=tuple(instances)),
-            PackedGeometry(*rest) if main_geom is not None else None)
-
-
-def _upload(displacement, vp, light_m, uniforms):
-    """A frame's one upload, f32[_UP_LEN] on the host: the displacement
-    (taken as f32, as ``bake`` takes it), the camera's and the light's
-    P @ V, the uniforms."""
-    return torch.cat([torch.as_tensor(displacement, dtype=torch.float32)
-                      .reshape(1).cpu(), vp.reshape(-1), light_m.reshape(-1),
-                      uniforms])
-
-
-def _graph_body(scene, main_geom, upload, shadow, config, n_tris):
-    """``_prep_device`` as a prep graph runs it: on ``scene`` and
-    ``main_geom`` reading the static geometry and on the static ``upload``
-    (``_upload``'s layout, on the device)."""
-    return dataclasses.replace(_prep_device(
-        scene, upload[_UP_DISP], upload[_UP_VP:_UP_LIGHT].view(4, 4),
-        upload[_UP_LIGHT:_UP_UNIFORMS].view(4, 4) if shadow else None,
-        upload[_UP_UNIFORMS:], shadow, config, False, main_geom, n_tris),
-        static=True)
-
-
-class PrepGraph:
-    """One prep captured as a CUDA graph: its static inputs, the graph and
-    the ``FramePrep`` that every replay rewrites."""
-
-    def __init__(self, scene, shadow, config, device, main_geom, n_tris):
-        self.device, self.shadow, self.config = device, shadow, config
-        self.geometry = [torch.empty_like(t)
-                         for t in _geometry_tensors(scene, main_geom)]
-        self.scene, self.main_geom = _with_geometry(scene, main_geom,
-                                                    self.geometry)
-        self.upload = torch.empty(_UP_LEN, dtype=torch.float32,
-                                  device=device)
-        self.n_tris = torch.tensor(n_tris, dtype=torch.int32, device=device)
-        self.graph = torch.cuda.CUDAGraph()
-        self.prep = None
-
-    def fill(self, geometry, frame):
-        """Set the inputs: ``geometry`` (``_geometry_tensors``) copied on
-        the device, ``frame`` (``_upload``'s arguments) packed in pinned
-        memory and sent up in one asynchronous copy (PyTorch's pinned
-        memory cache keeps the block until the copy has run)."""
-        torch._foreach_copy_(self.geometry, geometry)
-        self.upload.copy_(_upload(*frame).pin_memory(), non_blocking=True)
-
-    def _run(self):
-        return _graph_body(self.scene, self.main_geom, self.upload,
-                           self.shadow, self.config, self.n_tris)
-
-    def capture(self):
-        """Run the prep on the filled inputs once op by op on a side stream
-        (PyTorch's warm-up before a capture), capture it, and replay it."""
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._run()
-            torch.cuda.current_stream().wait_stream(side)
-            with torch.cuda.graph(self.graph):
-                self.prep = self._run()
-            self.graph.replay()
-
-
-class PrepGraphs:
-    """The prep graphs by ``prep_graph_key``, the least recently used
-    first, at most ``size`` (each graph's memory pool holds every
-    intermediate of its prep).
-
-    A shape is captured at its second frame (``due``); its first runs op
-    by op, so a one-off frame (a single render, a session's frame after a
-    resize) costs what it did before graphs, not a capture (tens of op-by-
-    op preps). A shape whose graph was freed runs op by op from then on,
-    so shapes taking turns beyond ``size`` never recapture in turn.
-    ``seen`` remembers the last ``remembered`` shapes without a graph;
-    ``captures`` and ``replays`` count the graphed frames."""
-
-    def __init__(self, size=4, remembered=64):
-        self.size, self.remembered = size, remembered
-        self.graphs = collections.OrderedDict()
-        # key -> frames run op by op, or None once its graph was freed.
-        self.seen = collections.OrderedDict()
-        self.captures = 0
-        self.replays = 0
-
-    def get(self, key):
-        graph = self.graphs.get(key)
-        if graph is not None:
-            self.graphs.move_to_end(key)
-        return graph
-
-    def due(self, key):
-        """Count a frame of ``key``, which has no graph: whether it
-        captures one (its second frame, if its graph was never freed)."""
-        frames = self.seen.pop(key, 0)
-        self.seen[key] = None if frames is None else frames + 1
-        while len(self.seen) > self.remembered:
-            self.seen.popitem(last=False)
-        return frames == 1
-
-    def add(self, key, make):
-        """Free the least recently used graphs beyond ``size - 1``, then
-        ``make()`` this key's graph and keep it."""
-        while len(self.graphs) >= self.size:
-            freed, _ = self.graphs.popitem(last=False)
-            self.seen.pop(freed, None)
-            self.seen[freed] = None
-        graph = self.graphs[key] = make()
-        self.captures += 1
-        return graph
-
-    def clear(self):
-        """Free every graph and forget every shape."""
-        self.graphs.clear()
-        self.seen.clear()
-
-
-# The process's prep graphs: every renderer of a process shares them, so a
-# stream's warm-up captures what its later frames replay.
-PREP_GRAPH = PrepGraphs()
-
-
-def _graphed_prep(scene, displacement, vp, light_m, uniforms, shadow,
-                  config, device, main_geom, n_tris):
-    """The frame's prep through its prep graph (a ``static`` FramePrep),
-    captured first at the shape's second frame; None where the frame runs
-    op by op (``PrepGraphs.due``)."""
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = prep_graph_key(scene, config, device, main_geom)
-    graph = PREP_GRAPH.get(key)
-    if graph is None and not PREP_GRAPH.due(key):
-        return None
-    frame = (displacement, vp, light_m, uniforms)
-    geometry = _geometry_tensors(scene, main_geom)
-    if graph is None:
-        with annotate("mr/prep/capture"):
-            def make():
-                g = PrepGraph(scene, shadow, config, device, main_geom,
-                              n_tris)
-                g.fill(geometry, frame)
-                g.capture()
-                return g
-            graph = PREP_GRAPH.add(key, make)
-    else:
-        with annotate("mr/prep/replay"):
-            graph.fill(geometry, frame)
-            graph.graph.replay()
-        PREP_GRAPH.replays += 1
-    return graph.prep
-
-
 def _shadow_pass(shadow_bins, config, stats):
     """K1 on one frame's shadow bins, or K4 on a batch's, depth alone (no
     winner plane, as the JAX ``rasterize_depth_batch`` returns): the shadow
@@ -615,16 +186,12 @@ def _shadow_pass(shadow_bins, config, stats):
         return None
     size = config.shadow_map_size
     with annotate("mr/raster"):
-        if raster_cuda.is_batch(shadow_bins):
-            depth, _ = raster_cuda.raster_depth_batch(
-                shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0,
-                with_winner=False)
-            shadow_map = depth[:, 0]
-        else:
-            depth, _ = raster_cuda.raster_depth(
-                shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0,
-                with_winner=False)
-            shadow_map = depth[0]
+        depth, _ = (raster_cuda.raster_depth_batch
+                    if raster_cuda.is_batch(shadow_bins)
+                    else raster_cuda.raster_depth)(
+            shadow_bins, size, size, ((0.5, 0.5),), clear_depth=1.0,
+            with_winner=False)
+        shadow_map = depth[..., 0, :, :]     # the one sample's plane
         stats["shadow_min_depth"] = torch.amin(shadow_map, dim=(-2, -1))
     return shadow_map
 
@@ -665,9 +232,11 @@ def _split_shade(ch, uniforms, shadow_map, textures, light_dir, config,
     return torch.stack([r, g, b, a], dim=-1)
 
 
-def _render_reference(prep: FramePrep, config: RenderConfig):
+def _render_reference(prep: ReferencePrep, config: RenderConfig):
     """The reference backend's passes and shading of one prepared frame:
-    (rgba, stats). No kernel runs."""
+    (rgba, stats). No kernel runs. The main pass is brute-force visibility
+    anchored at the main-pass tiles (so z-fighting samples resolve as the
+    kernels resolve them) and the per-sample G-buffer."""
     stats = dict(prep.stats)
     shadow_map = None
     if prep.shadow_setup is not None:
@@ -676,23 +245,31 @@ def _render_reference(prep: FramePrep, config: RenderConfig):
             prep.shadow_setup, size, size,
             anchor=(config.shadow_tile_w, config.shadow_tile_h))
         stats["shadow_min_depth"] = torch.amin(shadow_map)
-    gbuf = _raster_gbuffer_reference(prep.main_setup, prep.pass_geom, config)
+    samples, pg = tuple(config.sample_positions), prep.pass_geom
+    depth, winner = reference_cpu.rasterize_brute_force(
+        prep.main_setup, config.width, config.height, samples,
+        anchor=(config.tile_w, config.tile_h))
+    gbuf = reference_cpu.interpolate_gbuffer(
+        prep.main_setup, winner, config.width, config.height, samples,
+        pg.vattrs, pg.mat_kind, pg.mat_color, pg.tex_id, depth,
+        normal_map_id=pg.normal_map_id)
     stats["covered_fraction"] = torch.mean(gbuf.covered.to(torch.float32))
     return _split_shade(shade.channels_from_gbuffer(gbuf), prep.uniforms,
                         shadow_map, prep.textures, prep.light_dir, config,
                         tiled_sampler=False), stats
 
 
-def _render_prepared(prep: FramePrep, config: RenderConfig):
-    """The kernels (or the reference backend's passes) and shading of one
-    prepared frame: (rgba, stats)."""
-    if prep.backend != "kernels":
+def render_prepared(prep, config: RenderConfig):
+    """Render a ``FramePrep`` or ``ReferencePrep`` you hold: the kernels
+    (or the reference backend's passes) and shading of one prepared frame,
+    (rgba, stats)."""
+    if isinstance(prep, ReferencePrep):
         return _render_reference(prep, config)
     stats = dict(prep.stats)
     if prep.static:
         # The caller keeps the stats: copies, which no replay rewrites.
         copies = [torch.empty_like(v) for v in stats.values()]
-        _copy_words(copies, list(stats.values()))
+        frame_prep.copy_words(copies, list(stats.values()))
         stats = dict(zip(stats, copies))
     shadow_map = _shadow_pass(prep.shadow_bins, config, stats)
     samples = tuple(config.sample_positions)
@@ -703,7 +280,7 @@ def _render_prepared(prep: FramePrep, config: RenderConfig):
                 config.height, samples, clear_depth=config.clear_depth)
         stats["covered_fraction"] = torch.mean(covf)
         return rgba, stats
-    if _attr_px(config):
+    if frame_prep.attr_px(config):
         gout, _, _ = raster_cuda.raster_gbuffer(
             prep.main_bins, config.width, config.height, samples,
             clear_depth=config.clear_depth)
@@ -734,7 +311,7 @@ def render_frame(scene: Scene, camera, lighting,
             prep = prepare_frame(scene, camera, lighting, config,
                                  shadow_config, displacement, shadow_target,
                                  backend, device, main_geom)
-        return _render_prepared(prep, config)
+        return render_prepared(prep, config)
 
 
 def render(scene: Scene, camera, lighting,
@@ -767,7 +344,7 @@ def fused_batch_eligible(scene: Scene, lighting, config: RenderConfig,
     """Can (scene, lighting, config) take ``render_frame_batch_fused``? The
     fused branch's condition (untextured, point light, ``fused_shade``)
     plus ``px_batch_eligible``'s."""
-    return (_fused_ok(scene, lighting, config)
+    return (frame_prep.fused_ok(scene, lighting, config)
             and px_batch_eligible(scene, lighting, config, camera))
 
 
@@ -776,7 +353,7 @@ def px_batch_eligible(scene: Scene, lighting, config: RenderConfig,
     """Can (scene, lighting, config) take ``render_frame_batch_px``?
     Per-pixel shading on 8x128 main-pass tiles (K5's layout) and, when
     ``camera`` is given, an orbit camera (frames differ by ``theta``)."""
-    ok = _attr_px(config)
+    ok = frame_prep.attr_px(config)
     if camera is not None:
         ok = ok and hasattr(camera, "theta")
     return ok
@@ -799,59 +376,45 @@ def _batch_frames(camera, displacements, thetas, cameras):
     return disps, cams
 
 
-@dataclasses.dataclass(frozen=True)
-class BatchPrep:
-    """A batch's ``FramePrep``s stacked for the batch kernels."""
-
-    shadow_bins: object      # stacked TileBins of the shadow passes, or None
-    main_bins: object        # stacked TileBins of the main passes
-    uniforms: torch.Tensor   # f32[F, FU_LEN]
-    light_dir: torch.Tensor  # f32[3] or None (frame 0's)
-    textures: tuple          # frame 0's mip chains
-    stats: dict              # prep-side stats, leaves [F]
-
-
 def _check_batch_backend(backend):
     if backend != "kernels":
         raise ValueError("the batch kernels need backend='kernels'; "
                          "render_batch renders the reference frame by frame")
 
 
-def _stack_preps(preps, frames) -> BatchPrep:
-    """Stack a batch's ``frames`` preps for the batch kernels (the tables
-    of ``raster_cuda.stack_bins``). ``preps``, an iterable, is consumed
+def stack_preps(preps, frames):
+    """Stack a batch's ``frames`` preps for the batch kernels: a FramePrep
+    whose bins (``raster_cuda.stack_bins``' layout), uniforms f32[F,
+    FU_LEN] and stats carry a leading frame axis, and whose light_dir and
+    textures are the first frame's. ``preps``, an iterable, is consumed
     here: each prep is copied into its frame's slot of the stacked tables
     (one launch on the card) as it comes, so that a graphed prep is kept
     before the next frame's replay rewrites it."""
     preps = iter(preps)
     first = next(preps)
     slots = [torch.empty((frames, *t.shape), dtype=t.dtype, device=t.device)
-             for t in _tables(first)]
-    n = 0
+             for t in frame_prep.tables(first)]
     for f, prep in enumerate(itertools.chain([first], preps)):
         if (prep.shadow_bins is None) != (first.shadow_bins is None):
             raise ValueError("some frames of the batch have a shadow pass, "
                              "others not")
-        tables = _tables(prep)
+        tables = frame_prep.tables(prep)
         if f >= frames or [t.shape for t in tables] != [
                 s.shape[1:] for s in slots]:
             raise ValueError(f"frame {f} of a batch of {frames}: its "
                              "tables do not fit the batch's")
         with annotate("mr/stack"):
-            _copy_words([s[f] for s in slots], tables)
-        n = f + 1
-    if n != frames:
-        raise ValueError(f"{n} preps for a batch of {frames} frames")
-    stacked = _with_tables(first, slots)
+            frame_prep.copy_words([s[f] for s in slots], tables)
+    if f + 1 != frames:
+        raise ValueError(f"{f + 1} preps for a batch of {frames} frames")
+    stacked = frame_prep.with_tables(first, slots)
 
     def batch_bins(bins):
         return None if bins is None else dataclasses.replace(
             bins, big_n=bins.big_n.reshape(frames))
-    return BatchPrep(
-        shadow_bins=batch_bins(stacked.shadow_bins),
-        main_bins=batch_bins(stacked.main_bins), uniforms=stacked.uniforms,
-        light_dir=first.light_dir, textures=first.textures,
-        stats=stacked.stats)
+    return dataclasses.replace(
+        stacked, shadow_bins=batch_bins(stacked.shadow_bins),
+        main_bins=batch_bins(stacked.main_bins))
 
 
 def _stack_stats(stats):
@@ -901,7 +464,7 @@ def render_frame_batch_fused(scene: Scene, camera, lighting,
                 raise ValueError("scene_fn/lighting_fn left the fused "
                                  "branch")
             yield prep
-    batch = _stack_preps(preps(), len(disps))
+    batch = stack_preps(preps(), len(disps))
     stats = dict(batch.stats)
     shadow_maps = _shadow_pass(batch.shadow_bins, config, stats)
     with annotate("mr/raster"):
@@ -940,7 +503,7 @@ def render_frame_batch_px(scene: Scene, camera, lighting,
                                      shadow_config, d, shadow_target,
                                      backend, device)
             yield prep
-    batch = _stack_preps(preps(), len(disps))
+    batch = stack_preps(preps(), len(disps))
     stats = dict(batch.stats)
     shadow_maps = _shadow_pass(batch.shadow_bins, config, stats)
     samples = tuple(config.sample_positions)
@@ -979,7 +542,7 @@ def render_frame_batch_hoisted(scene: Scene, camera, lighting,
              for d, cam in zip(disps, cams)]
     outs, stats = [], []
     for prep in preps:
-        rgba, st = _render_prepared(prep, config)
+        rgba, st = render_prepared(prep, config)
         outs.append(rgba if frame_map is None else frame_map(rgba))
         stats.append(st)
     return torch.stack(outs), _stack_stats(stats)

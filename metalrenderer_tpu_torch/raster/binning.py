@@ -95,6 +95,11 @@ def build_attr_fields(setup: TriangleSetup, pg) -> torch.Tensor:
 class TileBins:
     """Binning result consumed by the raster kernels (all on one device)."""
 
+    # The device tables below, in the order a prep lists them
+    # (``passes.prep.tables``) and ``raster_cuda.stack_bins`` stacks them.
+    TABLES = ("vis", "attr", "tile_offsets", "tile_tris", "big_ids",
+              "big_aabb", "big_n", "num_big_dropped")
+
     tile_w: int
     tile_h: int
     ntx: int

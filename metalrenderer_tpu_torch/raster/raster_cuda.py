@@ -173,16 +173,10 @@ def is_batch(bins: TileBins) -> bool:
 
 def frame_bins(bins: TileBins, f) -> TileBins:
     """Frame ``f``'s bins (views) of a ``stack_bins`` batch."""
-    return dataclasses.replace(
-        bins, vis=bins.vis[f],
-        attr=None if bins.attr is None else bins.attr[f],
-        tile_offsets=bins.tile_offsets[f], tile_tris=bins.tile_tris[f],
-        big_ids=bins.big_ids[f], big_aabb=bins.big_aabb[f],
-        big_n=bins.big_n[f:f + 1], num_big_dropped=bins.num_big_dropped[f])
-
-
-_STACKED = ("vis", "attr", "tile_offsets", "tile_tris", "big_ids",
-            "big_aabb", "num_big_dropped")
+    # big_n stays i32[1], as a frame's own.
+    return dataclasses.replace(bins, **{
+        k: None if t is None else t[f:f + 1] if k == "big_n" else t[f]
+        for k in TileBins.TABLES for t in [getattr(bins, k)]})
 
 
 def stack_bins(frames) -> TileBins:
@@ -201,7 +195,7 @@ def stack_bins(frames) -> TileBins:
         if (b.tile_w, b.tile_h, b.ntx, b.nty) != grid:
             raise ValueError("stack_bins: frames binned on different tile "
                              "grids")
-        for k in _STACKED + ("big_n",):
+        for k in TileBins.TABLES:
             x, y = getattr(first, k), getattr(b, k)
             if (x is None) != (y is None):
                 raise ValueError(f"stack_bins: {k} present in some frames "
@@ -211,12 +205,11 @@ def stack_bins(frames) -> TileBins:
                 raise ValueError(f"stack_bins: {k} differs between frames: "
                                  f"{tuple(x.shape)} {x.dtype} {x.device} vs "
                                  f"{tuple(y.shape)} {y.dtype} {y.device}")
-    out = {k: (None if getattr(first, k) is None
-               else torch.stack([getattr(b, k) for b in frames]))
-           for k in _STACKED}
-    return dataclasses.replace(first, big_n=torch.cat([b.big_n
-                                                       for b in frames]),
-                               **out)
+    # big_n is i32[1] a frame: its frames concatenate to i32[F].
+    return dataclasses.replace(first, **{
+        k: None if getattr(first, k) is None
+        else (torch.cat if k == "big_n" else torch.stack)(
+            [getattr(b, k) for b in frames]) for k in TileBins.TABLES})
 
 
 # --------------------------------------------------------------------------

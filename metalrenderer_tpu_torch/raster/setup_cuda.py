@@ -70,10 +70,11 @@ class MainTables:
     stats: dict              # culled_triangles, xyclip_*, max_screen_coord
 
 
-def prepare_main_pass(geom, vp, config, with_stats=False):
+def prepare_main_pass(geom, vp, config):
     """Project (``vp``: the camera's P @ V, f32[4,4] on the geometry's
     device), near-clip, x/y guard-band clip (all with attribute
-    interpolation) and set up triangles for the camera pass."""
+    interpolation) and set up triangles for the camera pass: (setup,
+    PassGeometry, the pass's prep stats)."""
     clip = transforms.transform_points(vp, geom.world).reshape(-1, 3, 4)
     attrs = torch.cat([geom.world, geom.uvs, geom.normals],
                       dim=-1).reshape(-1, 3, 8)
@@ -97,14 +98,7 @@ def prepare_main_pass(geom, vp, config, with_stats=False):
         tex_id=geom.tex_id[p],
         normal_map_id=geom.normal_map_id[p],
     )
-    if with_stats:
-        return setup, pg, gstats
-    return setup, pg
-
-
-def main_pass_stats(setup, gstats):
-    """The main pass's prep stats from its setup and the guard band's."""
-    return {
+    return setup, pg, {
         "culled_triangles": (~setup.valid).sum().to(torch.int32),
         **gstats,
         "max_screen_coord": torch.amax(
@@ -115,11 +109,10 @@ def main_pass_stats(setup, gstats):
 
 def main_pass_tables_plain(geom, vp, config) -> MainTables:
     """Plain PyTorch twin of the kernel: the eager chain."""
-    setup, pg, gstats = prepare_main_pass(geom, vp, config, with_stats=True)
+    setup, pg, stats = prepare_main_pass(geom, vp, config)
     return MainTables(vis=build_tri_fields(setup),
                       attr=build_attr_fields(setup, pg), aabb=setup.aabb,
-                      valid=setup.valid,
-                      stats=main_pass_stats(setup, gstats))
+                      valid=setup.valid, stats=stats)
 
 
 class _Args(ctypes.Structure):

@@ -66,6 +66,7 @@ from metalrenderer_tpu_torch import convert, render_batch
 from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
 from metalrenderer_tpu_torch.engine import audio_app, configs
 from metalrenderer_tpu_torch.passes import pipeline
+from metalrenderer_tpu_torch.passes import prep as frame_prep
 from metalrenderer_tpu_torch.raster import (binning, mip_cuda, raster_cuda,
                                             sample_cuda, sampling)
 from metalrenderer_tpu_torch.scene.lights import Lighting
@@ -367,7 +368,7 @@ def test_shadow_pass_bins_with_the_default_span_cap():
     assert int(big_n(2)) != int(big_n(8))      # the cap matters here
     assert int(prep.shadow_bins.big_n[0]) == int(big_n(8))
     assert prep.shadow_bins.tile_tris.shape[0] == \
-        prep.shadow_bins.vis.shape[0] * pipeline.SHADOW_SPAN_CAP
+        prep.shadow_bins.vis.shape[0] * frame_prep.SHADOW_SPAN_CAP
     assert prep.main_bins.tile_tris.shape[0] == \
         prep.main_bins.vis.shape[0] * 2
 

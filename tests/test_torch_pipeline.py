@@ -125,6 +125,7 @@ def test_port_imports_without_jax():
             "metalrenderer_tpu_torch.utils.checkpoint, "
             "metalrenderer_tpu_torch.utils.profiling, "
             "metalrenderer_tpu_torch.raster.reference_cpu, "
+            "metalrenderer_tpu_torch.passes.prep, "
             "metalrenderer_tpu_torch.parallel.sharding; "
             "from metalrenderer_tpu_torch import render, PoseCamera; "
             "from metalrenderer_tpu_torch.engine.renderer import ("

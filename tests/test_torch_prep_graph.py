@@ -1,4 +1,4 @@
-"""The prep graph (``passes.pipeline.PREP_GRAPH``): on the card the frame's
+"""The prep graph (``passes.prep.PREP_GRAPH``): on the card the frame's
 prep is a CUDA graph captured once per shape and replayed.
 
 On the CPU: the shape key (equal for frames that differ in displacement,
@@ -23,10 +23,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
 from metalrenderer_tpu_torch.engine import audio_app
 from metalrenderer_tpu_torch.passes import pipeline
+from metalrenderer_tpu_torch.passes import prep as frame_prep
+from metalrenderer_tpu_torch.raster.binning import TileBins
 from metalrenderer_tpu_torch.scene import mesh
 from metalrenderer_tpu_torch.scene.camera import OrbitCamera
 from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
-from metalrenderer_tpu_torch.scene.scene import Instance, Scene
+from metalrenderer_tpu_torch.scene.scene import Instance, Scene, bake
 
 W, H = 128, 64
 CFG = RenderConfig(width=W, height=H, msaa=4, shadow_map_size=64)
@@ -40,7 +42,7 @@ COLORS = [(1.0, 1.0, 1.0), (1.0, 0.2, 0.1), (0.2, 1.0, 0.3),
 
 
 def _key(scene, config=CFG, main_geom=None, device="cpu"):
-    return pipeline.prep_graph_key(scene, config, device, main_geom)
+    return frame_prep.prep_graph_key(scene, config, device, main_geom)
 
 
 def _lighting(color):
@@ -68,7 +70,7 @@ def test_key_changes_with_what_fixes_the_prep():
                       material=cube.material, cast_shadow=True,
                       use_displacement=True)
     no_caster = dataclasses.replace(cube, cast_shadow=False)
-    geom = pipeline.bake(scene)
+    geom = bake(scene)
     changed = [
         _key(Scene(instances=(sphere, light_cube, plane))),      # T
         _key(Scene(instances=(no_caster, light_cube, plane))),   # shadow
@@ -79,25 +81,28 @@ def test_key_changes_with_what_fixes_the_prep():
         _key(scene, main_geom=geom),
         _key(scene, device="cuda:1"),
     ]
-    assert not pipeline._wants_shadow(Scene(
+    assert not frame_prep.wants_shadow(Scene(
         instances=(no_caster, light_cube, plane)))
     assert base not in changed
     assert len(set(changed)) == len(changed)
 
 
 def test_cpu_and_reference_preps_never_capture():
-    before = (pipeline.PREP_GRAPH.captures, pipeline.PREP_GRAPH.replays)
+    before = (frame_prep.PREP_GRAPH.captures, frame_prep.PREP_GRAPH.replays)
     scene = audio_app.build_scene(device="cpu")
     for backend in ("kernels", "reference"):
         prep = pipeline.prepare_frame(scene, CAM, Lighting.default(), CFG,
                                       displacement=0.05,
                                       shadow_target=TARGET, backend=backend,
                                       device="cpu")
-        assert not prep.static
+        if backend == "reference":
+            assert isinstance(prep, pipeline.ReferencePrep)
+        else:
+            assert not prep.static
     pipeline.render_frame(scene, CAM, Lighting.default(), CFG,
                           device="cpu")
-    assert (pipeline.PREP_GRAPH.captures,
-            pipeline.PREP_GRAPH.replays) == before
+    assert (frame_prep.PREP_GRAPH.captures,
+            frame_prep.PREP_GRAPH.replays) == before
 
 
 def test_cache_frees_its_least_recently_used_graph_at_its_bound():
@@ -108,7 +113,7 @@ def test_cache_frees_its_least_recently_used_graph_at_its_bound():
             made.append(name)
             return name
         return f
-    graphs = pipeline.PrepGraphs(size=2)
+    graphs = frame_prep.PrepGraphs(size=2)
     assert graphs.add("a", make("a")) == "a"
     graphs.add("b", make("b"))
     assert graphs.get("a") == "a"          # a is now the most recent
@@ -130,7 +135,7 @@ def test_shape_captures_at_its_second_frame():
     """A shape's first frame runs op by op; its second captures; shapes
     that take turns beyond the cache's size capture once each; the cache
     forgets the oldest shapes beyond ``remembered``."""
-    graphs = pipeline.PrepGraphs(size=2, remembered=3)
+    graphs = frame_prep.PrepGraphs(size=2, remembered=3)
 
     def frame(key):
         if graphs.get(key) is not None:
@@ -165,7 +170,7 @@ def _cpu_prep(d=0.05, theta=2.5, color=(1.0, 1.0, 1.0)):
 
 
 def _assert_same_tables(a, b):
-    ta, tb = pipeline._tables(a), pipeline._tables(b)
+    ta, tb = frame_prep.tables(a), frame_prep.tables(b)
     assert len(ta) == len(tb)
     for x, y in zip(ta, tb):
         assert x.shape == y.shape and x.dtype == y.dtype
@@ -177,11 +182,11 @@ def _stack(preps):
     """A batch stacked as ``raster_cuda.stack_bins`` and ``torch.stack``
     stack it, the slot copies' reference."""
     from metalrenderer_tpu_torch.raster import raster_cuda
-    return pipeline.BatchPrep(
+    return frame_prep.FramePrep(
         shadow_bins=raster_cuda.stack_bins([p.shadow_bins for p in preps]),
         main_bins=raster_cuda.stack_bins([p.main_bins for p in preps]),
         uniforms=torch.stack([p.uniforms for p in preps]),
-        light_dir=None, textures=(),
+        light_dir=None, textures=(), fused=preps[0].fused,
         stats=pipeline._stack_stats([p.stats for p in preps]))
 
 
@@ -189,20 +194,20 @@ def _replays(preps):
     """A stand-in for a prep graph on the CPU: one prep marked static,
     whose tables each "replay" rewrites in place with the next of
     ``preps``."""
-    static = pipeline._with_tables(
-        preps[0], [t.clone() for t in pipeline._tables(preps[0])])
+    static = frame_prep.with_tables(
+        preps[0], [t.clone() for t in frame_prep.tables(preps[0])])
     static = dataclasses.replace(static, static=True)
     for p in preps:
-        for dst, src in zip(pipeline._tables(static), pipeline._tables(p)):
+        for dst, src in zip(frame_prep.tables(static), frame_prep.tables(p)):
             dst.copy_(src)
         yield static
 
 
 def _replayed_by_prepare(monkeypatch, preps):
-    """``_prepare`` made to return ``_replays(preps)`` in turn, as the
+    """``prep.prepare`` made to return ``_replays(preps)`` in turn, as the
     card's graph does, for ``prepare_frame`` and ``render_frame``."""
     replays = _replays(preps)
-    monkeypatch.setattr(pipeline, "_prepare", lambda *a, **k: next(replays))
+    monkeypatch.setattr(frame_prep, "prepare", lambda *a, **k: next(replays))
     return replays
 
 
@@ -226,7 +231,7 @@ def test_prepare_frame_copies_a_static_prep(monkeypatch):
     assert second.static
     _assert_same_tables(second, want[1])
     _assert_same_tables(kept, want[0])
-    for x, y in zip(pipeline._tables(kept), pipeline._tables(second)):
+    for x, y in zip(frame_prep.tables(kept), frame_prep.tables(second)):
         assert x.data_ptr() != y.data_ptr()
     assert not pipeline._HAND_OVER.get()
     third = pipeline.prepare_frame(*_frame(*frames[2]), device="cpu")
@@ -246,21 +251,21 @@ def test_render_frame_stats_outlive_the_next_replay(monkeypatch):
     for k in want:
         assert torch.equal(stats[k], want[k]), k
     # The replayed frame (displacement 5.0 near-clips) differs in its stats.
-    _, later = pipeline._render_prepared(preps[1], CFG)
+    _, later = pipeline.render_prepared(preps[1], CFG)
     assert any(not torch.equal(stats[k], later[k]) for k in
                ("culled_triangles", "max_screen_coord"))
 
 
 def test_batch_slots_keep_every_replay():
-    """``_stack_preps`` copies each graphed frame into its slot before the
+    """``stack_preps`` copies each graphed frame into its slot before the
     next replay: the stacked tables equal the frames' own preps stacked."""
     frames = list(zip(DISPS, THETAS, COLORS))
     preps = [_cpu_prep(*f) for f in frames]
-    batch = pipeline._stack_preps(_replays(preps), len(frames))
+    batch = pipeline.stack_preps(_replays(preps), len(frames))
     want = _stack(preps)
     for name in ("shadow_bins", "main_bins"):
         a, b = getattr(batch, name), getattr(want, name)
-        for k in pipeline._BIN_TABLES:
+        for k in TileBins.TABLES:
             x, y = getattr(a, k), getattr(b, k)
             assert (x is None) == (y is None), k
             if x is not None:
@@ -272,7 +277,7 @@ def test_batch_slots_keep_every_replay():
     for k in want.stats:
         assert torch.equal(batch.stats[k], want.stats[k]), k
     with pytest.raises(ValueError, match="preps for a batch"):
-        pipeline._stack_preps(_replays(preps[:2]), 3)
+        pipeline.stack_preps(_replays(preps[:2]), 3)
 
 
 class _HostTraffic(TorchDispatchMode):
@@ -340,7 +345,7 @@ def _case(name):
                 (0.0, 0.0, 0.0), None)
     band_h = H // 2
     pruned, _, _ = sharding.prune_to_band(
-        pipeline.bake(scene, 0.05), CAM.view_matrix(),
+        bake(scene, 0.05), CAM.view_matrix(),
         CAM.projection_matrix(), W, H, 1, band_h,
         sharding.band_capacity(scene.num_triangles, 2))
     return (scene, sharding.BandedCamera(base=CAM, band=1, n_bands=2),
@@ -352,38 +357,38 @@ CASES = ["flagship", "no_shadow", "no_xyclip", "config4", "band"]
 
 @pytest.mark.parametrize("name", CASES)
 def test_graph_body_is_the_prep_op_by_op(name):
-    """What a prep graph captures (``_graph_body`` on the static inputs:
+    """What a prep graph captures (``graph_body`` on the static inputs:
     the geometry's tensors, the one upload) computes the op-by-op prep's
     tables bit for bit on the CPU, makes no op that syncs or brings host
     data up, and runs on the meta device taking no host tensor."""
     scene, cam, lighting, cfg, target, main_geom = _case(name)
-    shadow, m, vp, uniforms = pipeline._host_side(
+    shadow, m, vp, uniforms = frame_prep.host_side(
         scene, cam, lighting, cfg, ShadowConfig(), target)
-    upload = pipeline._upload(0.05, vp, m, uniforms)
+    upload = frame_prep.frame_upload(0.05, vp, m, uniforms)
     n_tris = torch.tensor((scene if main_geom is None else
                            main_geom).num_triangles, dtype=torch.int32)
 
     def inputs(device):
         geometry = [t.to(device) for t in
-                    pipeline._geometry_tensors(scene, main_geom)]
-        sc, mg = pipeline._with_geometry(scene, main_geom, geometry)
+                    frame_prep.geometry_tensors(scene, main_geom)]
+        sc, mg = frame_prep.with_geometry(scene, main_geom, geometry)
         return sc, mg, upload.to(device), shadow, cfg, n_tris.to(device)
     args = inputs("cpu")
     with _HostTraffic() as traffic:
-        got = pipeline._graph_body(*args)
+        got = frame_prep.graph_body(*args)
     assert traffic.found == []
     assert got.static and (got.shadow_bins is None) == (not shadow)
-    want = pipeline._prepare(scene, cam, lighting, cfg, ShadowConfig(), 0.05,
-                             target, "kernels", torch.device("cpu"),
-                             main_geom, graphed=False)
+    want = frame_prep.prepare(scene, cam, lighting, cfg, ShadowConfig(), 0.05,
+                              target, torch.device("cpu"), main_geom,
+                              graphed=False)
     _assert_same_tables(got, want)
     assert list(got.stats) == list(want.stats)
     args = inputs("meta")
     with _OffDevice() as off:
-        meta = pipeline._graph_body(*args)
+        meta = frame_prep.graph_body(*args)
     assert off.found == []
-    assert [t.shape for t in pipeline._tables(meta)] == [
-        t.shape for t in pipeline._tables(want)]
+    assert [t.shape for t in frame_prep.tables(meta)] == [
+        t.shape for t in frame_prep.tables(want)]
 
 
 @pytest.fixture
@@ -395,9 +400,8 @@ def cuda_device():
 
 def _eager(scene, cam, lighting, d, device):
     """The op-by-op prep on the card, the graph's reference."""
-    return pipeline._prepare(scene, cam, lighting, CFG, ShadowConfig(), d,
-                             TARGET, "kernels", device, None,
-                             graphed=False)
+    return frame_prep.prepare(scene, cam, lighting, CFG, ShadowConfig(), d,
+                              TARGET, device, None, graphed=False)
 
 
 @pytest.mark.cuda
@@ -406,9 +410,9 @@ def test_graphed_prep_is_bit_equal_on_card(cuda_device):
     captures, the third replays; each frame's prep, handed over or
     copied, and its render equal the op-by-op prep's bit for bit."""
     scene = audio_app.build_scene(device=cuda_device)
-    pipeline.PREP_GRAPH.clear()
-    captures = pipeline.PREP_GRAPH.captures
-    replays = pipeline.PREP_GRAPH.replays
+    frame_prep.PREP_GRAPH.clear()
+    captures = frame_prep.PREP_GRAPH.captures
+    replays = frame_prep.PREP_GRAPH.replays
     for f, (d, t) in enumerate(zip(DISPS[:3], THETAS[:3])):
         cam = dataclasses.replace(CAM, theta=t)
         with pipeline._handed_over():
@@ -427,12 +431,12 @@ def test_graphed_prep_is_bit_equal_on_card(cuda_device):
         fb, st = pipeline.render_frame(scene, cam, Lighting.default(), CFG,
                                        displacement=d, shadow_target=TARGET,
                                        device=cuda_device)
-        fb_e, st_e = pipeline._render_prepared(eager, CFG)
+        fb_e, st_e = pipeline.render_prepared(eager, CFG)
         assert torch.equal(fb, fb_e)
         for k in st_e:
             assert torch.equal(st[k], st_e[k]), k
-    assert pipeline.PREP_GRAPH.captures == captures + 1
-    assert pipeline.PREP_GRAPH.replays == replays + 7
+    assert frame_prep.PREP_GRAPH.captures == captures + 1
+    assert frame_prep.PREP_GRAPH.replays == replays + 7
 
 
 @pytest.mark.cuda
@@ -445,7 +449,7 @@ def test_graphed_batch_is_bit_equal_on_card(cuda_device):
     scenes = [audio_app.build_scene(light_color=c, device=cuda_device)
               for c in COLORS]
     cams = [dataclasses.replace(CAM, theta=t) for t in THETAS]
-    pipeline.PREP_GRAPH.clear()
+    frame_prep.PREP_GRAPH.clear()
     rgba, stats = pipeline.render_frame_batch_fused(
         scenes[0], CAM, _lighting(COLORS[0]), CFG, ShadowConfig(), DISPS,
         THETAS, shadow_target=TARGET, scene_fn=lambda f: scenes[f],
@@ -462,10 +466,10 @@ def test_graphed_batch_is_bit_equal_on_card(cuda_device):
                     shadow_target=TARGET, device=cuda_device)
             assert prep.static
             yield prep
-    batch = pipeline._stack_preps(replays(), 8)
+    batch = pipeline.stack_preps(replays(), 8)
     want = _stack(eager)
     for name in ("shadow_bins", "main_bins"):
-        for k in pipeline._BIN_TABLES:
+        for k in TileBins.TABLES:
             x = getattr(getattr(batch, name), k)
             y = getattr(getattr(want, name), k)
             assert (x is None) == (y is None), (name, k)
@@ -474,7 +478,7 @@ def test_graphed_batch_is_bit_equal_on_card(cuda_device):
                                    y.reshape(-1).view(torch.int32)), (name, k)
     assert torch.equal(batch.uniforms, want.uniforms)
     for f, prep in enumerate(eager):
-        fb, st = pipeline._render_prepared(prep, CFG)
+        fb, st = pipeline.render_prepared(prep, CFG)
         assert torch.equal(rgba[f], fb), f
         for k in st:
             assert torch.equal(stats[k][f], st[k]), (f, k)
@@ -487,20 +491,20 @@ def test_second_shape_captures_a_second_graph(cuda_device):
     sphere = dataclasses.replace(cube, mesh=mesh.uv_sphere(8, 16).to(
         cuda_device))
     other = Scene(instances=(sphere, light_cube, plane))
-    pipeline.PREP_GRAPH.clear()
-    captures = pipeline.PREP_GRAPH.captures
+    frame_prep.PREP_GRAPH.clear()
+    captures = frame_prep.PREP_GRAPH.captures
     for s in (scene, other, scene, other):  # each shape's second captures
         pipeline.render_frame(s, CAM, Lighting.default(), CFG,
                               device=cuda_device)
-    assert pipeline.PREP_GRAPH.captures == captures + 2
-    replays = pipeline.PREP_GRAPH.replays
+    assert frame_prep.PREP_GRAPH.captures == captures + 2
+    replays = frame_prep.PREP_GRAPH.replays
     for s in (scene, other, scene):
         pipeline.render_frame(s, CAM, Lighting.default(), CFG,
                               displacement=0.02, device=cuda_device)
-    assert pipeline.PREP_GRAPH.captures == captures + 2
-    assert pipeline.PREP_GRAPH.replays == replays + 3
+    assert frame_prep.PREP_GRAPH.captures == captures + 2
+    assert frame_prep.PREP_GRAPH.replays == replays + 3
     keys = {_key(s, device=pipeline.resolve_device(cuda_device))
             for s in (scene, other)}
-    assert len(keys) == 2 and set(pipeline.PREP_GRAPH.graphs) == {
+    assert len(keys) == 2 and set(frame_prep.PREP_GRAPH.graphs) == {
         _key(s, device=torch.device("cuda", torch.cuda.current_device()))
         for s in (scene, other)}

@@ -635,7 +635,7 @@ def test_entry_points_accept_reference(tmp_path):
     assert torch.equal(bst["covered_fraction"][0], st["covered_fraction"])
     prep = pipeline.prepare_frame(scene, cam, Lighting.default(), cfg,
                                   shadow_target=target, **kw)
-    assert prep.main_bins is None and prep.backend == "reference"
+    assert isinstance(prep, pipeline.ReferencePrep)
     with pytest.raises(ValueError, match="backend='kernels'"):
         pipeline.render_frame_batch_fused(
             scene, cam, Lighting.default(), cfg, ShadowConfig(), [0.0],

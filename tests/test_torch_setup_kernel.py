@@ -29,6 +29,7 @@ from metalrenderer_tpu_torch.config import RenderConfig, ShadowConfig
 from metalrenderer_tpu_torch.engine import audio_app, configs
 from metalrenderer_tpu_torch.math import transforms
 from metalrenderer_tpu_torch.passes import pipeline
+from metalrenderer_tpu_torch.passes import prep as frame_prep
 from metalrenderer_tpu_torch.raster import setup_cuda
 from metalrenderer_tpu_torch.raster.binning import (build_attr_fields,
                                                     build_tri_fields)
@@ -267,7 +268,8 @@ def test_cpu_and_reference_run_the_chain(fake_lib, backend):
         backend=backend, device="cpu")
     assert fake_lib.calls == []
     assert setup_cuda.LAUNCHES == dict.fromkeys(setup_cuda.LAUNCHES, 0)
-    assert (prep.main_bins is None) == (backend == "reference")
+    assert isinstance(prep, pipeline.ReferencePrep) == (
+        backend == "reference")
 
 
 # --- on the card ------------------------------------------------------------
@@ -324,7 +326,7 @@ def test_graphed_prep_equals_op_by_op_on_card(cuda_device, name):
         light, cfg = Lighting.default(), RenderConfig(width=1920,
                                                       height=1080)
         target, disps = (0.0, 0.0, -1.0), (0.0, 0.05, 5.0)
-    pipeline.PREP_GRAPH.clear()
+    frame_prep.PREP_GRAPH.clear()
     setup_cuda.reset_launch_counts()
     for k, d in enumerate(disps):
         with pipeline._handed_over():
@@ -333,12 +335,11 @@ def test_graphed_prep_equals_op_by_op_on_card(cuda_device, name):
                                          shadow_target=target,
                                          device=cuda_device)
         assert got.static == (k > 0)
-        want = pipeline._prepare(scene, cam, light, cfg, ShadowConfig(), d,
-                                 target, "kernels", cuda_device, None,
-                                 graphed=False)
-        for x, y in zip(pipeline._tables(got), pipeline._tables(want)):
+        want = frame_prep.prepare(scene, cam, light, cfg, ShadowConfig(), d,
+                                  target, cuda_device, None, graphed=False)
+        for x, y in zip(frame_prep.tables(got), frame_prep.tables(want)):
             assert torch.equal(_bits(x), _bits(y))
     # Op by op (frame 0), warm-up and capture (frame 1), the three
     # references; the replay (frame 2) runs the captured launches.
     assert setup_cuda.LAUNCHES["setup_tables"] == 6
-    pipeline.PREP_GRAPH.clear()
+    frame_prep.PREP_GRAPH.clear()
