@@ -111,15 +111,23 @@ Phases (one line each; any failure exits non-zero and prints no result):
      launch per pass) and one with tile_h=16 (the fragment of the first
      covered sample) against their CPU runs (covered_fraction within 1e-6,
      rgba within 2e-4); peak device memory of each;
- 20. the audio-reactive sequence: 32 chunks of audio synthesized with numpy
-     from a seed (stepped tones 110/220/440/880 Hz, a noise burst, silence;
+ 20. the audio track's carries kernels (audio/track_cuda.py, kernel
+     csrc/track.cu) at 1, 8 and 32 chunks a call from seeded states, the
+     rolling window empty, filling, full and wrapping: new state, carried
+     values and envelope bit-equal to the numpy twins, one launch of each
+     a call; at 1 and 8 chunks each kernel's ms, device ms, its twin's
+     host ms and its bound. Then the audio-reactive sequence: 32 chunks of
+     audio synthesized with numpy from a seed (stepped tones 110/220/440/880 Hz, a noise burst, silence;
      48 kHz) through render_audio_reactive_sequence(device="cuda") at full
-     width: the track's VisualParams against the CPU run, the frames
+     width: the track's VisualParams against the CPU run (its graph
+     captured at the second call and replayed: no carries launch in the
+     sequence), the frames
      through the fused batch (one K4 and one K6 for the sequence, no
      per-frame kernel), ms per frame and Mpixel/s, the track's ms apart
      from the render's; the same samples through
      stream_audio_reactive(chunk_frames=16): the concatenation against the
-     offline frames; 8 chunks with shading_per_pixel=False: the per-frame
+     offline frames, the track op by op then captured (three launches of
+     each carries kernel); 8 chunks with shading_per_pixel=False: the per-frame
      branch (one K1 + K3s + K7 per frame), each frame equal to
      render_frame of the same parameters; and a 96x72 sequence of 6 chunks
      on the card against the CPU run.
@@ -179,8 +187,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
      to the unbroken stream), and analyze --dashboard (32 dashboards; the
      JSON lines within 1e-5 relative of the CPU run's, |b| floored at 0.1,
      the melancholy within 1e-4);
- 23. the brute-force reference backend (backend="reference", no kernel
-     launched): the flagship at 1920x1080 MSAA4 with a 1024^2 map, config
+ 23. the brute-force reference backend (backend="reference", no raster
+     kernel launched): the flagship at 1920x1080 MSAA4 with a 1024^2 map, config
      4, config 3 at one sample and the 800x600 flagship, each against the
      kernels' frame (>= 40 dB; PSNR, max abs diff, covered fractions, the
      reference's ms), the 800x600 one also against its golden (>= 40 dB);
@@ -270,8 +278,9 @@ twin. K3s runs its twin's operation sequence (K1's visibility, then
 (a*sx + b*sy) + c per covered sample, every step rounded on its own), so
 it is bit-equal. The audio track on the card against the CPU: cuFFT and
 the CPU FFT round differently (~1e-7 of a chunk's peak), the per-chunk
-sums and the prefix sum are taken in another order, and the carries run on
-the host in float32 either way: light intensity and displacement within
+sums and the prefix sum are taken in another order, and the carries are
+float32 in chunk order either way (kernels bit-equal to the CPU's numpy
+loops): light intensity and displacement within
 1e-5 relative; the light color within 5e-5 absolute (its hue takes 0.08 of
 the melancholy, whose minor/major-third ratio sums bins that for a pure
 tone hold only window leakage at 1e-5 of the peak, and one ulp of log2,
@@ -324,6 +333,7 @@ BATCH, BATCHES = 8, 4      # frames per served batch, batches timed
 DEVICE = "cuda:0"
 RASTER_SRC = "metalrenderer_tpu_torch/csrc/raster.cu"
 SAMPLE_SRC = "metalrenderer_tpu_torch/csrc/sample.cu"
+TRACK_SRC = "metalrenderer_tpu_torch/csrc/track.cu"
 HBM_BYTES_PER_MS = 3.35e9     # 3.35 TB/s
 FP32_OPS_PER_MS = 67e9        # 67 TFLOP/s outside the tensor cores
 # A covered pixel's (or sample's) 15 attributes: its winner's weights (3 x
@@ -712,22 +722,24 @@ def profile_batch(fn, frames):
 
 
 def reset_counts():
+    from metalrenderer_tpu_torch.audio import track_cuda
     from metalrenderer_tpu_torch.raster import mip_cuda, raster_cuda, sample_cuda
-    for mod in (raster_cuda, sample_cuda, mip_cuda):
+    for mod in (raster_cuda, sample_cuda, mip_cuda, track_cuda):
         mod.reset_launch_counts()
 
 
 def read_counts():
+    from metalrenderer_tpu_torch.audio import track_cuda
     from metalrenderer_tpu_torch.raster import mip_cuda, raster_cuda, sample_cuda
     return {**raster_cuda.LAUNCHES, **sample_cuda.LAUNCHES,
-            **mip_cuda.LAUNCHES}
+            **mip_cuda.LAUNCHES, **track_cuda.LAUNCHES}
 
 
 def kernel_row(name, source, replaces, launches, err, ms, dev_ms, plain_ms,
                bound_ms_by, lib_ms=None, lib_dev=None):
     """One entry of the final ``kernels`` line."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": f"metalrenderer_tpu/raster/{replaces}",
+            "replaces": f"metalrenderer_tpu/{replaces}",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
@@ -937,7 +949,7 @@ def configs_phase(dev, smi, path_launches):
         cams2, {"render_fused": CFG_FRAMES}, smi, 4)
     add(launches)
     rows.append(kernel_row("render_fused<4>@config2_no_shadow_map",
-                           RASTER_SRC, "raster_pallas.py:997",
+                           RASTER_SRC, "raster/raster_pallas.py:997",
                            launches["render_fused"], *k2c2))
     fb_cpu, st_cpu = pipeline.render_frame(scene2.to("cpu"), cams2[-1],
                                            light2, cfg2, device="cpu")
@@ -1026,11 +1038,11 @@ def configs_phase(dev, smi, path_launches):
                 "sample_pyramid": 2 * CFG_FRAMES}, smi, 4)
     add(launches)
     rows.append(kernel_row("raster_gbuffer<1>@config3", RASTER_SRC,
-                           "raster_pallas.py:865", launches["raster_gbuffer"],
-                           k3_err, k3_ms, k3_dev, k3_plain, k3_bound))
+                           "raster/raster_pallas.py:865",
+                           launches["raster_gbuffer"], k3_err, k3_ms, k3_dev, k3_plain, k3_bound))
     rows.append(kernel_row("sample_pyramid@config3", SAMPLE_SRC,
-                           "mip_pallas.py:475", launches["sample_pyramid"],
-                           k9_err, k9_ms, k9_dev, k9_plain, k9_bound))
+                           "raster/mip_pallas.py:475",
+                           launches["sample_pyramid"], k9_err, k9_ms, k9_dev, k9_plain, k9_bound))
     fb_cpu, st_cpu = pipeline.render_frame(scene3.to("cpu"), cams3[-1],
                                            light3, cfg3, device="cpu")
     covf_vs_cpu("config3", *outs[-1], fb_cpu, st_cpu)
@@ -1060,8 +1072,8 @@ def configs_phase(dev, smi, path_launches):
         disps5, {"render_fused": C5_FRAMES}, smi, 2)
     add(launches)
     rows.append(kernel_row("render_fused<1>@config5_4k", RASTER_SRC,
-                           "raster_pallas.py:997", launches["render_fused"],
-                           *k2c5))
+                           "raster/raster_pallas.py:997",
+                           launches["render_fused"], *k2c5))
     # K6 against its twin on 2 frames, and against per-frame K2.
     preps = [pipeline.prepare_frame(scene5, cam5, light5, cfg5,
                                     displacement=d, device=dev)
@@ -1113,7 +1125,7 @@ def configs_phase(dev, smi, path_launches):
              "unequal to render_frame")
     add(launches)
     rows.append(kernel_row("render_fused_batch<1>@config5_4k_2_frames",
-                           RASTER_SRC, "raster_pallas.py:1278",
+                           RASTER_SRC, "raster/raster_pallas.py:1278",
                            launches["render_fused_batch"], k6_err, k6_ms,
                            k6_dev, k6_plain, k6_bound))
     del rgba, outs
@@ -1505,8 +1517,10 @@ def app_phase(dev, smi, path_launches, sig, rate, serve_ms, batch_ms):
     del sframes, resumed
 
     # analyze --dashboard on the card against the CPU run.
+    # The analyzer's carries: one launch over the 32 chunks.
     _, gpu_lines, an_ms = run_cli(["analyze", "--wav", str(wav_path),
-                                   "--dashboard", str(tmp / "dash")], {})
+                                   "--dashboard", str(tmp / "dash")],
+                                  {"track_carries": 1})
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.main(["--device", "cpu", "analyze", "--wav", str(wav_path)])
@@ -1614,8 +1628,9 @@ def entry_points(dev):
     """``backend="reference"`` through every entry point on the card at
     160x120: ``render``, ``render_batch`` (frame by frame), the session,
     the camera path, the audio-reactive sequence and the CLI, each frame
-    equal to ``render_frame``'s where it is the same frame; no kernel
-    launched."""
+    equal to ``render_frame``'s where it is the same frame; no raster
+    kernel launched (the sequence's track launches its carries kernels
+    once, op by op)."""
     import tempfile
 
     import numpy as np
@@ -1666,7 +1681,10 @@ def entry_points(dev):
         equal_render_frame=json.dumps(same),
         camera_path=tuple(path.shape), sequence=tuple(seq.shape),
         finite=finite, launches=json.dumps(launches))
-    check_launches("reference entry points", launches, {})
+    # No raster kernel; the 2-chunk track's first call runs op by op on
+    # the card (its carries kernels), whatever the backend.
+    check_launches("reference entry points", launches,
+                   {"track_carries": 1, "track_envelope": 1})
     if not (all(same.values()) and finite and path.shape[0] == 3
             and seq.shape[0] == 2):
         fail("an entry point's reference frame differs from render_frame's")
@@ -2578,6 +2596,121 @@ def setup_kernel_phase(dev, smi):
         keep.clear()
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def track_kernel_phase(dev, smi, stats):
+    """Phase 20's first part: the audio track's carries kernels
+    (``audio/track_cuda.py``, kernel ``csrc/track.cu``) called through
+    ``analyzer.carries`` and ``mapping.envelope`` on the card at 1, 8 and
+    32 chunks a call (the live cell's, the stream cell's and phase 20's
+    shapes), from seeded analyzer states with the ring empty, filling, one
+    short of full, full and about to wrap: each call's new state, carried
+    values and envelope bit-equal to the numpy twins' (``analyzer._carries``
+    and ``mapping._envelope``, what the CPU runs), one launch of each kernel
+    a call. At 1 and 8 chunks each kernel's ms (back to back), device ms
+    (host ahead), its twin's host ms and its bound. Sets
+    ``stats["track_carries"]`` and ``stats["track_envelope"]`` to the
+    1-chunk numbers (the live cell's call); returns the 8-chunk rows."""
+    import numpy as np
+    import torch
+    from metalrenderer_tpu_torch.audio import analyzer, mapping, track_cuda
+    f32 = np.float32
+    win = analyzer.ROLLING_WINDOW
+    rng = np.random.default_rng(20)
+
+    def bits(t):
+        return t.cpu().contiguous().reshape(-1).view(torch.int32)
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    def mean_host_ms(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    rows = []
+    for n in (1, 8, 32):
+        equal = {"carries": True, "envelope": True}
+        for count, idx in ((0, 0), (37, 0), (win - 1, 0), (win, 0),
+                           (win, win - 1)):
+            state = analyzer.AnalyzerState(
+                rolling=torch.from_numpy(rng.random(win, dtype=f32)
+                                         * f32(0.01)),
+                rolling_idx=torch.tensor(idx, dtype=torch.int32),
+                rolling_count=torch.tensor(count, dtype=torch.int32),
+                rolling_sum=torch.tensor(rng.random(dtype=f32) * f32(0.5)),
+                smoothed_bass=torch.tensor(rng.random(dtype=f32)),
+                smoothed_mid=torch.tensor(rng.random(dtype=f32)),
+                smoothed_treble=torch.tensor(rng.random(dtype=f32)))
+            vec = state.pack()
+            scalars = torch.from_numpy(rng.random((n, 4), dtype=f32)
+                                       * f32(0.02))
+            raw = torch.from_numpy(rng.random(n, dtype=f32))
+            raw[::3] = 0.0                 # decays between the peaks
+            start = torch.from_numpy(rng.random(1, dtype=f32))
+            track_cuda.reset_launch_counts()
+            got_vec, got_carried = analyzer.carries(vec.to(dev),
+                                                    scalars.to(dev))
+            got_env = mapping.envelope(start.to(dev), raw.to(dev))
+            torch.cuda.synchronize()
+            launches = dict(track_cuda.LAUNCHES)
+            want, avg, smoothed = analyzer._carries(
+                state, scalars[:, 0].numpy(), scalars[:, 1:].numpy())
+            equal["carries"] &= (
+                same(got_vec, want.pack())
+                and same(got_carried[:, 0], torch.from_numpy(avg))
+                and same(got_carried[:, 1:], torch.from_numpy(smoothed)))
+            equal["envelope"] &= same(got_env[:1], start) and same(
+                got_env[1:],
+                torch.from_numpy(mapping._envelope(float(start[0]),
+                                                   raw.numpy())))
+            if launches != {"track_carries": 1, "track_envelope": 1}:
+                fail(f"track kernels at {n} chunks: launch counts "
+                     f"{launches}, want one of each")
+        say("track_kernels", chunks=n, rings=5,
+            bit_equal=json.dumps(equal), card=repr(smi))
+        if not all(equal.values()):
+            fail(f"track kernels at {n} chunks differ from their numpy "
+                 f"twins: {equal}")
+        if n == 32:
+            continue
+        vec_d, sc_d = vec.to(dev), scalars.to(dev)
+        start_d, raw_d = start.to(dev), raw.to(dev)
+        alpha, keep = float(analyzer._ALPHA), float(analyzer._KEEP)
+        decay = float(mapping._DECAY)
+        rms_np, bands_np = scalars[:, 0].numpy(), scalars[:, 1:].numpy()
+        raw_np = raw.numpy()
+        # Each input read once, each output written once; the operations
+        # a chunk: the average's division, the sum's add and subtract, the
+        # three EMAs' two multiplies and an add (the envelope's: one
+        # multiply and the max).
+        cases = (
+            ("track_carries",
+             lambda: track_cuda.carries(vec_d, sc_d, alpha, keep),
+             lambda: analyzer._carries(state, rms_np, bands_np),
+             bound(2 * 4 * analyzer.STATE_LEN + 2 * 16 * n, 12 * n)),
+            ("track_envelope",
+             lambda: track_cuda.envelope(start_d, raw_d, decay),
+             lambda: mapping._envelope(float(start[0]), raw_np),
+             bound(4 + 4 * n + 4 * (n + 1), 2 * n)))
+        for name, kernel, twin, bnd in cases:
+            ms, dev_ms = timings(kernel, 200)
+            plain = mean_host_ms(twin, 200)
+            say("track_kernels", kernel=name, chunks=n, ms=f"{ms:.4f}",
+                device_ms=f"{dev_ms:.4f}", plain_host_ms=f"{plain:.4f}",
+                bound_ms=f"{bnd[0]:.3g}", bound_by=bnd[1], card=repr(smi))
+            numbers = (0.0, ms, dev_ms, plain, bnd)
+            if n == 1:
+                stats[name] = numbers
+            else:
+                rows.append(kernel_row(
+                    f"{name}@{n}_chunks", TRACK_SRC,
+                    "audio/analyzer.py:223" if name == "track_carries"
+                    else "audio/mapping.py:98", 1, *numbers))
+    return rows
 
 
 def main():
@@ -3708,6 +3841,7 @@ def main():
         del fb, st, fb_cpu
 
     # 20. the audio-reactive sequence ------------------------------------------
+    track_rows = track_kernel_phase(dev, smi, stats)
     rate = 48000.0
     chunks = 32
     sig = audio_signal(chunks, seed=0, sample_rate=rate)
@@ -3723,7 +3857,9 @@ def main():
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    track = renderer.audio_visual_track(sig, rate, device=dev)   # warm-up
+    # Warm-up: op by op, then the track graph's capture.
+    for _ in range(2):
+        track = renderer.audio_visual_track(sig, rate, device=dev)
     _, track_ms = host_ms(lambda: renderer.audio_visual_track(
         sig, rate, device=dev))
     track_cpu = renderer.audio_visual_track(sig, rate, device="cpu")
@@ -3763,6 +3899,7 @@ def main():
     say("sequence", path="fused_batch", launches=json.dumps(launches),
         finite=finite, shapes_ok=shapes_ok,
         telemetry_keys=sorted(telem), loud_vs_silent_max_abs_diff=distinct)
+    # The track replays its graph (captured above): no carries launch.
     want = {k: 0 for k in launches}
     want.update(raster_depth_batch=1, render_fused_batch=1)
     if launches != want:
@@ -3784,8 +3921,12 @@ def main():
         launches=json.dumps(launches),
         max_abs_diff_vs_offline=stream_err, tol=1e-5,
         peak_mem_mb=f"{mem_stream:.1f}", card=repr(smi))
+    # The track's first 16-chunk call runs op by op (one launch of each
+    # carries kernel), its second captures (two: the warm-up and the
+    # captured call).
     want = {k: 0 for k in launches}
-    want.update(raster_depth_batch=2, render_fused_batch=2)
+    want.update(raster_depth_batch=2, render_fused_batch=2,
+                track_carries=3, track_envelope=3)
     if launches != want:
         fail(f"stream launch counts {launches} != {want}")
     if tuple(streamed.shape) != (chunks, H, W, 4) or not stream_err <= 1e-5:
@@ -3796,7 +3937,8 @@ def main():
     del streamed, frames
 
     n_ss = 8
-    sequence(cfg_ss, sig[:n_ss * 1024])               # warm-up
+    for _ in range(2):          # warm-up: the 8-chunk track op by op, capture
+        sequence(cfg_ss, sig[:n_ss * 1024])
     reset_counts()
     (frames, telem), ss_ms = host_ms(lambda: sequence(cfg_ss,
                                                       sig[:n_ss * 1024]))
@@ -3880,9 +4022,13 @@ def main():
             "raster_gbuffer_batch": (RASTER_SRC, "raster_pallas.py:1207"),
             "render_fused_batch": (RASTER_SRC, "raster_pallas.py:1278"),
             "sample_bilinear_batch": (SAMPLE_SRC, "sample_pallas.py:587")}
+    meta = {k: (src, f"raster/{tpu}") for k, (src, tpu) in meta.items()}
+    meta.update(track_carries=(TRACK_SRC, "audio/analyzer.py:223"),
+                track_envelope=(TRACK_SRC, "audio/mapping.py:98"))
     kernels = [kernel_row(name, src, tpu, path_launches[name], *stats[name])
                for name, (src, tpu) in meta.items()]
-    print(json.dumps({"kernels": kernels + case_rows}), flush=True)
+    print(json.dumps({"kernels": kernels + track_rows + case_rows}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,12 @@ A whole signal is analyzed in two parts:
   Pallas kernel;
 * the sequential carries (the 120-entry rolling RMS sum and the three band
   EMAs) run strictly in chunk order in float32, as the JAX ``lax.scan``
-  does: a cumulative-sum rewrite would round differently. They run on the
-  host, on the per-chunk scalars brought over in ONE copy (n x 4 floats),
-  and their results go back in one copy: one host sync per call, none per
-  chunk. The state therefore lives on the host (CPU tensors).
+  does: a cumulative-sum rewrite would round differently. On the card they
+  are one launch of ``track_carries_kernel`` (``csrc/track.cu``), on the
+  device state packed as one vector (``AnalyzerState.pack``), so nothing
+  waits for the host; elsewhere its twin, the numpy loop ``_carries``. The
+  state a caller holds lives on the host (CPU tensors): ``analyze_stream``
+  reads the new state back in one copy at its end.
 
 Faithful semantics (citations):
   * RMS over all channels (AudioAnalyzer.mm:49-65).
@@ -43,6 +45,7 @@ import torch
 
 from ..passes.pipeline import resolve_device
 from ..utils.profiling import annotate
+from . import track_cuda
 
 FFT_SIZE = 1024            # AudioAnalyzer.hpp:58
 SPECTRUM_SIZE = FFT_SIZE // 2 + 1
@@ -55,6 +58,16 @@ PITCH_MIN_HZ = 50.0
 PITCH_MAX_HZ = 1500.0
 
 _F32 = np.float32
+_ALPHA, _KEEP = _F32(BAND_SMOOTH_ALPHA), _F32(1 - BAND_SMOOTH_ALPHA)
+
+# ``AnalyzerState.pack``'s layout, which csrc/track.cu reads: the ring, the
+# running sum, the smoothed bass, mid and treble, the next write slot and
+# the count.
+_SUM = ROLLING_WINDOW
+_BANDS = ROLLING_WINDOW + 1
+_IDX = ROLLING_WINDOW + 4
+_COUNT = ROLLING_WINDOW + 5
+STATE_LEN = ROLLING_WINDOW + 6
 
 
 @functools.cache
@@ -69,6 +82,43 @@ def hann_norm_window(n=FFT_SIZE, device="cpu"):
     sqrt(8/3) ~= 1.633). Evaluated once on the host, so every device
     windows with the same values."""
     return _hann_norm_window_cpu(n).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Constants:
+    """What a track call on one device reads of its sample rate and the FFT
+    size, formed once per (device, sample rate) (``constants``), so no op
+    of a call uploads anything."""
+
+    window: torch.Tensor     # f32[1024] hann_norm_window
+    rate: torch.Tensor       # f32[] the sample rate
+    zero: torch.Tensor       # f32[] 0
+    lags: torch.Tensor       # i64[1024] 0..1023
+    below: torch.Tensor      # i64[1024] clamp(N - lag - 1): i < N - lag
+    before: torch.Tensor     # i64[1024] clamp(lag - 1): i < lag
+    in_range: torch.Tensor   # bool[1024] the pitch's lag range
+
+
+@functools.lru_cache(maxsize=16)
+def _constants(device, sample_rate):
+    n = FFT_SIZE
+    lags = torch.arange(n, device=device)
+    min_lag = max(_trunc_div(sample_rate, PITCH_MAX_HZ), 1)
+    max_lag = min(_trunc_div(sample_rate, PITCH_MIN_HZ), n - 1)
+    return Constants(
+        window=hann_norm_window(n, device),
+        rate=torch.tensor(sample_rate, dtype=torch.float32, device=device),
+        zero=torch.zeros((), dtype=torch.float32, device=device), lags=lags,
+        below=torch.clamp(n - lags - 1, 0, n - 1),
+        before=torch.clamp(lags - 1, 0, n - 1),
+        in_range=(lags >= min_lag) & (lags <= max_lag))
+
+
+def constants(device, sample_rate) -> Constants:
+    """The ``Constants`` of ``device`` and ``sample_rate``, made at the
+    first call of the pair (16 pairs are kept; a track graph holds its
+    own)."""
+    return _constants(torch.device(device), float(sample_rate))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +142,27 @@ class AnalyzerState:
             rolling=torch.zeros((ROLLING_WINDOW,), dtype=torch.float32),
             rolling_idx=zi, rolling_count=zi, rolling_sum=z,
             smoothed_bass=z, smoothed_mid=z, smoothed_treble=z)
+
+    def pack(self):
+        """The state as one f32[STATE_LEN] host vector, the carries
+        kernel's layout: the ring, the running sum, the three EMAs, then
+        the write slot and the count as floats (exact)."""
+        tail = torch.tensor([float(v) for v in (
+            self.rolling_sum, self.smoothed_bass, self.smoothed_mid,
+            self.smoothed_treble, self.rolling_idx, self.rolling_count)],
+            dtype=torch.float32)
+        return torch.cat([torch.as_tensor(self.rolling, dtype=torch.float32)
+                          .reshape(-1).cpu(), tail])
+
+    @staticmethod
+    def unpack(vec):
+        """The state reading ``vec``, a host vector in ``pack``'s layout."""
+        return AnalyzerState(
+            rolling=vec[:ROLLING_WINDOW],
+            rolling_idx=torch.tensor(int(vec[_IDX]), dtype=torch.int32),
+            rolling_count=torch.tensor(int(vec[_COUNT]), dtype=torch.int32),
+            rolling_sum=vec[_SUM], smoothed_bass=vec[_BANDS],
+            smoothed_mid=vec[_BANDS + 1], smoothed_treble=vec[_BANDS + 2])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,17 +219,14 @@ def pitch_mpm(windowed, sample_rate):
     autocorrelation + a prefix sum."""
     n = FFT_SIZE
     x = windowed
-    dev = x.device
+    k = constants(x.device, sample_rate)
     f = torch.fft.rfft(x, 2 * n)
     ac = torch.fft.irfft(f * torch.conj(f), 2 * n)[..., :n].to(torch.float32)
 
     c = torch.cumsum(x * x, dim=-1)
     total = c[..., n - 1:n]
-    lags = torch.arange(n, device=dev)
-    sum_x2 = c[..., torch.clamp(n - lags - 1, 0, n - 1)]       # i < N-lag
-    sum_y2 = total - torch.where(
-        lags > 0, c[..., torch.clamp(lags - 1, 0, n - 1)],
-        torch.zeros((), dtype=torch.float32, device=dev))
+    sum_x2 = c[..., k.below]                                  # i < N-lag
+    sum_y2 = total - torch.where(k.lags > 0, c[..., k.before], k.zero)
 
     denom = torch.sqrt(sum_x2 * sum_y2)
     corr = torch.where(denom > 1e-10, ac / torch.clamp_min(denom, 1e-30),
@@ -166,8 +234,7 @@ def pitch_mpm(windowed, sample_rate):
 
     min_lag = max(_trunc_div(sample_rate, PITCH_MAX_HZ), 1)
     max_lag = min(_trunc_div(sample_rate, PITCH_MIN_HZ), n - 1)
-    in_range = (lags >= min_lag) & (lags <= max_lag)
-    corr_m = torch.where(in_range, corr, torch.full_like(corr, -torch.inf))
+    corr_m = torch.where(k.in_range, corr, torch.full_like(corr, -torch.inf))
     best_lag = torch.argmax(corr_m, dim=-1)   # first strict max, like the loop
     best_corr = torch.gather(corr_m, -1, best_lag[..., None])[..., 0]
 
@@ -176,8 +243,7 @@ def pitch_mpm(windowed, sample_rate):
         return zero, zero
     # A tensor numerator: a Python number over a tensor multiplies by the
     # reciprocal, which rounds twice.
-    rate = torch.tensor(float(sample_rate), dtype=torch.float32, device=dev)
-    pitch = rate / best_lag.to(torch.float32)
+    pitch = k.rate / best_lag.to(torch.float32)
     return pitch, torch.clamp(best_corr, 0.0, 1.0)
 
 
@@ -186,13 +252,14 @@ def _carries(state: AnalyzerState, rms, bands):
     rolling RMS window (RollingAverage::push, AudioAnalyzer.hpp:37-49:
     append until full, then overwrite round-robin; the average is read
     BEFORE the push) and the band EMAs. rms: f32[n], bands: f32[n, 3]
-    numpy. Returns (new state, rolling_avg f32[n], smoothed f32[n, 3])."""
+    numpy. Returns (new state, rolling_avg f32[n], smoothed f32[n, 3]).
+    The plain twin of ``track_carries_kernel``."""
     rolling = state.rolling.numpy().copy()
     idx, count = int(state.rolling_idx), int(state.rolling_count)
     total = _F32(state.rolling_sum.item())
     sm = [_F32(state.smoothed_bass.item()), _F32(state.smoothed_mid.item()),
           _F32(state.smoothed_treble.item())]
-    a, keep = _F32(BAND_SMOOTH_ALPHA), _F32(1 - BAND_SMOOTH_ALPHA)
+    a, keep = _ALPHA, _KEEP
     n = rms.shape[0]
     avg = np.zeros((n,), _F32)
     smoothed = np.zeros((n, 3), _F32)
@@ -223,22 +290,49 @@ def _carries(state: AnalyzerState, rms, bands):
     return new, avg, smoothed
 
 
-def _analyze(state, rms, ch0, sample_rate, window):
-    """Chunks ch0 f32[n, 1024] with their RMS f32[n], on one device."""
-    dev = ch0.device
+def carries(state, scalars):
+    """A call's carries in chunk order: ``state`` f32[STATE_LEN]
+    (``AnalyzerState.pack``'s layout) and ``scalars`` f32[n, 4] (each
+    chunk's RMS and raw bass, mid, treble) on one device -> (the new state
+    f32[STATE_LEN], f32[n, 4]: the rolling average read before each chunk's
+    push, the smoothed bass, mid, treble after it). On the card one launch
+    of ``track_carries_kernel``; elsewhere the numpy loop ``_carries``."""
+    if scalars.device.type == "cuda":
+        return track_cuda.carries(state, scalars, float(_ALPHA),
+                                  float(_KEEP))
+    scalars = scalars.numpy()
+    new, avg, smoothed = _carries(AnalyzerState.unpack(state),
+                                  scalars[:, 0], scalars[:, 1:])
+    return new.pack(), torch.from_numpy(
+        np.concatenate([avg[:, None], smoothed], axis=1))
+
+
+def analyze(state, rms, ch0, sample_rate, window=None):
+    """Chunks ch0 f32[n, 1024] with their RMS f32[n] from the packed
+    ``state`` f32[STATE_LEN], all on one device: (the new packed state,
+    AnalysisResult), with no sync and no upload on the card. ``window``:
+    the spectrum's window on that device (default the Hann window)."""
+    if window is None:
+        window = constants(ch0.device, sample_rate).window
     spectrum, windowed = compute_spectrum(ch0, window)
     pitch, conf = pitch_mpm(windowed, sample_rate)
     scalars = torch.stack([rms, *band_energies(spectrum, sample_rate)],
                           dim=-1)
-    with annotate("mr/track/sync"):
-        scalars = scalars.cpu().numpy()                     # the one copy out
-    state, avg, smoothed = _carries(state, scalars[:, 0], scalars[:, 1:])
-    back = torch.from_numpy(np.concatenate([avg[:, None], smoothed],
-                                           axis=1)).to(dev)
+    state, carried = carries(state, scalars)
     return state, AnalysisResult(
-        rms=rms, rolling_avg=back[:, 0], spectrum=spectrum,
-        bass=back[:, 1], mid=back[:, 2], treble=back[:, 3],
+        rms=rms, rolling_avg=carried[:, 0], spectrum=spectrum,
+        bass=carried[:, 1], mid=carried[:, 2], treble=carried[:, 3],
         pitch_hz=pitch, pitch_confidence=conf)
+
+
+def _analyze(state: AnalyzerState, rms, ch0, sample_rate, window=None):
+    """``analyze`` from and to a host ``AnalyzerState``: one upload of the
+    state, one read of the new state at the end."""
+    vec, res = analyze(state.pack().to(ch0.device), rms, ch0, sample_rate,
+                       window)
+    with annotate("mr/track/sync"):
+        vec = vec.cpu()                                     # the one copy out
+    return AnalyzerState.unpack(vec), res
 
 
 def process_chunk(state: AnalyzerState, samples, sample_rate, window=None,
@@ -271,5 +365,4 @@ def analyze_stream(samples, sample_rate, state: AnalyzerState = None,
     if state is None:
         state = AnalyzerState.init()
     rms = torch.sqrt(torch.mean(torch.square(chunks), dim=-1))
-    return _analyze(state, rms, chunks, sample_rate,
-                    hann_norm_window(device=device))
+    return _analyze(state, rms, chunks, sample_rate)

@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from .analyzer import FFT_SIZE, SPECTRUM_SIZE, AnalysisResult
+from .analyzer import FFT_SIZE, SPECTRUM_SIZE, AnalysisResult, constants
 
 ENERGY_SCALE = 150.0            # MusicalInterpreter.mm:7
 PITCH_CONFIDENCE_THRESHOLD = 0.25   # :8
@@ -51,8 +51,7 @@ def _sum_around_bin(spectrum, center_bin, radius=SPECTRUM_WINDOW_RADIUS):
 def interpret(result: AnalysisResult, sample_rate) -> MusicalContext:
     """MusicalInterpreter::interpret (MusicalInterpreter.mm:14-81)."""
     dev = result.rms.device
-    sample_rate = torch.tensor(float(sample_rate), dtype=torch.float32,
-                               device=dev)
+    sample_rate = constants(dev, sample_rate).rate
     one = torch.ones((), dtype=torch.float32, device=dev)
 
     energy = torch.minimum(one, result.rolling_avg * ENERGY_SCALE)

@@ -16,10 +16,10 @@ reference's exact constants:
     (mtl_engine.mm:753, :761).
 
 ``map_audio_to_visual`` takes one frame (0-d leaves) or a whole track
-(leaves with a leading frame axis). The envelope is a sequential carry: it
-runs on the host in float32, in frame order, on the frames' raw values
-brought over in one copy (as the analyzer's carries do), and the state
-lives on the host.
+(leaves with a leading frame axis). The envelope is a sequential carry in
+float32, in frame order: on the card one launch of
+``track_envelope_kernel`` (``csrc/track.cu``), elsewhere its twin, the
+numpy loop ``_envelope``. The state a caller holds lives on the host.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import annotate
+from . import track_cuda
 from .interpreter import MusicalContext
 
 REF_FREQ = 55.0                  # kRefFreq (mtl_engine.mm:719)
@@ -40,6 +41,7 @@ BRIGHTNESS_FLOOR = 0.08          # :745
 DECAY_FACTOR = 0.96              # :746
 DISPLACEMENT_SCALE = 25.0        # :761
 INITIAL_ENVELOPE = 0.3           # mtl_engine.hpp:159
+_DECAY = np.float32(DECAY_FACTOR)
 
 
 def hue_to_rgb(hue):
@@ -97,9 +99,10 @@ class VisualParams:
 
 def _envelope(start, raw):
     """envelope_t = max(raw_t, envelope_{t-1} * 0.96), in order, float32,
-    on the host. raw: f32[n] numpy."""
+    on the host. raw: f32[n] numpy. The plain twin of
+    ``track_envelope_kernel``."""
     env = np.float32(start)
-    decay = np.float32(DECAY_FACTOR)
+    decay = _DECAY
     out = np.empty_like(raw)
     for i in range(raw.shape[0]):
         env = max(raw[i], env * decay)
@@ -107,9 +110,34 @@ def _envelope(start, raw):
     return out
 
 
+def envelope(start, raw):
+    """The envelope of ``raw`` f32[n] from ``start`` f32[1], on one device:
+    f32[n + 1], ``start`` first, then each frame's envelope. On the card
+    one launch of ``track_envelope_kernel``; elsewhere the numpy loop
+    ``_envelope``."""
+    if raw.device.type == "cuda":
+        return track_cuda.envelope(start, raw, float(_DECAY))
+    return torch.from_numpy(np.concatenate(
+        [start.numpy(), _envelope(float(start[0]), raw.numpy())]))
+
+
 def map_audio_to_visual(state: VisualState, ctx: MusicalContext,
                         rms, rolling_avg):
-    """mtl_engine.mm:715-762. Returns (new_state, VisualParams)."""
+    """mtl_engine.mm:715-762. Returns (new_state, VisualParams); the new
+    state is the one read to the host."""
+    start = torch.as_tensor(state.brightness_envelope, dtype=torch.float32)
+    env, params = visual_params(start.reshape(1).to(ctx.energy.device), ctx,
+                                rms, rolling_avg)
+    with annotate("mr/track/sync"):
+        last = env[-1].cpu()                                # the one copy out
+    return VisualState(brightness_envelope=last), params
+
+
+def visual_params(start, ctx: MusicalContext, rms, rolling_avg):
+    """``map_audio_to_visual`` from the envelope ``start`` f32[1] on the
+    context's device, with no sync and no upload on the card: (the
+    envelope f32[n + 1] (``envelope``; its last value is the new state's),
+    VisualParams)."""
     dev = ctx.energy.device
     rms = torch.as_tensor(rms, dtype=torch.float32, device=dev)
     rolling_avg = torch.as_tensor(rolling_avg, dtype=torch.float32,
@@ -135,15 +163,9 @@ def map_audio_to_visual(state: VisualState, ctx: MusicalContext,
                       (one / 3.0).expand(3))
 
     raw = torch.minimum(one, (ctx.energy * 0.7 + ctx.brightness * 0.3) * 3.0)
-    with annotate("mr/track/sync"):
-        raw_host = raw.reshape(-1).cpu().numpy()        # the one copy out
-    env = _envelope(float(state.brightness_envelope), raw_host)
-    envelope = torch.from_numpy(env).to(dev).reshape(raw.shape)
-    brightness = torch.clamp_min(envelope, BRIGHTNESS_FLOOR)
-
-    new_state = VisualState(brightness_envelope=torch.tensor(
-        float(env[-1]), dtype=torch.float32))
-    return new_state, VisualParams(
+    env = envelope(start, raw.reshape(-1))
+    brightness = torch.clamp_min(env[1:].reshape(raw.shape), BRIGHTNESS_FLOOR)
+    return env, VisualParams(
         light_color=rgb * brightness[..., None],
         light_intensity=brightness,
         displacement=rolling_avg * DISPLACEMENT_SCALE,

@@ -7,8 +7,9 @@ uniform rebuilds with two blocking GPU submissions. Here a whole
 audio-reactive sequence — analysis, musical interpretation, audio->visual
 mapping, scene update, shadow pass, main pass, MSAA resolve — is WAV-like
 samples in, frames out, on one device: the track is computed for all
-frames at once (``audio_visual_track``), brought to the host in one copy
-(the frames' scenes and uniforms are built there), and the frames go
+frames at once (``audio_visual_track``; on the card one CUDA graph per
+chunk shape, ``audio.track``), brought to the host in one copy with its
+states (the frames' scenes and uniforms are built there), and the frames go
 through the fused frame batch (kernels K4 + K6) or, for configurations
 the fused batch does not take, through ``render_frame`` one by one. A
 camera flythrough (``render_camera_path``) slerps PoseCameras between key
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..audio import analyzer, interpreter, mapping
+from ..audio import analyzer, mapping, track
 from ..config import RenderConfig, ShadowConfig
 from ..passes.pipeline import (fused_batch_eligible, px_batch_eligible,
                                render_frame, render_frame_batch_fused,
@@ -37,22 +38,21 @@ def audio_visual_track(samples, sample_rate,
                        analyzer_state: analyzer.AnalyzerState = None,
                        visual_state: mapping.VisualState = None,
                        device="cuda"):
-    """Audio samples -> per-frame VisualParams (batched over frames) on
-    ``device``.
+    """Audio samples -> per-frame VisualParams (batched over frames),
+    computed on ``device``.
 
     Runs the full audio pipeline (AudioAnalyzer -> MusicalInterpreter ->
-    updateSharedTransformData mapping). Returns (analyzer_state,
-    visual_state, VisualParams[batch], MusicalContext[batch]); the states
-    carry a stream from one call to the next."""
+    updateSharedTransformData mapping; ``audio.track.run``). Returns
+    (analyzer_state, visual_state, VisualParams[batch],
+    MusicalContext[batch]), all on the host (the track's one read); the
+    states carry a stream from one call to the next."""
     with annotate("mr/track"):
-        a_state, results = analyzer.analyze_stream(samples, sample_rate,
-                                                   analyzer_state, device)
-        ctxs = interpreter.interpret(results, sample_rate)
-        if visual_state is None:
-            visual_state = mapping.VisualState.init()
-        v_state, params = mapping.map_audio_to_visual(
-            visual_state, ctxs, results.rms, results.rolling_avg)
-        return a_state, v_state, params, ctxs
+        return track.run(
+            samples, sample_rate,
+            analyzer.AnalyzerState.init() if analyzer_state is None
+            else analyzer_state,
+            mapping.VisualState.init() if visual_state is None
+            else visual_state, resolve_device(device))
 
 
 def camera_path(key_poses, frames_per_segment=8):
@@ -153,7 +153,7 @@ class _SequenceRenderer:
     def render(self, params: mapping.VisualParams, n, fused):
         """Frames 0..n-1 of ``params`` -> rgba f32[n, H, W, 4]."""
         with annotate("mr/params/sync"):
-            host = params.to("cpu")      # the one copy out: n x 5 floats
+            host = params.to("cpu")      # no copy: the track's are on the host
         frames = [host.frame(i) for i in range(n)]
         if fused:
             # The serving shape: the whole sequence in two kernel launches

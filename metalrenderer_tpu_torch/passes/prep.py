@@ -7,7 +7,6 @@ elsewhere, and at a shape's first frame, it runs op by op, bit-equal.
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 
 import torch
@@ -21,6 +20,7 @@ from ..scene import lights as lights_mod
 from ..scene.materials import BLINN_PHONG_SHADOW
 from ..scene.mesh import Mesh
 from ..scene.scene import PackedGeometry, Scene, bake
+from ..utils.cuda_graphs import GraphCache, capture_graph
 from ..utils.profiling import annotate
 
 
@@ -350,82 +350,21 @@ class PrepGraph:
                           self.shadow, self.config, self.n_tris)
 
     def capture(self):
-        """Run the prep on the filled inputs once op by op on a side stream
-        (PyTorch's warm-up before a capture), capture it, and replay it."""
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._run()
-            torch.cuda.current_stream().wait_stream(side)
-            with torch.cuda.graph(self.graph):
-                self.prep = self._run()
-            self.graph.replay()
-
-
-class PrepGraphs:
-    """The prep graphs by ``prep_graph_key``, the least recently used
-    first, at most ``size`` (each graph's memory pool holds every
-    intermediate of its prep).
-
-    A shape is captured at its second frame (``due``); its first runs op
-    by op, so a one-off frame (a single render, a session's frame after a
-    resize) costs what it did before graphs, not a capture (tens of op-by-
-    op preps). A shape whose graph was freed runs op by op from then on,
-    so shapes taking turns beyond ``size`` never recapture in turn.
-    ``seen`` remembers the last ``remembered`` shapes without a graph;
-    ``captures`` and ``replays`` count the graphed frames."""
-
-    def __init__(self, size=4, remembered=64):
-        self.size, self.remembered = size, remembered
-        self.graphs = collections.OrderedDict()
-        # key -> frames run op by op, or None once its graph was freed.
-        self.seen = collections.OrderedDict()
-        self.captures = 0
-        self.replays = 0
-
-    def get(self, key):
-        graph = self.graphs.get(key)
-        if graph is not None:
-            self.graphs.move_to_end(key)
-        return graph
-
-    def due(self, key):
-        """Count a frame of ``key``, which has no graph: whether it
-        captures one (its second frame, if its graph was never freed)."""
-        frames = self.seen.pop(key, 0)
-        self.seen[key] = None if frames is None else frames + 1
-        while len(self.seen) > self.remembered:
-            self.seen.popitem(last=False)
-        return frames == 1
-
-    def add(self, key, make):
-        """Free the least recently used graphs beyond ``size - 1``, then
-        ``make()`` this key's graph and keep it."""
-        while len(self.graphs) >= self.size:
-            freed, _ = self.graphs.popitem(last=False)
-            self.seen.pop(freed, None)
-            self.seen[freed] = None
-        graph = self.graphs[key] = make()
-        self.captures += 1
-        return graph
-
-    def clear(self):
-        """Free every graph and forget every shape."""
-        self.graphs.clear()
-        self.seen.clear()
+        """Capture the prep on the filled inputs and replay it
+        (``capture_graph``)."""
+        self.prep = capture_graph(self.graph, self._run, self.device)
 
 
 # The process's prep graphs: every renderer of a process shares them, so a
 # stream's warm-up captures what its later frames replay.
-PREP_GRAPH = PrepGraphs()
+PREP_GRAPH = GraphCache()
 
 
 def _graphed_prep(scene, displacement, vp, light_m, uniforms, shadow,
                   config, device, main_geom, n_tris):
     """The frame's prep through its prep graph (a ``static`` FramePrep),
     captured first at the shape's second frame; None where the frame runs
-    op by op (``PrepGraphs.due``)."""
+    op by op (``GraphCache.due``)."""
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     key = prep_graph_key(scene, config, device, main_geom)

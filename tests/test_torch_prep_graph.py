@@ -29,6 +29,7 @@ from metalrenderer_tpu_torch.scene import mesh
 from metalrenderer_tpu_torch.scene.camera import OrbitCamera
 from metalrenderer_tpu_torch.scene.lights import Lighting, PointLight
 from metalrenderer_tpu_torch.scene.scene import Instance, Scene, bake
+from metalrenderer_tpu_torch.utils import cuda_graphs
 
 W, H = 128, 64
 CFG = RenderConfig(width=W, height=H, msaa=4, shadow_map_size=64)
@@ -113,7 +114,7 @@ def test_cache_frees_its_least_recently_used_graph_at_its_bound():
             made.append(name)
             return name
         return f
-    graphs = frame_prep.PrepGraphs(size=2)
+    graphs = cuda_graphs.GraphCache(size=2)
     assert graphs.add("a", make("a")) == "a"
     graphs.add("b", make("b"))
     assert graphs.get("a") == "a"          # a is now the most recent
@@ -135,7 +136,7 @@ def test_shape_captures_at_its_second_frame():
     """A shape's first frame runs op by op; its second captures; shapes
     that take turns beyond the cache's size capture once each; the cache
     forgets the oldest shapes beyond ``remembered``."""
-    graphs = frame_prep.PrepGraphs(size=2, remembered=3)
+    graphs = cuda_graphs.GraphCache(size=2, remembered=3)
 
     def frame(key):
         if graphs.get(key) is not None:

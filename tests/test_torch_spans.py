@@ -73,12 +73,12 @@ def test_stream_holds_every_span_of_the_frame_path(runs):
         assert all(a[2] <= b[1] for a, b in zip(stages, stages[1:]))
     for stage in PREP_STAGES:
         assert len(named[stage]) == N_FRAMES
-    # One track a chunk, its two host reads inside it; one read of the
+    # One track a chunk, its one host read inside it; one read of the
     # track's parameters and two raster launches (K4, K6) a chunk; a stack
     # a frame (its copy into the batch's slot, after its prep); a scene a
     # frame and one more a chunk (the batch's template).
     assert len(named["mr/track"]) == n_chunks
-    assert len(named["mr/track/sync"]) == 2 * n_chunks
+    assert len(named["mr/track/sync"]) == n_chunks
     for sync in named["mr/track/sync"]:
         assert any(_inside(sync, t) for t in named["mr/track"])
     assert len(named["mr/params/sync"]) == n_chunks
