@@ -26,7 +26,8 @@ ROOT = HERE.parent
 class ControlDriver:
     """The reference in bfloat16, in the program's place: each request's
     frames (and, for audio traffic, its track) as ``reference`` works them
-    out with ``round_to=torch.bfloat16``."""
+    out with ``round_to=torch.bfloat16``, from the same per-frame inputs
+    (displacement, orbit angle) as the program's driver."""
 
     def __init__(self, entry, config, traffic, workload, seed, device,
                  mesh_arrays):
@@ -49,9 +50,9 @@ class ControlDriver:
     def audio(self, frames):
         return self.window_samples[:frames * self.n]
 
-    def displacements(self, first, count):
-        return self.inputs.displacements(self.traffic, first, count,
-                                         self.seed)
+    def frame_inputs(self, first, count):
+        return self.inputs.frames(self.traffic, self.config, first, count,
+                                  self.seed)
 
     def request(self, i):
         import torch
@@ -68,8 +69,7 @@ class ControlDriver:
             track = tuple(torch.from_numpy(t[first:need].copy())
                           for t in self.track)
         else:
-            ins = self.check.frame_inputs(
-                first, self.per, disps=self.displacements(first, self.per))
+            ins = self.frame_inputs(first, self.per)
         frames = torch.stack([self.check.reference_frame(
             self.config, self.mesh_arrays, fi, self.device,
             round_to=self.bf16) for fi in ins])

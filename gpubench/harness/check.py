@@ -26,6 +26,8 @@ device.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -76,11 +78,13 @@ def reference_frame(config, mesh_arrays, frame_inputs, device,
                     round_to=None, count=False):
     """One frame by the reference. ``frame_inputs``: {"displacement": d}
     and, where the light follows the audio, {"light_color": rgb,
-    "light_intensity": x}."""
+    "light_intensity": x}; where the camera orbits, {"theta": t}."""
     from ..reference import frame as ref_frame, scene as ref_scene
     instances, camera, lighting, render, shadow, target = ref_scene.build(
         config, mesh_arrays,
         light_color=frame_inputs.get("light_color"), device=device)
+    if "theta" in frame_inputs:
+        camera = dataclasses.replace(camera, theta=frame_inputs["theta"])
     if "light_intensity" in frame_inputs:
         lighting = ref_scene.Lighting(
             ref_scene.PointLight(lighting.light.position,
@@ -89,21 +93,20 @@ def reference_frame(config, mesh_arrays, frame_inputs, device,
             lighting.ambient_intensity, lighting.shininess)
     return ref_frame.render(instances, camera, lighting, render, shadow,
                             frame_inputs["displacement"], target, device,
-                            round_to=round_to, count=count)
+                            round_to=round_to, count=count,
+                            textures=ref_scene.texture_chains(mesh_arrays,
+                                                              device))
 
 
-def frame_inputs(first, count, track=None, disps=None):
-    """The reference's inputs of frames ``first`` .. ``first+count-1``."""
-    out = []
-    for f in range(first, first + count):
-        if track is not None:
-            color, intensity, disp = track
-            out.append({"light_color": tuple(float(c) for c in color[f]),
-                        "light_intensity": float(intensity[f]),
-                        "displacement": float(disp[f])})
-        else:
-            out.append({"displacement": disps[f - first]})
-    return out
+def frame_inputs(first, count, track):
+    """The reference's inputs of frames ``first`` .. ``first+count-1`` of
+    an audio cell, from its track (color [n, 3], intensity [n],
+    displacement [n])."""
+    color, intensity, disp = track
+    return [{"light_color": tuple(float(c) for c in color[f]),
+             "light_intensity": float(intensity[f]),
+             "displacement": float(disp[f])}
+            for f in range(first, first + count)]
 
 
 def compare(config, mesh_arrays, traffic, driver, kept, track_parts,
@@ -133,9 +136,8 @@ def compare(config, mesh_arrays, traffic, driver, kept, track_parts,
     counts = []
     for i in sorted(kept):
         frames = kept[i]
-        disps = None if track is not None else driver.displacements(
-            i * per, per)
-        ins = frame_inputs(i * per, per, track, disps)
+        ins = (frame_inputs(i * per, per, track) if track is not None
+               else driver.frame_inputs(i * per, per))
         for k, fi in enumerate(ins):
             out = reference_frame(config, mesh_arrays, fi, device,
                                   count=want_counts)

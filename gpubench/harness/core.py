@@ -95,9 +95,11 @@ def device_facts(device):
 
 
 def work_of(config, mesh_arrays, counts):
-    """The frame's own sizes, which the roofline reads: triangles in the
-    scene, the framebuffer, the shadow map (0 without a shadow
-    pass) and the reference's mean fragments a frame (or None)."""
+    """The frame's own sizes, which the rooflines read: triangles in the
+    scene, the framebuffer, the shadow map (0 without a shadow pass), the
+    bytes of the textures' mip chains, the light's kind and the
+    reference's mean work a frame (``reference.frame.render``'s counts, or
+    None)."""
     from ..reference import scene as ref_scene
     instances = ref_scene.build(config, mesh_arrays)[0]
     r = ref_scene.RenderConfig(**config["render"])
@@ -107,6 +109,11 @@ def work_of(config, mesh_arrays, counts):
     return {"triangles": sum(i.mesh.num_triangles for i in instances),
             "width": r.width, "height": r.height,
             "shadow_map_size": r.shadow_map_size if shadow else 0,
+            "texture_bytes": sum(
+                level.numel() * level.element_size()
+                for mips in ref_scene.texture_chains(mesh_arrays)
+                for level in mips),
+            "light": config["light"]["kind"],
             "fragments": counts}
 
 

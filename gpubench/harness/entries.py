@@ -3,7 +3,8 @@ driver with the same face: ``warmup()``, then ``request(i)`` for the i-th
 request of the window, returning (frames f32[n, H, W, 4] on the device,
 the request's audio-track parameters or None), and what the reference
 needs to render the same frames again: ``audio(frames)``, the signal the
-window's frames heard, or ``displacements(first, count)``.
+window's frames heard, or ``frame_inputs(first, count)``, each frame's
+displacement and camera angle (``inputs.frames``).
 
 Which driver a cell takes is its workload file's ``entry``; the scene, the
 camera and the light come from its configuration file, built here with the
@@ -13,6 +14,8 @@ driver is made.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from . import inputs
@@ -20,9 +23,12 @@ from . import inputs
 
 def port_scene(config, mesh_arrays, device):
     """(Scene, OrbitCamera, Lighting, RenderConfig, ShadowConfig,
-    shadow_target) of a configuration file, as the port's objects."""
+    shadow_target) of a configuration file, as the port's objects; the
+    scene's textures are the port's mip chains (``io.textures.from_array``)
+    of the base images the benchmark made (``mesh_arrays["textures"]``)."""
     import torch
     import metalrenderer_tpu_torch as mr
+    from metalrenderer_tpu_torch.io import textures as textures_mod
     from metalrenderer_tpu_torch.math import transforms
     from metalrenderer_tpu_torch.scene import mesh as mesh_mod
 
@@ -30,10 +36,14 @@ def port_scene(config, mesh_arrays, device):
     shadow = mr.ShadowConfig(**config.get("shadow", {}))
     ld = config["light"]
     color = tuple(ld.get("color", (1.0, 1.0, 1.0)))
-    if ld["kind"] != "point":
-        raise ValueError(f"no cell takes a {ld['kind']!r} light yet")
-    light = mr.PointLight(tuple(ld["position"]), color,
-                          ld.get("intensity", 1.0))
+    if ld["kind"] == "point":
+        light = mr.PointLight(tuple(ld["position"]), color,
+                              ld.get("intensity", 1.0))
+    elif ld["kind"] == "directional":
+        light = mr.DirectionalLight(tuple(ld["direction"]), color,
+                                    ld.get("intensity", 1.0))
+    else:
+        raise ValueError(f"no cell takes a {ld['kind']!r} light")
     lighting = mr.Lighting(light, config.get("ambient_intensity", 0.1),
                            config.get("shininess", 32.0))
     kinds = {"blinn_phong": mr.BLINN_PHONG,
@@ -53,12 +63,16 @@ def port_scene(config, mesh_arrays, device):
         instances.append(mr.Instance(
             mesh=m, model_matrix=model,
             material=mr.Material(color=torch.tensor(c, dtype=torch.float32),
-                                 kind=kinds[mat["kind"]]),
+                                 kind=kinds[mat["kind"]],
+                                 normal_map_id=d.get("normal_map_id", -1)),
             cast_shadow=d.get("cast_shadow", False),
             use_displacement=d.get("use_displacement", False)))
     camera = mr.OrbitCamera(**config["camera"],
                             aspect=render.width / render.height)
-    return (mr.Scene(instances=tuple(instances)).to(device), camera,
+    textures = tuple(textures_mod.from_array(a, generate_mips=True)
+                     for a in mesh_arrays.get("textures", ()))
+    return (mr.Scene(instances=tuple(instances),
+                     textures=textures).to(device), camera,
             lighting, render, shadow,
             tuple(config.get("shadow_target", (0.0, 0.0, 0.0))))
 
@@ -120,13 +134,15 @@ class StreamDriver:
 class FrameDriver:
     """``passes.pipeline.render_frame`` (one frame a request) or
     ``render_batch`` (``frames_per_request`` frames, ``chunk="auto"``) of
-    the configuration's scene, frame i displaced as the traffic says."""
+    the configuration's scene, frame i displaced and seen from the orbit
+    angle that the traffic says (``inputs.frames``)."""
 
     def __init__(self, config, traffic, workload, seed, device, batch,
                  mesh_arrays):
         from metalrenderer_tpu_torch.passes import pipeline
         self.pipeline, self.batch = pipeline, batch
-        self.traffic, self.seed, self.device = traffic, seed, device
+        self.config, self.traffic = config, traffic
+        self.seed, self.device = seed, device
         self.per_request = int(traffic["frames_per_request"])
         if not batch and self.per_request != 1:
             raise ValueError("render_frame takes one frame a request")
@@ -134,32 +150,36 @@ class FrameDriver:
         (self.scene, self.camera, self.lighting, self.render, self.shadow,
          self.shadow_target) = port_scene(config, mesh_arrays, device)
 
-    def _frames(self, disps):
+    def _frames(self, ins):
+        disps = [f["displacement"] for f in ins]
+        thetas = [f["theta"] for f in ins] if "theta" in ins[0] else None
         if self.batch:
             rgba, _ = self.pipeline.render_batch(
-                self.scene, self.camera, self.lighting, disps,
+                self.scene, self.camera, self.lighting, disps, thetas,
                 config=self.render, shadow_config=self.shadow,
                 shadow_target=self.shadow_target, chunk="auto",
                 device=self.device)
             return rgba
+        camera = self.camera if thetas is None else dataclasses.replace(
+            self.camera, theta=thetas[0])
         fb, _ = self.pipeline.render_frame(
-            self.scene, self.camera, self.lighting, self.render, self.shadow,
+            self.scene, camera, self.lighting, self.render, self.shadow,
             disps[0], self.shadow_target, device=self.device)
         return fb[None]
 
     def warmup(self):
-        # Displacements past any the window sends: the same shapes.
+        # Frames before any the window sends: the same shapes.
         for k in range(self.warmup_requests):
-            self._frames(inputs.displacements(
-                self.traffic, -(k + 1) * self.per_request, self.per_request,
-                self.seed))
+            self._frames(self.frame_inputs(-(k + 1) * self.per_request,
+                                           self.per_request))
 
     def request(self, i):
-        return self._frames(self.displacements(i * self.per_request,
-                                               self.per_request)), None
+        return self._frames(self.frame_inputs(i * self.per_request,
+                                              self.per_request)), None
 
-    def displacements(self, first, count):
-        return inputs.displacements(self.traffic, first, count, self.seed)
+    def frame_inputs(self, first, count):
+        return inputs.frames(self.traffic, self.config, first, count,
+                             self.seed)
 
     def close(self):
         self.scene = None
@@ -173,8 +193,9 @@ def make(entry, config, traffic, workload, seed, device, mesh_arrays):
             raise ValueError(f"{entry} takes audio traffic")
         return StreamDriver(config, traffic, workload, seed, device)
     if entry in ("render_frame", "render_batch"):
-        if traffic["generator"] != "displacement":
-            raise ValueError(f"{entry} takes displacement traffic")
+        if traffic["generator"] not in inputs.FRAME_GENERATORS:
+            raise ValueError(f"{entry} takes one of "
+                             f"{inputs.FRAME_GENERATORS} traffic")
         return FrameDriver(config, traffic, workload, seed, device,
                            entry == "render_batch", mesh_arrays)
     raise ValueError(f"unknown entry {entry!r}")

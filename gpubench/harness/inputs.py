@@ -1,6 +1,7 @@
 """What the benchmark makes from a cell's traffic file and seed: the audio
-signal and the per-frame displacements the window sends, and the dense
-sphere's mesh arrays that both the program and the reference read.
+signal and the per-frame displacements and orbit angles the window sends,
+and the dense sphere's mesh arrays and the textures' base images that both
+the program and the reference read.
 
 One general generator per traffic kind, driven by the parameters in
 ``traffic/<name>.json``; the seed sets phases and noise, never sizes or
@@ -75,6 +76,40 @@ def displacements(traffic, first, count, seed):
     return [float(x) for x in d.astype(np.float32)]
 
 
+def orbit_thetas(traffic, theta0, first, count, seed):
+    """The orbit camera's angle at frames ``first`` .. ``first + count -
+    1``: ``theta0 + 2 pi (i mod period_frames) / period_frames + phase``,
+    the phase drawn from the seed (float32 values as Python floats). The
+    frame index is taken modulo the period first, so frame -k (a warm-up
+    frame) and frame ``period_frames - k`` take the same angle, bit for
+    bit."""
+    phase = rng(seed, TRAFFIC_STREAM).uniform(0, 2 * np.pi)
+    period = int(traffic["period_frames"])
+    i = np.mod(np.arange(first, first + count, dtype=np.int64), period)
+    t = theta0 + 2 * np.pi * i.astype(np.float64) / period + phase
+    return [float(x) for x in t.astype(np.float32)]
+
+
+FRAME_GENERATORS = ("displacement", "orbit")
+
+
+def frames(traffic, config, first, count, seed):
+    """What frames ``first`` .. ``first + count - 1`` of a frame traffic
+    send: [{"displacement": d}] (``displacement``: the configuration's
+    camera, the scene displaced by ``displacements``), or [{"displacement":
+    0.0, "theta": t}] (``orbit``: the configuration's orbit camera at
+    ``orbit_thetas``, from its own ``theta``, nothing displaced)."""
+    kind = traffic["generator"]
+    if kind == "displacement":
+        return [{"displacement": d}
+                for d in displacements(traffic, first, count, seed)]
+    if kind == "orbit":
+        theta0 = float(config["camera"]["theta"])
+        return [{"displacement": 0.0, "theta": t}
+                for t in orbit_thetas(traffic, theta0, first, count, seed)]
+    raise ValueError(f"no frame traffic {kind!r}")
+
+
 def dense_sphere_arrays(target_tris):
     """A frozen copy of the port's ``engine/configs._dense_sphere_mesh``
     (BASELINE config 5's mesh): a sphere of radius 0.5 with about
@@ -99,11 +134,39 @@ def dense_sphere_arrays(target_tris):
     return pos * 0.5, quad_corners(uv), pos
 
 
+def bumpy_normal_map(size):
+    """A frozen copy of the port's ``engine/configs.bumpy_normal_map``
+    (BASELINE config 4's normal map) before its mip chain: the
+    tangent-space normals of h = 0.15 sin(12 pi x) sin(12 pi y) packed to
+    [0, 1], with alpha 1, float32 numpy [size, size, 4]."""
+    n = int(size)
+    y, x = np.mgrid[0:n, 0:n] / n
+    h = 0.15 * np.sin(12 * np.pi * x) * np.sin(12 * np.pi * y)
+    dhdx = np.gradient(h, axis=1) * n
+    dhdy = np.gradient(h, axis=0) * n
+    nm = np.stack([-dhdx, -dhdy, np.ones_like(h)], -1)
+    nm /= np.linalg.norm(nm, axis=-1, keepdims=True)
+    nm01 = ((nm + 1) / 2).astype(np.float32)
+    return np.concatenate([nm01, np.ones((n, n, 1), np.float32)], -1)
+
+
+TEXTURE_KINDS = {"bumpy_normal_map": bumpy_normal_map}
+
+
 def mesh_arrays(config):
-    """{instance index: (pos, uv, nrm)} for the configuration's meshes that
-    the benchmark makes (kind ``dense_sphere``)."""
+    """The arrays the benchmark makes for a configuration, which the
+    program and the reference both read: {instance index: (pos, uv, nrm)}
+    for its meshes of kind ``dense_sphere``, and, where it lists
+    ``textures``, under ``"textures"`` each texture's base image (float32
+    [H, W, 4]), in the list's order: the ids that an instance's
+    ``normal_map_id`` names. Each side builds its own mip chains."""
     out = {}
     for i, d in enumerate(config["instances"]):
         if d["mesh"]["kind"] == "dense_sphere":
             out[i] = dense_sphere_arrays(int(d["mesh"]["target_tris"]))
+    if config.get("textures"):
+        out["textures"] = [
+            TEXTURE_KINDS[t["kind"]](**{k: v for k, v in t.items()
+                                        if k != "kind"})
+            for t in config["textures"]]
     return out

@@ -13,10 +13,15 @@ The trace: ``torch.profiler`` with CPU and CUDA activities over the whole
 traced window, exported as a Chrome trace into the run's temporary
 directory, read back and deleted. Device time is the union of the device
 intervals (kernels, memcpy, memset), never a sum of durations: kernels
-that overlap (the split tile walk's two launches) count once.
+that overlap (the split tile walk's two launches) count once. Each device
+event and each runtime call keeps the profiler's correlation id, which
+ties the device's work to the host call that launched it (a CUDA graph's
+kernels to its ``cudaGraphLaunch``) without comparing the host's clock
+with the device's.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import functools
 import importlib
@@ -148,6 +153,11 @@ def base_name(name):
     return name[start:]
 
 
+def correlation(event):
+    """The profiler's correlation id of a trace event, or None."""
+    return (event.get("args") or {}).get("correlation")
+
+
 class TraceView:
     """What a per-layer metric reads: the traced window's events (times in
     microseconds on the trace's clock), the frames and requests the window
@@ -169,6 +179,14 @@ class TraceView:
         self.host = [(e["name"], float(e["ts"]), float(e["ts"]) +
                       float(e["dur"]), e.get("cat")) for e in x
                      if e.get("cat") in HOST_CATS]
+        # Correlation ids (None where the trace gives none): of each device
+        # event, in ``device``'s order, and of each runtime call as
+        # (start, id).
+        self.device_correlation = [correlation(e) for e in x
+                                   if e.get("cat") in DEVICE_CATS]
+        self.runtime_correlation = [
+            (float(e["ts"]), correlation(e)) for e in x
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")]
 
     @property
     def window_us(self):
@@ -195,6 +213,18 @@ class TraceView:
         label = SPAN_PREFIX + dotted
         return [(a, b) for n, a, b, c in self.host
                 if c == "user_annotation" and n == label]
+
+    def launched_in(self, intervals):
+        """The correlation ids of the runtime calls that start inside one
+        of ``intervals``: the device work those calls put on the card."""
+        found = merged(intervals)
+        starts = [a for a, _ in found]
+        out = set()
+        for a, c in self.runtime_correlation:
+            k = bisect.bisect_right(starts, a) - 1
+            if c is not None and k >= 0 and a <= found[k][1]:
+                out.add(c)
+        return out
 
     def runtime_calls(self, names):
         return [(a, b) for n, a, b, c in self.host

@@ -6,14 +6,15 @@ of ``passes/pipeline.py``'s ``prepare_frame``, ``prepare_main_pass``,
 ``_render_reference`` and ``_split_shade``): the vertex stage, near and
 guard-band clipping, triangle setup, brute-force visibility with the tile
 anchor of the configuration, perspective-correct interpolation, and the
-Blinn-Phong / emissive / shadow-test fragment stage, once per pixel at the
-first covered sample, blended by the covered share of the samples.
+Blinn-Phong / emissive / shadow-test / normal-map fragment stage under a
+point or a directional light, once per pixel at the first covered sample,
+blended by the covered share of the samples.
 
 ``round_to`` is the precision of the control: ``None`` keeps float32; a
 dtype (``torch.bfloat16``) rounds every stage's float values to it on the
 way through: world positions and normals after the vertex stage, clip
-coordinates, the interpolated G-buffer, the shading uniforms and the shaded
-rgba.
+coordinates, the interpolated G-buffer, the textures' mip chains, the
+shading uniforms and the shaded rgba.
 """
 from __future__ import annotations
 
@@ -65,18 +66,24 @@ def _shadow_setup(geom, light_anchor, shadow_target, shadow_config, config,
 
 
 def render(instances, camera, lighting, config, shadow_config, displacement,
-           shadow_target, device, round_to=None, count=False):
+           shadow_target, device, round_to=None, count=False, textures=()):
     """rgba f32[H, W, 4] of one frame on ``device``; with ``count``, also
-    the fragments it needs: {"main": n, "shadow": n} (``raster.
-    count_fragments`` of each pass)."""
+    the work it needs: {"main": n, "shadow": n} (``raster.
+    count_fragments`` of each pass) and the pixels its fragment stage
+    shades: "shaded" (a covered sample), of those "normal_mapped" (under
+    a normal map) and "shadow_tested" (a receiver of the shadow map, where
+    the frame has one). ``textures``: the frame's mip chains on
+    ``device`` (``scene.texture_chains``)."""
     q = rounder(round_to)
     geom = sc.bake(instances, displacement, device)
     geom = sc.PackedGeometry(**dict(geom.__dict__, world=q(geom.world),
                                     normals=q(geom.normals)))
     light = lighting.light
-    # The shadow camera of a point light sits at the light
-    # (mtl_engine.mm:668).
-    light_anchor = torch.as_tensor(light.position, dtype=torch.float32)
+    light_anchor = sc.light_anchor_position(light, shadow_target,
+                                            shadow_config)
+    light_dir = (light.direction if isinstance(light, sc.DirectionalLight)
+                 else None)
+    textures = tuple(tuple(q(level) for level in mips) for mips in textures)
     casts = any(i.cast_shadow for i in instances)
     receives = any(i.kind == sc.BLINN_PHONG_SHADOW for i in instances)
     shadow_ctx, fragments = None, {"main": 0, "shadow": 0}
@@ -106,6 +113,8 @@ def render(instances, camera, lighting, config, shadow_config, displacement,
         depth, normal_map_id=geom.normal_map_id[parent])
     gbuf = gbuf.replace(world=q(gbuf.world), normal=q(gbuf.normal),
                         uv=q(gbuf.uv), mat_color=q(gbuf.mat_color))
+    if count:
+        fragments.update(_shaded_pixels(gbuf, shadow_ctx is not None))
 
     def u(x):
         return q(torch.as_tensor(x, dtype=torch.float32).to(device))
@@ -119,8 +128,10 @@ def render(instances, camera, lighting, config, shadow_config, displacement,
         light_color=u(light.color),
         ambient_intensity=u(lighting.ambient_intensity),
         shininess=u(lighting.shininess), clear_color=u(config.clear_color),
-        shadow=shadow_ctx, shadow_bias=u(config.shadow_bias),
+        shadow=shadow_ctx, textures=textures,
+        shadow_bias=u(config.shadow_bias),
         shadow_factor_value=u(config.shadow_factor),
+        light_dir=None if light_dir is None else u(light_dir),
         shadow_per_pixel=config.shadow_per_pixel,
         per_pixel=config.shading_per_pixel)
     if r.dim() == 3:
@@ -128,3 +139,15 @@ def render(instances, camera, lighting, config, shadow_config, displacement,
         r, g, b, a = (torch.mean(c, dim=0) for c in (r, g, b, a))
     rgba = q(torch.stack([r, g, b, a], dim=-1))
     return (rgba, fragments) if count else rgba
+
+
+def _shaded_pixels(gbuf, shadow):
+    """Pixels the fragment stage shades, once each at its first covered
+    sample (``shading._first_covered`` over the [S, H, W] planes):
+    {"shaded": n, "normal_mapped": n, "shadow_tested": n}."""
+    (nmid, kind), covered = shading._first_covered(
+        [gbuf.normal_map_id, gbuf.mat_kind], gbuf.covered)
+    tested = covered & (kind == sc.BLINN_PHONG_SHADOW)
+    return {"shaded": int(covered.sum()),
+            "normal_mapped": int((covered & (nmid >= 0)).sum()),
+            "shadow_tested": int(tested.sum()) if shadow else 0}

@@ -3,9 +3,11 @@ the vertex stage (``bake``, ``project``), the orbit camera and the lights.
 
 Frozen copies of the port's ``config.py``, ``scene/mesh.py``,
 ``scene/materials.py``, ``scene/scene.py``, ``scene/camera.py`` (the orbit
-camera's matrices) and ``scene/lights.py``, in one module, built from a
-configuration file's description (``build``) rather than from the port's
-objects. The reference app's constants are cited where they are set.
+camera's matrices) and ``scene/lights.py`` (the point light, the
+directional light and the shadow camera's anchor), in one module, built
+from a configuration file's description (``build``) rather than from the
+port's objects. The reference app's constants are cited where they are
+set.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from . import transforms
+from . import textures, transforms
 
 # Metal's 4x MSAA rotated grid (offsets within a pixel); 1x: the center.
 SAMPLE_POSITIONS = {
@@ -144,6 +146,7 @@ class Instance:
     color: torch.Tensor          # f32[3]
     cast_shadow: bool = False
     use_displacement: bool = False
+    normal_map_id: int = -1      # index into the frame's textures; -1: none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +169,7 @@ def bake(instances, displacement, device) -> PackedGeometry:
     disp_scale = one + torch.as_tensor(displacement, dtype=torch.float32,
                                        device=device)
     parts = {k: [] for k in ("world", "uvs", "normals", "kind", "color",
-                             "cast")}
+                             "cast", "nmid")}
     for inst in instances:
         mesh = inst.mesh
         pos = mesh.positions * (disp_scale if inst.use_displacement else one)
@@ -181,12 +184,15 @@ def bake(instances, displacement, device) -> PackedGeometry:
         parts["color"].append(inst.color.to(device).expand(t, 3))
         parts["cast"].append(torch.full((t,), inst.cast_shadow,
                                         dtype=torch.bool, device=device))
+        parts["nmid"].append(torch.full((t,), inst.normal_map_id,
+                                        dtype=torch.int32, device=device))
     kinds = torch.cat(parts["kind"])
-    none = torch.full_like(kinds, -1)
     return PackedGeometry(
         world=torch.cat(parts["world"]), uvs=torch.cat(parts["uvs"]),
         normals=torch.cat(parts["normals"]), mat_kind=kinds,
-        mat_color=torch.cat(parts["color"]), tex_id=none, normal_map_id=none,
+        mat_color=torch.cat(parts["color"]),
+        tex_id=torch.full_like(kinds, -1),
+        normal_map_id=torch.cat(parts["nmid"]),
         cast_shadow=torch.cat(parts["cast"]))
 
 
@@ -244,10 +250,33 @@ class PointLight:
 
 
 @dataclasses.dataclass(frozen=True)
+class DirectionalLight:
+    """BASELINE config 4's sun, at infinity: ``direction`` points FROM the
+    light."""
+
+    direction: tuple = (0.0, -1.0, -0.3)
+    color: tuple = (1.0, 1.0, 1.0)
+    intensity: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Lighting:
     light: object
     ambient_intensity: float = 0.1   # mtl_engine.mm:757
     shininess: float = 32.0          # mtl_engine.mm:758
+
+
+def light_anchor_position(light, shadow_target, shadow: ShadowConfig):
+    """Where the shadow pass's light view sits: a point light at its own
+    position (mtl_engine.mm:668); a directional light's shadow camera along
+    -direction from the target at mid-ortho-depth, so that casters near
+    the target land inside the ortho volume's [near, far] (a frozen copy of
+    the port's ``scene/lights.light_anchor_position``)."""
+    if isinstance(light, DirectionalLight):
+        d = transforms.normalize(_f32(light.direction))
+        standoff = 0.5 * (shadow.near + shadow.far)
+        return _f32(shadow_target) - d * standoff
+    return _f32(light.position)
 
 
 def _adaptive_up(forward):
@@ -285,7 +314,8 @@ def model_matrix(desc):
 def build(config, mesh_arrays, light_color=None, device="cpu"):
     """(instances, camera, lighting, RenderConfig, ShadowConfig,
     shadow_target) of a configuration file's description. ``mesh_arrays``:
-    {instance index: (pos, uv, nrm) numpy} for meshes the benchmark made;
+    {instance index: (pos, uv, nrm) numpy} for meshes the benchmark made
+    (``texture_chains`` makes the mip chains of its ``"textures"``);
     ``light_color``: the frame's light color where the light follows the
     audio (an emissive ``"color": "light"`` takes it too)."""
     render = RenderConfig(**config["render"])
@@ -293,9 +323,14 @@ def build(config, mesh_arrays, light_color=None, device="cpu"):
     ld = config["light"]
     color = ld.get("color", (1.0, 1.0, 1.0)) if light_color is None \
         else light_color
-    if ld["kind"] != "point":
-        raise ValueError(f"no cell takes a {ld['kind']!r} light yet")
-    light = PointLight(tuple(ld["position"]), color, ld.get("intensity", 1.0))
+    if ld["kind"] == "point":
+        light = PointLight(tuple(ld["position"]), color,
+                           ld.get("intensity", 1.0))
+    elif ld["kind"] == "directional":
+        light = DirectionalLight(tuple(ld["direction"]), color,
+                                 ld.get("intensity", 1.0))
+    else:
+        raise ValueError(f"no cell takes a {ld['kind']!r} light")
     lighting = Lighting(light, config.get("ambient_intensity", 0.1),
                         config.get("shininess", 32.0))
     instances = []
@@ -312,8 +347,16 @@ def build(config, mesh_arrays, light_color=None, device="cpu"):
         instances.append(Instance(
             m, model_matrix(d), MATERIAL_KINDS[mat["kind"]],
             torch.as_tensor(c, dtype=torch.float32).reshape(3),
-            d.get("cast_shadow", False), d.get("use_displacement", False)))
+            d.get("cast_shadow", False), d.get("use_displacement", False),
+            d.get("normal_map_id", -1)))
     camera = OrbitCamera(**config["camera"],
                          aspect=render.width / render.height)
     return (instances, camera, lighting, render, shadow,
             tuple(config.get("shadow_target", (0.0, 0.0, 0.0))))
+
+
+def texture_chains(mesh_arrays, device="cpu"):
+    """The frame's textures: the mip chain (``reference.textures.
+    from_array``) of each base image the benchmark made, on ``device``."""
+    return tuple(tuple(level.to(device) for level in textures.from_array(a))
+                 for a in mesh_arrays.get("textures", ()))

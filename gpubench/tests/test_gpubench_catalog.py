@@ -32,6 +32,11 @@ def test_gpubench_keys_and_names_follow_the_contract():
             assert m["better"] in ("lower", "higher")
     names = [m["name"] for s in ("end_to_end", "per_layer") for m in SPEC[s]]
     assert len(names) == len(set(names))
+    texts = ([c[k] for c in SPEC["configs"] for k in ("source", "why")]
+             + [w["why"] for w in SPEC["workloads"]]
+             + [m["layer"] for m in SPEC["per_layer"]] + SPEC["command"])
+    for text in texts:
+        assert 1 <= len(text) <= 200 and text.isprintable(), text
     e2e = {m["name"]: m for m in SPEC["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25
     assert all(0.01 <= m["bound"] <= 0.25 for m in e2e.values())

@@ -16,7 +16,7 @@ sys.path.insert(0, str(REPO / "gpubench"))
 import calibrate  # noqa: E402
 
 CELLS = ["audioapp-live", "sphere1m-4k-frame", "audioapp-stream",
-         "sphere1m-4k-batch2"]
+         "sphere1m-4k-batch2", "config4-frame"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -78,7 +78,9 @@ FAULTS = [("audioapp-live", "state_unchanged"),
           ("sphere1m-4k-frame", "frame_altered"),
           ("sphere1m-4k-batch2", "state_unchanged"),
           ("sphere1m-4k-batch2", "half_batch"),
-          ("sphere1m-4k-batch2", "frame_altered")]
+          ("sphere1m-4k-batch2", "frame_altered"),
+          ("config4-frame", "state_unchanged"),
+          ("config4-frame", "frame_altered")]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)

@@ -48,7 +48,8 @@ def test_gpubench_reference_track_equals_the_ports():
 
 
 @pytest.mark.parametrize("name,disp", [("audioapp-1080p", 0.4),
-                                       ("sphere1m-4k", 0.03)])
+                                       ("sphere1m-4k", 0.03),
+                                       ("config4-1080p", 0.0)])
 def test_gpubench_reference_frame_equals_the_ports_oracle(name, disp):
     from gpubench.harness import check, entries, inputs
     from metalrenderer_tpu_torch.passes import pipeline

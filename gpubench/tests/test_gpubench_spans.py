@@ -7,11 +7,9 @@ import pytest
 from conftest import BENCH, REPO
 
 LAUNCH = "cudaLaunchKernel"
-STAGE_MS = {"bake_ms": "mr/prep/bake", "shadow_geom_ms": "mr/prep/shadow",
-            "main_geom_ms": "mr/prep/main", "scene_ms": "mr/scene"}
-NEW = ["scene_ms", "bake_ms", "shadow_geom_ms", "main_geom_ms", "bin_ms",
-       "sync_wait_ms", "prep_launches_per_frame", "track_launches_per_frame",
-       "host_copies_per_frame", "idle_unspanned_pct"]
+NEW = ["scene_ms", "sync_wait_ms", "prep_launches_per_frame",
+       "track_launches_per_frame", "host_copies_per_frame",
+       "idle_unspanned_pct"]
 
 
 def view(events, frames=2):
@@ -74,16 +72,10 @@ def frame_trace():
     return view(events)
 
 
-@pytest.mark.parametrize("name", sorted(STAGE_MS))
+@pytest.mark.parametrize("name", ["scene_ms"])
 def test_gpubench_stage_ms_reads_its_own_span(name):
-    want = {"bake_ms": 10.0, "shadow_geom_ms": 30.0, "main_geom_ms": 50.0,
-            "scene_ms": 20.0}[name]
-    # Two frames, one span of each a frame: the span's length a frame.
-    assert reader(name).read(frame_trace()) == pytest.approx(want * 1e-3)
-
-
-def test_gpubench_bin_ms_adds_both_passes():
-    assert reader("bin_ms").read(frame_trace()) == pytest.approx(0.140)
+    # Two frames, one scene span of 20 us a frame.
+    assert reader(name).read(frame_trace()) == pytest.approx(20e-3)
 
 
 def test_gpubench_sync_wait_ms_reads_every_sync_span():
