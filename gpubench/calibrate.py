@@ -35,7 +35,8 @@ class ControlDriver:
         from gpubench.harness import check, inputs
         self.check, self.inputs = check, inputs
         self.config, self.traffic, self.seed = config, traffic, seed
-        self.device, self.mesh_arrays = device, mesh_arrays
+        self.device = device
+        self.mesh_arrays = check.reference_arrays(mesh_arrays)
         self.per = int(traffic["frames_per_request"])
         self.bf16 = torch.bfloat16
         self.track = None

@@ -98,6 +98,20 @@ def reference_frame(config, mesh_arrays, frame_inputs, device,
                                                               device))
 
 
+def reference_arrays(mesh_arrays):
+    """``mesh_arrays`` with each OBJ mesh's arrays as the reference's own
+    reader (``reference.obj``) reads them back from its file; raises where
+    they differ, bit for bit, from the arrays the file was written
+    from."""
+    from ..reference import obj as ref_obj
+    out = dict(mesh_arrays)
+    for i, path in mesh_arrays.get("obj_files", {}).items():
+        out[i] = ref_obj.load(path)
+        inputs.same_bits(out[i], mesh_arrays[i],
+                         f"reference.obj.load({path!r})")
+    return out
+
+
 def frame_inputs(first, count, track):
     """The reference's inputs of frames ``first`` .. ``first+count-1`` of
     an audio cell, from its track (color [n, 3], intensity [n],
@@ -134,6 +148,8 @@ def compare(config, mesh_arrays, traffic, driver, kept, track_parts,
             prog[1] >= INTENSITY_CLAMP)) if n_frames else np.inf
     worst = {"frame_mae": 0.0, "tile_mae": 0.0}
     counts = []
+    if kept:
+        mesh_arrays = reference_arrays(mesh_arrays)
     for i in sorted(kept):
         frames = kept[i]
         ins = (frame_inputs(i * per, per, track) if track is not None

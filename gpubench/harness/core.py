@@ -23,6 +23,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -132,7 +133,17 @@ def run(bench_path, root, cell_name, seed, seconds, traced, device,
     """Run the cell; returns (result dict, the compared lines). ``device``:
     a torch.device; ``make_driver``: replaces ``entries.make`` (the control
     and the fault tests put their drivers in the program's place);
-    ``min_requests``: the window runs at least so many requests."""
+    ``min_requests``: the window runs at least so many requests. The
+    configuration's OBJ meshes are written to a temporary directory (under
+    ``TMPDIR``), removed when the run ends."""
+    with tempfile.TemporaryDirectory(prefix="gpubench-") as obj_dir:
+        return _run(bench_path, root, cell_name, seed, seconds, traced,
+                    device, t_process_start, make_driver, log, min_requests,
+                    obj_dir)
+
+
+def _run(bench_path, root, cell_name, seed, seconds, traced, device,
+         t_process_start, make_driver, log, min_requests, obj_dir):
     import torch
     cat = Catalog(bench_path, root)
     cell = cat.cell(cell_name)
@@ -151,7 +162,7 @@ def run(bench_path, root, cell_name, seed, seconds, traced, device,
         if is_cuda:
             torch.cuda.synchronize(device)
 
-    mesh_arrays = inputs.mesh_arrays(config)
+    mesh_arrays = inputs.mesh_arrays(config, obj_dir)
     driver = (make_driver or entries.make)(
         wl["entry"], config, traffic, wl, seed, device, mesh_arrays)
     driver.warmup()

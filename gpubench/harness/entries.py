@@ -25,9 +25,13 @@ def port_scene(config, mesh_arrays, device):
     """(Scene, OrbitCamera, Lighting, RenderConfig, ShadowConfig,
     shadow_target) of a configuration file, as the port's objects; the
     scene's textures are the port's mip chains (``io.textures.from_array``)
-    of the base images the benchmark made (``mesh_arrays["textures"]``)."""
+    of the base images the benchmark made (``mesh_arrays["textures"]``).
+    An OBJ mesh is read back from its file by the port's ``io.obj.
+    load_obj`` (its native parser where that builds), which has to give
+    the arrays the file was written from, bit for bit."""
     import torch
     import metalrenderer_tpu_torch as mr
+    from metalrenderer_tpu_torch.io import obj as obj_mod
     from metalrenderer_tpu_torch.io import textures as textures_mod
     from metalrenderer_tpu_torch.math import transforms
     from metalrenderer_tpu_torch.scene import mesh as mesh_mod
@@ -52,18 +56,29 @@ def port_scene(config, mesh_arrays, device):
     instances = []
     for i, d in enumerate(config["instances"]):
         kind = d["mesh"]["kind"]
-        m = (mesh_mod.cube() if kind == "cube" else
-             mesh_mod.plane() if kind == "plane" else
-             mesh_mod.from_numpy(*mesh_arrays[i]))
+        if kind == "obj":
+            path = mesh_arrays["obj_files"][i]
+            m = obj_mod.load_obj(path)
+            inputs.same_bits([t.numpy() for t in (m.positions, m.uvs,
+                                                  m.normals)],
+                             mesh_arrays[i], f"io.obj.load_obj({path!r})")
+        else:
+            m = (mesh_mod.cube() if kind == "cube" else
+                 mesh_mod.plane() if kind == "plane" else
+                 mesh_mod.from_numpy(*mesh_arrays[i]))
         mat = d["material"]
         c = color if mat["color"] == "light" else mat["color"]
         model = transforms.matmul(
             transforms.translation(*d.get("translate", (0.0, 0.0, 0.0))),
             transforms.scale(*d.get("scale", (1.0, 1.0, 1.0))))
+        if "rotate" in d:
+            model = transforms.matmul(model, transforms.rotation(
+                d["rotate"]["angle"], d["rotate"]["axis"]))
         instances.append(mr.Instance(
             mesh=m, model_matrix=model,
             material=mr.Material(color=torch.tensor(c, dtype=torch.float32),
                                  kind=kinds[mat["kind"]],
+                                 texture_id=d.get("texture_id", -1),
                                  normal_map_id=d.get("normal_map_id", -1)),
             cast_shadow=d.get("cast_shadow", False),
             use_displacement=d.get("use_displacement", False)))

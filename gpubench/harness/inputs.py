@@ -1,13 +1,16 @@
 """What the benchmark makes from a cell's traffic file and seed: the audio
 signal and the per-frame displacements and orbit angles the window sends,
-and the dense sphere's mesh arrays and the textures' base images that both
-the program and the reference read.
+and the meshes' arrays (a dense sphere, a UV sphere, either written out as
+an OBJ file) and the textures' base images that both the program and the
+reference read.
 
 One general generator per traffic kind, driven by the parameters in
 ``traffic/<name>.json``; the seed sets phases and noise, never sizes or
 counts, so every seed sends the same amount of work.
 """
 from __future__ import annotations
+
+import pathlib
 
 import numpy as np
 
@@ -150,20 +153,113 @@ def bumpy_normal_map(size):
     return np.concatenate([nm01, np.ones((n, n, 1), np.float32)], -1)
 
 
-TEXTURE_KINDS = {"bumpy_normal_map": bumpy_normal_map}
+def uv_sphere_arrays(stacks, slices, radius=0.5):
+    """A frozen copy of the port's ``scene/mesh.uv_sphere`` (BASELINE
+    config 2's spheres): smooth normals, CCW winding seen from outside, two
+    triangles a quad and none at the poles' degenerate quads, float32 numpy
+    (positions, uvs, normals), three vertices per triangle."""
+    verts = []
+    for i in range(stacks):
+        phi0 = np.pi * i / stacks
+        phi1 = np.pi * (i + 1) / stacks
+        for j in range(slices):
+            th0 = 2 * np.pi * j / slices
+            th1 = 2 * np.pi * (j + 1) / slices
+
+            def pt(phi, th):
+                n = np.array([np.sin(phi) * np.cos(th), np.cos(phi),
+                              np.sin(phi) * np.sin(th)], np.float32)
+                uv = np.array([th / (2 * np.pi), 1.0 - phi / np.pi],
+                              np.float32)
+                return n * radius, uv, n
+
+            p00, p01 = pt(phi0, th0), pt(phi0, th1)
+            p10, p11 = pt(phi1, th0), pt(phi1, th1)
+            if i > 0:
+                verts += [p00, p11, p01]
+            if i < stacks - 1:
+                verts += [p00, p10, p11]
+    return tuple(np.stack([v[k] for v in verts]) for k in range(3))
 
 
-def mesh_arrays(config):
+def checkerboard(size, squares, color_a=(1.0, 1.0, 1.0),
+                 color_b=(0.2, 0.6, 0.2)):
+    """A frozen copy of the base image of the port's
+    ``io/textures.checkerboard`` (BASELINE config 3's color texture),
+    before its mip chain: ``squares`` x ``squares`` squares of
+    ``color_a`` and ``color_b``, alpha 1, float32 numpy [size, size, 4]."""
+    y, x = np.mgrid[0:size, 0:size]
+    cell = size // squares
+    mask = ((x // cell) + (y // cell)) % 2 == 0
+    img = np.where(mask[..., None], np.asarray(color_a, np.float32),
+                   np.asarray(color_b, np.float32))
+    return np.concatenate([img, np.ones((size, size, 1), np.float32)],
+                          axis=-1)
+
+
+TEXTURE_KINDS = {"bumpy_normal_map": bumpy_normal_map,
+                 "checkerboard": checkerboard}
+MESH_KINDS = {
+    "dense_sphere": lambda d: dense_sphere_arrays(int(d["target_tris"])),
+    "uv_sphere": lambda d: uv_sphere_arrays(int(d["stacks"]),
+                                            int(d["slices"])),
+}
+
+
+def write_obj(path, pos, uv, nrm):
+    """The mesh as an OBJ file in the format of the port's
+    ``io/obj.save_obj`` (a frozen copy, byte for byte): one ``v``, ``vt``
+    and ``vn`` a corner, each float32 written as the shortest decimal form
+    of its value as a double (Python's ``str`` of ``float(x)``), which
+    reads back to the same float32, then ``f a/a/a b/b/b c/c/c`` a
+    triangle."""
+    lines = []
+    for tag, a in (("v", pos), ("vt", uv), ("vn", nrm)):
+        lines += [f"{tag} " + " ".join(map(str, row))
+                  for row in np.asarray(a, np.float32).tolist()]
+    lines += [f"f {a}/{a}/{a} {a + 1}/{a + 1}/{a + 1} {a + 2}/{a + 2}/{a + 2}"
+              for a in range(1, len(pos) + 1, 3)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def same_bits(read, made, what):
+    """Raises unless each of the arrays ``read`` (positions, uvs, normals)
+    equals the one in ``made`` bit for bit: the same shape and the same
+    float32 words."""
+    for name, a, b in zip(("positions", "uvs", "normals"), read, made,
+                          strict=True):
+        a, b = np.asarray(a), np.asarray(b, np.float32)
+        if (a.dtype != np.float32 or a.shape != b.shape
+                or not np.array_equal(a.view(np.uint32), b.view(np.uint32))):
+            raise RuntimeError(f"{what}: its {name} differ from the arrays "
+                               "the OBJ file was written from")
+
+
+def mesh_arrays(config, obj_dir=None):
     """The arrays the benchmark makes for a configuration, which the
     program and the reference both read: {instance index: (pos, uv, nrm)}
-    for its meshes of kind ``dense_sphere``, and, where it lists
-    ``textures``, under ``"textures"`` each texture's base image (float32
-    [H, W, 4]), in the list's order: the ids that an instance's
-    ``normal_map_id`` names. Each side builds its own mip chains."""
+    for its meshes of a kind in ``MESH_KINDS`` and of kind ``obj`` (the
+    arrays of the kind its ``of`` names, also written by ``write_obj`` to
+    a file in ``obj_dir``, listed under ``"obj_files"``: {instance index:
+    path}, which the program and the reference each read back), and, where
+    it lists ``textures``, under ``"textures"`` each texture's base image
+    (float32 [H, W, 4]), in the list's order: the ids that an instance's
+    ``texture_id`` and ``normal_map_id`` name. Each side builds its own
+    mip chains."""
     out = {}
     for i, d in enumerate(config["instances"]):
-        if d["mesh"]["kind"] == "dense_sphere":
-            out[i] = dense_sphere_arrays(int(d["mesh"]["target_tris"]))
+        mesh = d["mesh"]
+        if mesh["kind"] in MESH_KINDS:
+            out[i] = MESH_KINDS[mesh["kind"]](mesh)
+        elif mesh["kind"] == "obj":
+            if obj_dir is None:
+                raise ValueError("an OBJ mesh needs a directory to be "
+                                 "written to")
+            out[i] = MESH_KINDS[mesh["of"]](mesh)
+            path = pathlib.Path(obj_dir) / f"instance{i}.obj"
+            write_obj(path, *out[i])
+            out.setdefault("obj_files", {})[i] = str(path)
     if config.get("textures"):
         out["textures"] = [
             TEXTURE_KINDS[t["kind"]](**{k: v for k, v in t.items()

@@ -36,10 +36,15 @@ work as today's chain:
     (21) and its normalization (10);
   - a shadow-tested pixel, 60: the light-space transform and remap (34),
     one bilinear tap of one channel (20), the bias and the factor (2) and
-    the factor on four channels (4).
+    the factor on four channels (4);
+  - a textured pixel (its base color from a color texture, ``_sample_rgb``
+    under ``_resolve_base_color_soa``), 133: the screen-space differences
+    of uv (4), one trilinear lookup (19 for its LOD; 3 to split the LOD;
+    two bilinear rgba taps of 47; 13 for the level blend); the select of
+    the texel in place of the material's color none.
 
   A pixel that is normal-mapped and shadow-tested takes 60 + 229 + 60 =
-  349.
+  349; a textured pixel under a point light 60 + 13 + 133 = 206.
 
 Returns nothing where the reference counted no work or where
 ``pass_device_ms`` reads nothing."""
@@ -58,6 +63,7 @@ OPS_POINT_LIGHT = 13
 BILINEAR_RGBA, BILINEAR_ONE = 11 + 9 * 4, 11 + 9
 OPS_NORMAL_MAP = 10 + 29 + 30 + 19 + 3 + 2 * BILINEAR_RGBA + 13 + 21 + 10
 OPS_SHADOW_TEST = 34 + BILINEAR_ONE + 2 + 4
+OPS_COLOR_TEXTURE = 4 + 19 + 3 + 2 * BILINEAR_RGBA + 13
 
 _spec = _util.spec_from_file_location(
     "gpubench_metric_pass_device_ms_for_roofline",
@@ -78,6 +84,7 @@ def least_seconds(work):
         OPS_POINT_LIGHT if work["light"] == "point" else 0)
     ops = (OPS_PER_FRAGMENT * (c["main"] + c["shadow"])
            + per_pixel * c["shaded"] + OPS_NORMAL_MAP * c["normal_mapped"]
+           + OPS_COLOR_TEXTURE * c["textured"]
            + OPS_SHADOW_TEST * c["shadow_tested"])
     by_bytes, by_ops = b / PEAK_BYTES_PER_S, ops / PEAK_FLOP_PER_S
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "ops")

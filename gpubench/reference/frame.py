@@ -6,9 +6,9 @@ of ``passes/pipeline.py``'s ``prepare_frame``, ``prepare_main_pass``,
 ``_render_reference`` and ``_split_shade``): the vertex stage, near and
 guard-band clipping, triangle setup, brute-force visibility with the tile
 anchor of the configuration, perspective-correct interpolation, and the
-Blinn-Phong / emissive / shadow-test / normal-map fragment stage under a
-point or a directional light, once per pixel at the first covered sample,
-blended by the covered share of the samples.
+Blinn-Phong / emissive / shadow-test / normal-map / color-texture fragment
+stage under a point or a directional light, once per pixel at the first
+covered sample, blended by the covered share of the samples.
 
 ``round_to`` is the precision of the control: ``None`` keeps float32; a
 dtype (``torch.bfloat16``) rounds every stage's float values to it on the
@@ -71,9 +71,10 @@ def render(instances, camera, lighting, config, shadow_config, displacement,
     the work it needs: {"main": n, "shadow": n} (``raster.
     count_fragments`` of each pass) and the pixels its fragment stage
     shades: "shaded" (a covered sample), of those "normal_mapped" (under
-    a normal map) and "shadow_tested" (a receiver of the shadow map, where
-    the frame has one). ``textures``: the frame's mip chains on
-    ``device`` (``scene.texture_chains``)."""
+    a normal map), "textured" (under a color texture) and "shadow_tested"
+    (a receiver of the shadow map, where the frame has one).
+    ``textures``: the frame's mip chains on ``device``
+    (``scene.texture_chains``)."""
     q = rounder(round_to)
     geom = sc.bake(instances, displacement, device)
     geom = sc.PackedGeometry(**dict(geom.__dict__, world=q(geom.world),
@@ -144,10 +145,11 @@ def render(instances, camera, lighting, config, shadow_config, displacement,
 def _shaded_pixels(gbuf, shadow):
     """Pixels the fragment stage shades, once each at its first covered
     sample (``shading._first_covered`` over the [S, H, W] planes):
-    {"shaded": n, "normal_mapped": n, "shadow_tested": n}."""
-    (nmid, kind), covered = shading._first_covered(
-        [gbuf.normal_map_id, gbuf.mat_kind], gbuf.covered)
+    {"shaded": n, "normal_mapped": n, "textured": n, "shadow_tested": n}."""
+    (nmid, texid, kind), covered = shading._first_covered(
+        [gbuf.normal_map_id, gbuf.tex_id, gbuf.mat_kind], gbuf.covered)
     tested = covered & (kind == sc.BLINN_PHONG_SHADOW)
     return {"shaded": int(covered.sum()),
             "normal_mapped": int((covered & (nmid >= 0)).sum()),
+            "textured": int((covered & (texid >= 0)).sum()),
             "shadow_tested": int(tested.sum()) if shadow else 0}

@@ -147,6 +147,7 @@ class Instance:
     cast_shadow: bool = False
     use_displacement: bool = False
     normal_map_id: int = -1      # index into the frame's textures; -1: none
+    texture_id: int = -1         # the base color's texture; -1: none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +170,7 @@ def bake(instances, displacement, device) -> PackedGeometry:
     disp_scale = one + torch.as_tensor(displacement, dtype=torch.float32,
                                        device=device)
     parts = {k: [] for k in ("world", "uvs", "normals", "kind", "color",
-                             "cast", "nmid")}
+                             "cast", "nmid", "texid")}
     for inst in instances:
         mesh = inst.mesh
         pos = mesh.positions * (disp_scale if inst.use_displacement else one)
@@ -186,12 +187,14 @@ def bake(instances, displacement, device) -> PackedGeometry:
                                         dtype=torch.bool, device=device))
         parts["nmid"].append(torch.full((t,), inst.normal_map_id,
                                         dtype=torch.int32, device=device))
+        parts["texid"].append(torch.full((t,), inst.texture_id,
+                                         dtype=torch.int32, device=device))
     kinds = torch.cat(parts["kind"])
     return PackedGeometry(
         world=torch.cat(parts["world"]), uvs=torch.cat(parts["uvs"]),
         normals=torch.cat(parts["normals"]), mat_kind=kinds,
         mat_color=torch.cat(parts["color"]),
-        tex_id=torch.full_like(kinds, -1),
+        tex_id=torch.cat(parts["texid"]),
         normal_map_id=torch.cat(parts["nmid"]),
         cast_shadow=torch.cat(parts["cast"]))
 
@@ -305,17 +308,25 @@ def light_projection_matrix(shadow: ShadowConfig):
 
 
 def model_matrix(desc):
-    """translate @ scale of an instance description."""
-    return transforms.matmul(transforms.translation(*desc.get(
+    """translate @ scale of an instance description, then @ its
+    ``rotate`` ({"angle": radians, "axis": [x, y, z]}) where it has one:
+    the order of the port's ``engine/configs.config2_multi_mesh``."""
+    m = transforms.matmul(transforms.translation(*desc.get(
         "translate", (0.0, 0.0, 0.0))), transforms.scale(*desc.get(
             "scale", (1.0, 1.0, 1.0))))
+    if "rotate" in desc:
+        r = desc["rotate"]
+        m = transforms.matmul(m, transforms.rotation(r["angle"], r["axis"]))
+    return m
 
 
 def build(config, mesh_arrays, light_color=None, device="cpu"):
     """(instances, camera, lighting, RenderConfig, ShadowConfig,
     shadow_target) of a configuration file's description. ``mesh_arrays``:
-    {instance index: (pos, uv, nrm) numpy} for meshes the benchmark made
-    (``texture_chains`` makes the mip chains of its ``"textures"``);
+    {instance index: (pos, uv, nrm) numpy} for meshes the benchmark made,
+    an OBJ mesh's as the reference's reader read them back from its file
+    (``harness.check.reference_arrays``); ``texture_chains`` makes the mip
+    chains of its ``"textures"``;
     ``light_color``: the frame's light color where the light follows the
     audio (an emissive ``"color": "light"`` takes it too)."""
     render = RenderConfig(**config["render"])
@@ -348,7 +359,7 @@ def build(config, mesh_arrays, light_color=None, device="cpu"):
             m, model_matrix(d), MATERIAL_KINDS[mat["kind"]],
             torch.as_tensor(c, dtype=torch.float32).reshape(3),
             d.get("cast_shadow", False), d.get("use_displacement", False),
-            d.get("normal_map_id", -1)))
+            d.get("normal_map_id", -1), d.get("texture_id", -1)))
     camera = OrbitCamera(**config["camera"],
                          aspect=render.width / render.height)
     return (instances, camera, lighting, render, shadow,

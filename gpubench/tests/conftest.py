@@ -33,7 +33,7 @@ def shrink(config):
                    if k != "shadow_map_size"
                    or render["shadow_map_size"] > 64})
     for inst in config["instances"]:
-        if inst["mesh"]["kind"] == "dense_sphere":
+        if "target_tris" in inst["mesh"]:
             inst["mesh"]["target_tris"] = TINY_TRIS
     return config
 

@@ -33,6 +33,8 @@ def test_gpubench_keys_and_names_follow_the_contract():
     names = [m["name"] for s in ("end_to_end", "per_layer") for m in SPEC[s]]
     assert len(names) == len(set(names))
     texts = ([c[k] for c in SPEC["configs"] for k in ("source", "why")]
+             + [json.loads((REPO / c["file"]).read_text())[k]
+                for c in SPEC["configs"] for k in ("source", "path")]
              + [w["why"] for w in SPEC["workloads"]]
              + [m["layer"] for m in SPEC["per_layer"]] + SPEC["command"])
     for text in texts:

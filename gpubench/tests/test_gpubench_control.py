@@ -16,7 +16,7 @@ sys.path.insert(0, str(REPO / "gpubench"))
 import calibrate  # noqa: E402
 
 CELLS = ["audioapp-live", "sphere1m-4k-frame", "audioapp-stream",
-         "sphere1m-4k-batch2", "config4-frame"]
+         "sphere1m-4k-batch2", "config4-frame", "config3-obj-frame"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -80,7 +80,9 @@ FAULTS = [("audioapp-live", "state_unchanged"),
           ("sphere1m-4k-batch2", "half_batch"),
           ("sphere1m-4k-batch2", "frame_altered"),
           ("config4-frame", "state_unchanged"),
-          ("config4-frame", "frame_altered")]
+          ("config4-frame", "frame_altered"),
+          ("config3-obj-frame", "state_unchanged"),
+          ("config3-obj-frame", "frame_altered")]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)

@@ -38,6 +38,7 @@ def test_gpubench_the_reference_loads_nothing_of_the_program():
     code = ("import sys, json; sys.path.insert(0, %r)\n"
             "import gpubench.reference.audio, gpubench.reference.frame\n"
             "import gpubench.reference.scene, gpubench.reference.raster\n"
+            "import gpubench.reference.obj\n"
             "print(json.dumps(sorted({m.split('.')[0] for m in "
             "sys.modules})))" % str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,8 +1,9 @@
 """The split frame's readers on synthetic traces built as the harness's
 own are: ``pass_device_ms`` tells the prep's device work from the passes'
 by correlation ids (a graph's kernels carry their ``cudaGraphLaunch``'s),
-and ``pass_roofline``'s least time is a function of ``work_of``'s counts
-alone, whatever kernels the trace names."""
+``pass_roofline``'s least time is a function of ``work_of``'s counts
+alone, whatever kernels the trace names, and ``gbuffer_kernel_ms`` reads
+K3's two launches alone."""
 import pytest
 
 from conftest import BENCH, REPO
@@ -13,7 +14,8 @@ WORK = {"triangles": 14, "width": 1920, "height": 1080,
         "shadow_map_size": 1024, "texture_bytes": 87381 * 16,
         "light": "directional",
         "fragments": {"main": 8.0e6, "shadow": 3.0e5, "shaded": 1.6e6,
-                      "normal_mapped": 1.0e5, "shadow_tested": 1.5e6}}
+                      "normal_mapped": 1.0e5, "textured": 0,
+                      "shadow_tested": 1.5e6}}
 NAMES = {"k1": "(anonymous namespace)::raster_depth_kernel<1>(Args)",
          "k3": "(anonymous namespace)::raster_gbuffer_kernel<4, 4>(Bins)",
          "k7": "sample_bilinear_kernel(Args)",
@@ -171,3 +173,93 @@ def test_gpubench_pass_roofline_counts_the_reference_frames_work():
     assert 0 < c["normal_mapped"] < c["shaded"] <= 160 * 120
     assert 0 < c["shadow_tested"] < c["shaded"]
     assert c["normal_mapped"] + c["shadow_tested"] <= c["shaded"]
+
+
+def test_gpubench_gbuffer_kernel_ms_reads_both_launches_of_k3():
+    """K3's tile launch and split launch, whatever its template arguments;
+    not K3s, not K1, not the chain."""
+    events = split_events()
+    corr = 1000
+    for t0 in (50.0, 500.0):
+        # The split walk's second launch, overlapping the first by 10 us,
+        # and K3s, which is not K3.
+        corr += 2
+        events += [
+            ev("(anonymous namespace)::raster_gbuffer_kernel<1, 8>(Bins)",
+               "kernel", t0 + 200.0, 30.0, corr),
+            ev("(anonymous namespace)::raster_gbuffer_samples_kernel(Bins)",
+               "kernel", t0 + 320.0, 40.0, corr + 1)]
+    # Each frame: K3 over 150..210 and 200..230, the union 80 us.
+    assert reader("gbuffer_kernel_ms").read(view(events)) == \
+        pytest.approx(0.080)
+    fused = {k: "(anonymous namespace)::render_fused_kernel<1, 4>(Args)"
+             for k in NAMES}
+    assert reader("gbuffer_kernel_ms").read(split_trace(names=fused)) \
+        is None
+    assert reader("gbuffer_kernel_ms").read(view(split_events(),
+                                                 frames=0)) is None
+
+
+# Config 4 at 160x120 from its default camera, nothing displaced: the
+# reference's counts as they were before the reference learnt the color
+# texture, which ``pass_roofline``'s least time is made of.
+CONFIG4_SMALL = {"main": 68498, "shadow": 828, "shaded": 15173,
+                 "normal_mapped": 2006, "shadow_tested": 13167}
+
+
+def small_work(name, tmp_path, theta=None, **render):
+    import json
+    import torch
+    from gpubench.harness import check, core, inputs
+    config = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+    config["render"].update(render)
+    for inst in config["instances"]:
+        if "target_tris" in inst["mesh"]:
+            inst["mesh"]["target_tris"] = 10000
+    arrays = inputs.mesh_arrays(config, tmp_path)
+    fi = {"displacement": 0.0} if theta is None else {"displacement": 0.0,
+                                                      "theta": theta}
+    _, counts = check.reference_frame(config, check.reference_arrays(arrays),
+                                      fi, torch.device("cpu"), count=True)
+    return core.work_of(config, arrays, counts)
+
+
+def test_gpubench_config4_work_and_roofline_are_as_before(tmp_path):
+    """Config 4 counts no textured pixel: its work, and so its
+    ``pass_roofline``, reads what it read before the textured term."""
+    spec = reader("pass_roofline")
+    work = small_work("config4-1080p", tmp_path, width=160, height=120,
+                      shadow_map_size=256)
+    assert work["fragments"] == dict(CONFIG4_SMALL, textured=0)
+    b = 96 * 14 + 16 * 160 * 120 + 8 * 256 ** 2 + 16 * sum(
+        4 ** k for k in range(9))
+    c = CONFIG4_SMALL
+    ops = (17 * (c["main"] + c["shadow"]) + 60 * c["shaded"]
+           + 229 * c["normal_mapped"] + 60 * c["shadow_tested"])
+    assert spec.least_seconds(work) == (
+        pytest.approx(max(b / 3.35e12, ops / 67e12)), "bytes")
+    assert spec.least_seconds(dict(work, fragments=dict(
+        c, textured=0)))[0] == spec.least_seconds(work)[0]
+
+
+def test_gpubench_pass_roofline_counts_the_textured_pixels(tmp_path):
+    """A config-3 frame: every shaded pixel takes the color lookup's 133
+    operations on top of its Blinn-Phong under the point light, and the
+    checkerboard's mip chain is read once."""
+    spec = reader("pass_roofline")
+    work = small_work("config3-obj-1080p", tmp_path, theta=3.4,
+                      width=160, height=120)
+    c = work["fragments"]
+    assert work["light"] == "point" and work["shadow_map_size"] == 0
+    assert work["texture_bytes"] == 16 * sum(4 ** k for k in range(10))
+    assert 0 < c["textured"] == c["shaded"] < 160 * 120
+    assert c["normal_mapped"] == c["shadow_tested"] == c["shadow"] == 0
+    assert spec.OPS_COLOR_TEXTURE == 4 + 19 + 3 + 2 * 47 + 13 == 133
+    ops = 17 * c["main"] + (60 + 13 + 133) * c["shaded"]
+    untextured = dict(work, fragments=dict(c, textured=0),
+                      width=1, height=1, triangles=0, texture_bytes=0)
+    textured = dict(untextured, fragments=c)
+    assert spec.least_seconds(textured) == (pytest.approx(ops / 67e12),
+                                            "ops")
+    assert spec.least_seconds(textured)[0] - spec.least_seconds(
+        untextured)[0] == pytest.approx(133 * c["textured"] / 67e12)

@@ -49,18 +49,21 @@ def test_gpubench_reference_track_equals_the_ports():
 
 @pytest.mark.parametrize("name,disp", [("audioapp-1080p", 0.4),
                                        ("sphere1m-4k", 0.03),
-                                       ("config4-1080p", 0.0)])
-def test_gpubench_reference_frame_equals_the_ports_oracle(name, disp):
+                                       ("config4-1080p", 0.0),
+                                       ("config3-obj-1080p", 0.0)])
+def test_gpubench_reference_frame_equals_the_ports_oracle(name, disp,
+                                                          tmp_path):
     from gpubench.harness import check, entries, inputs
     from metalrenderer_tpu_torch.passes import pipeline
     cfg = config(name)
-    arrays = inputs.mesh_arrays(cfg)
+    arrays = inputs.mesh_arrays(cfg, tmp_path)
     fi = {"displacement": disp}
     if name.startswith("audioapp"):
         fi.update(light_color=(1.0, 0.6, 0.2), light_intensity=1.0)
         cfg["light"]["color"] = list(fi["light_color"])
         cfg["instances"][1]["material"]["color"] = list(fi["light_color"])
-    ours = check.reference_frame(cfg, arrays, fi, torch.device("cpu"))
+    ours = check.reference_frame(cfg, check.reference_arrays(arrays), fi,
+                                 torch.device("cpu"))
     scene, camera, lighting, render, shadow, target = entries.port_scene(
         cfg, arrays, "cpu")
     theirs, _ = pipeline.render_frame(scene, camera, lighting, render,
